@@ -1,0 +1,10 @@
+"""Re-export shim (counterpart of ``kmer_denovo_filter_tpu.pipeline``),
+VCF mode only: discovery is a later slice of the port."""
+
+from kmer_denovo_filter_tpu_torch.vcf.pipeline import (  # noqa: F401
+    _collect_child_kmers,
+    _parse_vcf_variants,
+    _write_informative_reads,
+    _write_summary,
+    run_pipeline,
+)

@@ -1,0 +1,59 @@
+"""The port never imports jax.  Checked in a subprocess, because
+tests/conftest.py imports jax into the pytest process."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "kmer_denovo_filter_tpu_torch")
+
+_PROBE = """
+import sys
+import kmer_denovo_filter_tpu_torch
+import kmer_denovo_filter_tpu_torch.cli
+import kmer_denovo_filter_tpu_torch.pipeline
+import kmer_denovo_filter_tpu_torch.engine
+import kmer_denovo_filter_tpu_torch.vcf.pipeline
+import kmer_denovo_filter_tpu_torch.ops._cuda
+import kmer_denovo_filter_tpu_torch.ops.device
+import kmer_denovo_filter_tpu_torch.ops.extract
+import kmer_denovo_filter_tpu_torch.ops.keys
+import kmer_denovo_filter_tpu_torch.ops.probe
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib")))
+bad += sorted(m for m in sys.modules if m in (
+    "kmer_denovo_filter_tpu.engine", "kmer_denovo_filter_tpu.ops.device",
+    "kmer_denovo_filter_tpu.vcf.pipeline",
+    "kmer_denovo_filter_tpu.parallel"))
+print(",".join(bad))
+"""
+
+
+def test_port_modules_import_no_jax():
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ""
+
+
+def test_no_jax_import_in_port_sources():
+    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG):
+        sources += [os.path.join(root, f) for f in files
+                    if f.endswith(".py")]
+    assert len(sources) > 10
+    for path in sources:
+        with open(path) as fh:
+            assert not pattern.search(fh.read()), path
+
+
+def test_chip_smoke_imports_only_the_port():
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        text = fh.read()
+    assert not re.search(
+        r"^\s*(from|import)\s+kmer_denovo_filter_tpu(?!_torch)", text,
+        re.M)
+    assert re.search(r"^\s*from kmer_denovo_filter_tpu_torch", text, re.M)
