@@ -8,27 +8,43 @@ any failure exits non-zero before the result line:
 
 1. Card: ``nvidia-smi`` name and power limit, torch's device name.
 2. Build: nvcc builds the kernels from ``kmer_denovo_filter_tpu_torch/csrc``.
-3. Kernels: K1 (extract_canonical) and K2 (probe_tally) against their
-   plain PyTorch versions on the same card, exact equality, at
-   k in {15, 17, 21, 31} on 32,768 random reads x 152 bp with N bases
-   and ragged lengths; K2 at M in {1, 4,096, 262,144} table keys, half
-   of them drawn from the batch.  Times by CUDA events.
-4. Main path: ``kmer-denovo-torch`` (``cli.vcf_main``) on the GIAB mini
-   trio in ``tests/data/giab``; the three VCF-mode outputs must equal
-   ``tests/goldens`` byte for byte, and both kernels must have been
-   launched during that run.
+3. Kernels against their plain PyTorch versions on the same card,
+   exact equality, on 32,768 random reads x 152 bp with N bases and
+   ragged lengths: K1 (extract_canonical) at k in {15, 17, 21, 31}; at
+   k = 31 and M in {1, 4,096, 262,144, 2**24} table keys (half drawn
+   from the batch) K2 (probe_tally) on the flat windows, K3
+   (probe_tally_weighted) on their batch dedup, K4 (probe_member) on the
+   flat windows and on a stacked group of 8 x 4,096 reads.  Times by
+   CUDA events, beside ``torch.isin`` for K4.
+4. Main path, VCF mode: ``kmer-denovo-torch`` (``cli.vcf_main``) on the
+   GIAB mini trio in ``tests/data/giab``; the three VCF-mode outputs
+   must equal ``tests/goldens`` byte for byte, and K1 and K2 must have
+   been launched during that run.
+4b. Main path, discovery: ``kmer-discovery-torch``
+   (``cli.discovery_main``) on the same trio with the golden fixture's
+   flags; the six text outputs must equal ``tests/goldens/giab_discovery.*``
+   byte for byte, K1, K3 and K4 must have been launched during that
+   run, and nothing may be written into ``tests/data/giab``.
 5. Scale: ``FilteredCounter`` on cuda over 16 batches x 32,768 reads x
    152 bp (synthetic 40x-coverage reads, 0.3 % error, seed 0) against
    4,096- and 262,144-key tables; counts must equal the plain path on
    the same card.  Reads/s for both.
-6. Profile: the phase-5 feed loop once more under ``torch.profiler``;
-   device busy time (union of kernel and copy spans), each device op's
-   ms per batch, and the device's idle share against the loop's wall
-   time with and without the profiler.
+5b. Discovery scale, same batches: the parent filter at M = 2**24,
+   2**27 and 2**28 (all the batches' distinct keys, filled with random
+   keys) in both forms, K1 -> K2 and K1 -> dedup -> K3, each equal to
+   the plain path; the anchoring scan (``scan_reads_for_hits_many``) over groups
+   of 8 x 4,096 reads at M = 2**20, equal to the plain path.  Reads/s.
+6. Profile: the phase-5 and phase-5b loops once more under
+   ``torch.profiler``; device busy time (union of kernel and copy
+   spans), each device op's ms per batch, and the device's idle share
+   against the loop's wall time with and without the profiler.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches in phase 4, its largest deviation from the plain version and
-its time beside the plain version's; the last line is
+launches in phases 4 and 4b, its largest deviation from the plain
+version, its time beside the plain version's, its bound (the larger of
+the bytes this run's data makes it move over 3.35 TB/s and its
+operations over 67 T/s) and the time of a PyTorch call that computes
+the same function where there is one; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -50,8 +66,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 B, L = 32768, 152
 KS = (15, 17, 21, 31)
 TABLE_MS = (1, 4096, 262144)
+BIG_M = 1 << 24
+FILTER_MS = (BIG_M, 1 << 27, 1 << 28)  # 128 MB, 1 GB and 2 GB tables
+GROUP, GROUP_B = 8, 4096
+SCAN_M = 1 << 20
 SCALE_BATCHES = 16
 SCALE_TABLE_MS = (4096, 262144)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
+# H100 SXM float32 peak outside the tensor cores: no integer rate is
+# published, and an int64 compare is no cheaper, so the count over it is
+# a floor
+OPS_PER_S = 67e12
+DISCOVERY_OUTPUTS = ("bed", "kmer_coverage.bedgraph", "read_coverage.bed",
+                     "metrics.json", "summary.txt", "sv.bedpe")
 COVERAGE = 40
 ERROR_RATE = 0.003
 GENOME_BASES = 4 << 20
@@ -83,6 +110,25 @@ def max_abs_err(got, ref):
     return float((got.double() - ref.double()).abs().max())
 
 
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least device time for work
+    that moves *n_bytes* and does *n_ops* operations, at the card's
+    peaks."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def probe_bound(key_bytes, row_bytes, keys, table, sentinel):
+    """Bound of a probe of *keys* into *table*: *key_bytes* per key
+    (inputs and per-key outputs) plus *row_bytes* per distinct table row
+    the keys hit, and ceil(log2(M + 1)) + 1 compares per live key."""
+    rows_hit = int(torch.isin(table, keys).sum())
+    n_ops = int((keys != sentinel).sum()) * (table.numel().bit_length() + 1)
+    return bound(key_bytes * keys.numel() + row_bytes * rows_hit, n_ops)
+
+
 def random_batch(rng):
     """Random codes with ~0.5 % N, 10 % ragged rows, some shorter than k."""
     codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
@@ -93,21 +139,40 @@ def random_batch(rng):
     return codes, lengths
 
 
-def make_table(rng, batch_keys, m, k, sentinel, device):
-    """Sorted unique (m,) int64 table: half batch keys, half random."""
+def make_table(rng, batch_keys, m, k, sentinel, device, n_from=None):
+    """Sorted unique (m,) int64 table: *n_from* (default half) of the
+    distinct live batch keys, the rest random keys, drawn on *device*
+    from a generator seeded by *rng*."""
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 62)))
     live = torch.unique(batch_keys[batch_keys != sentinel])
-    pick = torch.from_numpy(rng.permutation(live.numel())[:max(1, m // 2)])
-    from_batch = live[pick.to(device)]
+    n_from = max(1, m // 2) if n_from is None else n_from
+    from_batch = live[torch.randperm(live.numel(), generator=gen,
+                                     device=device)[:n_from]]
     n_rand = m - from_batch.numel()
-    rand = torch.from_numpy(
-        rng.integers(0, 4 ** k, 2 * n_rand + 16, dtype=np.int64)).to(device)
+    rand = torch.randint(0, 4 ** k, (2 * n_rand + 16,), generator=gen,
+                         device=device)
     rand = torch.unique(rand[~torch.isin(rand, from_batch)])
-    rand = rand[torch.from_numpy(rng.permutation(rand.numel())[:n_rand])
-                .to(device)]
+    rand = rand[torch.randperm(rand.numel(), generator=gen,
+                               device=device)[:n_rand]]
     table = torch.sort(torch.cat([from_batch, rand])).values
     if table.numel() != m or torch.unique(table).numel() != m:
         fail(f"table construction gave {table.numel()} keys, wanted {m}")
     return table
+
+
+def stack_group(batches, fill=4):
+    """(codes, lengths) of a group of batches stacked as the engine's
+    scan_reads_for_hits_many does: rows concatenated, padded to the
+    widest batch with code 4."""
+    width = max(c.shape[1] for c, _ in batches)
+    codes = np.full((sum(c.shape[0] for c, _ in batches), width), fill,
+                    dtype=np.uint8)
+    row = 0
+    for c, _ in batches:
+        codes[row:row + c.shape[0], :c.shape[1]] = c
+        row += c.shape[0]
+    return codes, np.concatenate([l for _, l in batches])
 
 
 def synth_reads(rng, genome, n_reads, read_len):
@@ -122,16 +187,62 @@ def synth_reads(rng, genome, n_reads, read_len):
         1, 4, (n_reads, read_len))) % 4, reads).astype(np.uint8)
 
 
+def profile_loop(label, n_batches, run, wall_unprofiled, card):
+    """Run *run* once more under torch.profiler and print the device's
+    busy time, idle share and per-op device ms per batch."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"[6] profile {label}: the profiler recorded no device "
+              "events; device busy time not measured", flush=True)
+        return
+    busy_us, end = 0.0, float("-inf")
+    per_op = {}
+    for lo, hi, name in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+        per_op[name] = per_op.get(name, 0.0) + (hi - lo)
+    busy = busy_us / 1e6
+    ops = "; ".join(f"{name} {us / 1e3 / n_batches:.4f}"
+                    for name, us in sorted(per_op.items()))
+    print(f"[6] profile {label}: device busy {busy * 1e3:.3f} ms; loop "
+          f"wall {wall_prof * 1e3:.3f} ms profiled, "
+          f"{wall_unprofiled * 1e3:.3f} ms unprofiled; idle share "
+          f"{1 - busy / wall_prof:.4f} profiled, "
+          f"{1 - busy / wall_unprofiled:.4f} against the unprofiled wall; "
+          f"device ms per batch: {ops} ({card})", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA GPU")
     from kmer_denovo_filter_tpu_torch import cli, engine as eng
-    from kmer_denovo_filter_tpu_torch.ops import _cuda, extract, probe
+    from kmer_denovo_filter_tpu_torch.ops import _cuda, extract, member, probe
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 
     cuda = torch.device("cuda", 0)
     sentinel = keys64.SENTINEL
+    counters = {"extract_canonical": (extract, "launches"),
+                "probe_tally": (probe, "launches"),
+                "probe_tally_weighted": (probe, "weighted_launches"),
+                "probe_member": (member, "launches")}
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
 
     # ── 1. card ────────────────────────────────────────────────────
     card = subprocess.run(
@@ -150,7 +261,7 @@ def main():
           flush=True)
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as fh:
         for line in fh:
-            if "ptxas info" in line:
+            if "ptxas info" in line and ("Used" in line or "entry" in line):
                 print("    " + line.strip())
 
     # ── 3. kernels against their plain versions ────────────────────
@@ -158,44 +269,101 @@ def main():
     codes_np, lengths_np = random_batch(rng)
     codes = torch.from_numpy(codes_np).to(cuda)
     lengths = torch.from_numpy(lengths_np).to(cuda)
-    err = {"extract_canonical": 0.0, "probe_tally": 0.0}
+    err = {name: 0.0 for name in counters}
     times = {}
-    for k in KS:
-        got = extract.extract_canonical(codes, lengths, k)
-        ref = dev.extract_canonical_windows(codes, lengths, k)[0]
+
+    def check(name, got, ref, what):
         torch.cuda.synchronize()
         e = max_abs_err(got, ref)
-        err["extract_canonical"] = max(err["extract_canonical"], e)
+        err[name] = max(err[name], e)
         if e:
-            fail(f"K1 extract_canonical differs from plain at k={k}")
+            fail(f"{name} differs from plain at {what}")
+
+    for k in KS:
+        got = extract.extract_canonical(codes, lengths, k)
+        check("extract_canonical", got,
+              dev.extract_canonical_windows(codes, lengths, k)[0], f"k={k}")
         ms = cuda_ms(lambda: extract.extract_canonical(codes, lengths, k))
         plain_ms = cuda_ms(
             lambda: dev.extract_canonical_windows(codes, lengths, k))
-        times[("extract_canonical", k)] = (ms, plain_ms)
+        # codes and lengths read, keys written; ~6 operations a window
+        # (two shift-ors, the min, the validity test)
+        lim = bound(codes.numel() + 4 * B + 8 * got.numel(), 6 * got.numel())
+        times[("extract_canonical", k)] = (ms, plain_ms, lim)
         live = int((got != sentinel).sum())
         print(f"[3] K1 k={k}: equal ({got.numel()} windows, {live} live); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{lim[0]:.4f} ms by {lim[1]}", flush=True)
         flat = got.reshape(-1)
-        for m in TABLE_MS:
+        for m in TABLE_MS + ((BIG_M,) if k == 31 else ()):
             table = make_table(rng, flat, m, k, sentinel, cuda)
             acc = torch.zeros(m, dtype=torch.int64, device=cuda)
             probe.probe_tally(flat, table, acc)
             ref = dev.small_table_tally(table, flat)
-            torch.cuda.synchronize()
-            e = max_abs_err(acc, ref)
-            err["probe_tally"] = max(err["probe_tally"], e)
-            if e:
-                fail(f"K2 probe_tally differs from plain at k={k}, M={m}")
+            check("probe_tally", acc, ref, f"k={k}, M={m}")
             ms = cuda_ms(lambda: probe.probe_tally(flat, table, acc))
             plain_ms = cuda_ms(
                 lambda: acc.add_(dev.small_table_tally(table, flat)))
-            times[("probe_tally", k, m)] = (ms, plain_ms)
+            # keys read; each row hit: key read, count read and written
+            lim = probe_bound(8, 24, flat, table, sentinel)
+            times[("probe_tally", k, m)] = (ms, plain_ms, lim)
             print(f"[3] K2 k={k} M={m}: equal ({int(ref.sum())} hits); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{lim[0]:.4f} ms by {lim[1]}", flush=True)
 
-    # ── 4. main path: kmer-denovo-torch on the GIAB mini trio ──────
+    # K3 and K4 at k = 31: the batch above, its dedup, and a stacked
+    # group of 8 x 4,096 reads of widths 152, 144, ..., 96
+    k = 31
+    flat = extract.extract_canonical(codes, lengths, k).reshape(-1)
+    uniq, weights = dev.dedup_windows(flat)
+    group_np = stack_group([
+        (codes_np[i * GROUP_B:(i + 1) * GROUP_B, :L - 8 * i],
+         np.minimum(lengths_np[i * GROUP_B:(i + 1) * GROUP_B], L - 8 * i))
+        for i in range(GROUP)])
+    flat_g = extract.extract_canonical(
+        *(torch.from_numpy(a).to(cuda) for a in group_np), k).reshape(-1)
+    print(f"[3] k=31 batch: {flat.numel()} windows, {uniq.numel()} distinct "
+          f"after dedup; group of {GROUP} x {GROUP_B} reads: "
+          f"{flat_g.numel()} windows", flush=True)
+    for m in TABLE_MS + (BIG_M,):
+        table = make_table(rng, flat, m, k, sentinel, cuda)
+        acc = torch.zeros(m, dtype=torch.int64, device=cuda)
+        probe.probe_tally_weighted(uniq, weights, table, acc)
+        ref = dev.small_table_tally(table, flat)
+        check("probe_tally_weighted", acc, ref, f"M={m}")
+        ms = cuda_ms(lambda: probe.probe_tally_weighted(uniq, weights,
+                                                        table, acc))
+        plain_ms = cuda_ms(lambda: dev.weighted_tally(table, uniq, weights,
+                                                      acc))
+        dedup_ms = cuda_ms(lambda: dev.dedup_windows(flat))
+        # keys and weights read; each row hit as for K2
+        lim = probe_bound(16, 24, uniq, table, sentinel)
+        times[("probe_tally_weighted", m)] = (ms, plain_ms, lim)
+        print(f"[3] K3 M={m}: equal ({int(ref.sum())} hits); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms "
+              f"by {lim[1]}; the dedup in front {dedup_ms:.4f} ms",
+              flush=True)
+        for form, keys in (("batch", flat), ("group", flat_g)):
+            got = member.probe_member(keys, table)
+            check("probe_member", got, dev.member(table, keys),
+                  f"M={m}, {form}")
+            if not bool(got.any()):
+                fail(f"probe_member found nothing at M={m}, {form}")
+            ms = cuda_ms(lambda: member.probe_member(keys, table))
+            plain_ms = cuda_ms(lambda: dev.member(table, keys))
+            isin_ms = cuda_ms(lambda: torch.isin(keys, table))
+            # keys read, found bytes written; each row hit read
+            lim = probe_bound(9, 8, keys, table, sentinel)
+            times[("probe_member", form, m)] = (ms, plain_ms, isin_ms, lim)
+            print(f"[3] K4 M={m} {form}: equal ({int(got.sum())} found); "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.isin {isin_ms:.4f} ms, bound {lim[0]:.4f} ms by "
+                  f"{lim[1]}", flush=True)
+
+    # ── 4. main path, VCF mode: kmer-denovo-torch on the GIAB trio ──
     giab = os.path.join(REPO, "tests", "data", "giab")
     goldens = os.path.join(REPO, "tests", "goldens")
+    giab_files = sorted(os.listdir(giab))
     out = tempfile.mkdtemp(prefix="kdf_chip_smoke_")
     try:
         argv = [
@@ -208,14 +376,12 @@ def main():
             "--summary", os.path.join(out, "summary.txt"),
             "--proband-id", "HG002",
         ]
-        extract.launches = 0
-        probe.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         cli.vcf_main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"extract_canonical": extract.launches,
-                    "probe_tally": probe.launches}
+        launches_vcf = read_counts()
         with gzip.open(os.path.join(out, "annotated.vcf.gz")) as fh:
             got_vcf = fh.read()
         with gzip.open(os.path.join(goldens, "annotated.vcf.gz")) as fh:
@@ -228,11 +394,50 @@ def main():
                     fail(f"{name} differs from tests/goldens")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in ("extract_canonical", "probe_tally"):
+        if launches_vcf[name] <= 0:
+            fail(f"kernel {name} was not launched on the VCF main path")
     print(f"[4] kmer-denovo-torch: 3 goldens byte-equal in {wall:.3f} s; "
-          f"launches {launches}", flush=True)
+          f"launches {launches_vcf}", flush=True)
+
+    # ── 4b. main path, discovery: kmer-discovery-torch ─────────────
+    out = tempfile.mkdtemp(prefix="kdf_chip_smoke_")
+    try:
+        prefix = os.path.join(out, "giab_discovery")
+        argv = [
+            "--child", os.path.join(giab, "HG002_child.bam"),
+            "--mother", os.path.join(giab, "HG004_mother.bam"),
+            "--father", os.path.join(giab, "HG003_father.bam"),
+            "--ref-fasta", os.path.join(giab, "mini_ref.fa"),
+            "--ref-jf", os.path.join(giab, "mini_ref.fa.k31.jf"),
+            "--out-prefix", prefix,
+            "--min-child-count", "3",
+            "--kmer-size", "31",
+            "--candidate-summary", os.path.join(goldens, "summary.txt"),
+        ]
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.discovery_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_disc = read_counts()
+        for suffix in DISCOVERY_OUTPUTS:
+            with open(f"{prefix}.{suffix}", "rb") as a, open(os.path.join(
+                    goldens, f"giab_discovery.{suffix}"), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"giab_discovery.{suffix} differs from "
+                         "tests/goldens")
+        if not os.path.isfile(f"{prefix}.informative.bam.bai"):
+            fail("the informative BAM was not written and indexed")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for name in ("extract_canonical", "probe_tally_weighted", "probe_member"):
+        if launches_disc[name] <= 0:
+            fail(f"kernel {name} was not launched on the discovery path")
+    if sorted(os.listdir(giab)) != giab_files:
+        fail("the main paths wrote into tests/data/giab")
+    print(f"[4b] kmer-discovery-torch: 6 goldens byte-equal in {wall:.3f} s; "
+          f"launches {launches_disc}", flush=True)
 
     # ── 5. scale: FilteredCounter on cuda vs the plain path ────────
     k = 31
@@ -241,32 +446,38 @@ def main():
     batches = [synth_reads(rng, genome, B, L)
                for _ in range(SCALE_BATCHES)]
     lens = np.full(B, L, np.int32)
+    lens_t = torch.from_numpy(lens).to(cuda)
     seen = torch.unique(torch.cat([
-        extract.extract_canonical(torch.from_numpy(c).to(cuda),
-                                  torch.from_numpy(lens).to(cuda),
+        extract.extract_canonical(torch.from_numpy(c).to(cuda), lens_t,
                                   k).reshape(-1).unique()
         for c in batches]))
     n_reads = SCALE_BATCHES * B
 
-    def run_kernel_path(index):
-        fc = eng.FilteredCounter(index)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+    def feed_all(fc):
         for c in batches:
             fc.feed(c, lens)
-        res = fc.result()
-        return res, n_reads / (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return fc
+
+    def run_counter(fc):
+        """(counts, reads/s of the feed loop; the one result() copy a
+        real scan makes per BAM is not timed)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        feed_all(fc)
+        rate = n_reads / (time.perf_counter() - t)
+        return fc.result(), rate
 
     def run_plain_path(index):
+        """(the plain path's accumulator on the card, reads/s)."""
         acc = torch.zeros(index.n, dtype=torch.int64, device=cuda)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for c in batches:
-            dev.small_tally_step(
-                index.table, acc, torch.from_numpy(c).to(cuda),
-                torch.from_numpy(lens).to(cuda), k)
-        res = acc.cpu().numpy()
-        return res, n_reads / (time.perf_counter() - t)
+            dev.small_tally_step(index.table, acc,
+                                 torch.from_numpy(c).to(cuda), lens_t, k)
+        torch.cuda.synchronize()
+        return acc, n_reads / (time.perf_counter() - t)
 
     for m in SCALE_TABLE_MS:
         table = make_table(rng, seen, m, k, sentinel, cuda)
@@ -274,72 +485,161 @@ def main():
                               device=cuda)
         if not torch.equal(index.table, table):
             fail("KmerIndex table does not round-trip the int64 keys")
-        run_kernel_path(index)  # warm-up
+        run_counter(eng.FilteredCounter(index))  # warm-up
         run_plain_path(index)
         p1, plain_a = run_plain_path(index)
-        r1, kern_a = run_kernel_path(index)
-        r2, kern_b = run_kernel_path(index)
+        r1, kern_a = run_counter(eng.FilteredCounter(index))
+        r2, kern_b = run_counter(eng.FilteredCounter(index))
         p2, plain_b = run_plain_path(index)
-        for other in (r2, p1, p2):
+        for other in (r2, p1.cpu().numpy(), p2.cpu().numpy()):
             if not np.array_equal(r1, other):
                 fail(f"scale M={m}: FilteredCounter differs from plain")
         print(f"[5] scale M={m}: {n_reads} reads x {L} bp, "
               f"{int(r1.sum())} hits, equal to plain; reads/s kernel "
               f"{kern_a:.1f} / {kern_b:.1f}, plain {plain_a:.1f} / "
               f"{plain_b:.1f} ({card})", flush=True)
+        profile_loop(f"M={m}", SCALE_BATCHES,
+                     lambda: feed_all(eng.FilteredCounter(index)),
+                     n_reads / max(kern_a, kern_b), card)
 
-        # ── 6. profile of the same feed loop ───────────────────────
-        wall_plain = n_reads / max(kern_a, kern_b)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fc = eng.FilteredCounter(index)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for c in batches:
-                fc.feed(c, lens)
-            fc.result()
-            wall_prof = time.perf_counter() - t
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if not spans:
-            print(f"[6] profile M={m}: the profiler recorded no device "
-                  "events; device busy time not measured", flush=True)
-            continue
-        busy_us, end = 0.0, float("-inf")
-        per_op = {}
-        for lo, hi, name in spans:
-            busy_us += max(0.0, hi - max(lo, end))
-            end = max(end, hi)
-            per_op[name] = per_op.get(name, 0.0) + (hi - lo)
-        busy = busy_us / 1e6
-        ops = "; ".join(f"{name} {us / 1e3 / SCALE_BATCHES:.4f}"
-                        for name, us in sorted(per_op.items()))
-        print(f"[6] profile M={m}: device busy {busy * 1e3:.3f} ms; loop "
-              f"wall {wall_prof * 1e3:.3f} ms profiled, "
-              f"{wall_plain * 1e3:.3f} ms unprofiled (phase 5); idle share "
-              f"{1 - busy / wall_prof:.4f} profiled, "
-              f"{1 - busy / wall_plain:.4f} against the unprofiled wall; "
-              f"device ms per batch: {ops} ({card})", flush=True)
+    # ── 5b. discovery scale: parent filter and anchoring scan ──────
+    forms = {"K1->K2": False, "K1->dedup->K3": True}
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    def run_feed(name, index):
+        """(the form's accumulator on the card, reads/s of its feeds)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fc = feed_all(eng.FilteredCounter(index, dedup=forms[name]))
+        return fc.acc, n_reads / (time.perf_counter() - t)
 
-    k1_ms, k1_plain = times[("extract_canonical", 31)]
-    k2_ms, k2_plain = times[("probe_tally", 31, 4096)]
+    for m in FILTER_MS:
+        table = make_table(rng, seen, m, k, sentinel, cuda,
+                           n_from=seen.numel())
+        index = eng.KmerIndex(keys64.keys64_to_words(table, k), k,
+                              device=cuda)
+        del table
+        for name in forms:  # warm-up
+            run_feed(name, index)
+        plain, plain_rate = run_plain_path(index)
+        rates = {name: [] for name in forms}
+        for name in ("K1->K2", "K1->dedup->K3", "K1->dedup->K3", "K1->K2"):
+            acc, rate = run_feed(name, index)
+            rates[name].append(rate)
+            if not torch.equal(acc, plain):
+                fail(f"parent filter {name} at M={m} differs from the "
+                     "plain path")
+            del acc
+        fc = eng.FilteredCounter(index, dedup=True)
+        t = time.perf_counter()
+        fc.result()
+        result_ms = (time.perf_counter() - t) * 1e3
+        print(f"[5b] parent filter M={m} ({seen.numel()} batch keys): "
+              f"{n_reads} reads, {int(plain.sum())} hits, both forms equal "
+              f"to plain; feed reads/s K1->K2 {rates['K1->K2'][0]:.1f} / "
+              f"{rates['K1->K2'][1]:.1f}, K1->dedup->K3 "
+              f"{rates['K1->dedup->K3'][0]:.1f} / "
+              f"{rates['K1->dedup->K3'][1]:.1f}, plain {plain_rate:.1f}; "
+              f"result() of the {8 * m >> 20} MB accumulator "
+              f"{result_ms:.3f} ms ({card})", flush=True)
+        del plain, fc
+        if m in (BIG_M, FILTER_MS[-1]):
+            for name in forms:
+                profile_loop(
+                    f"parent filter M={m} {name} (feed)", SCALE_BATCHES,
+                    lambda: feed_all(eng.FilteredCounter(
+                        index, dedup=forms[name])),
+                    n_reads / max(rates[name]), card)
+        del index
+
+    scan_table = make_table(rng, seen, SCAN_M, k, sentinel, cuda)
+    scan_index = eng.KmerIndex(keys64.keys64_to_words(scan_table, k), k,
+                               device=cuda)
+    small = [(c[i:i + GROUP_B], lens[i:i + GROUP_B])
+             for c in batches for i in range(0, B, GROUP_B)]
+    groups = [small[i:i + GROUP] for i in range(0, len(small), GROUP)]
+    scan_many = eng.make_scanner_many(scan_index)
+
+    def run_scan():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        masks = [scan_many(g) for g in groups]
+        return masks, n_reads / (time.perf_counter() - t)
+
+    def run_scan_plain():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        masks = []
+        for g in groups:
+            gc, gl = stack_group(g)
+            found = dev.small_scan_hits_step(
+                scan_index.table, torch.from_numpy(gc).to(cuda),
+                torch.from_numpy(gl).to(cuda), k).cpu().numpy()
+            masks.append(np.split(found, len(g)))
+        return masks, n_reads / (time.perf_counter() - t)
+
+    run_scan()  # warm-up
+    run_scan_plain()
+    ref_masks, plain_a = run_scan_plain()
+    got_a, scan_a = run_scan()
+    got_b, scan_b = run_scan()
+    _ref_b, plain_b = run_scan_plain()
+    n_found = 0
+    for got in (got_a, got_b):
+        for g_got, g_ref in zip(got, ref_masks):
+            for mask, ref in zip(g_got, g_ref):
+                if not np.array_equal(mask, ref):
+                    fail("anchoring scan differs from the plain path")
+                n_found += int(mask.sum())
+    print(f"[5b] anchoring scan M={SCAN_M}: {len(groups)} groups of "
+          f"{GROUP} x {GROUP_B} reads, {n_found // 2} windows found, equal "
+          f"to plain; reads/s kernel {scan_a:.1f} / {scan_b:.1f}, plain "
+          f"{plain_a:.1f} / {plain_b:.1f} ({card})", flush=True)
+    profile_loop(f"anchoring scan M={SCAN_M}", len(groups),
+                 run_scan, n_reads / max(scan_a, scan_b), card)
+
+    if "jax" in sys.modules or any(
+            m == "kmer_denovo_filter_tpu"
+            or m.startswith("kmer_denovo_filter_tpu.") for m in sys.modules):
+        fail("jax or the JAX package was imported")
+
+    # ── the kernels' line: main-path launches, errors, times, bounds ─
+    k1_ms, k1_plain, k1_lim = times[("extract_canonical", 31)]
+    k2_ms, k2_plain, k2_lim = times[("probe_tally", 31, BIG_M)]
+    k3_ms, k3_plain, k3_lim = times[("probe_tally_weighted", BIG_M)]
+    k4_ms, k4_plain, k4_isin, k4_lim = times[("probe_member", "group",
+                                              BIG_M)]
+    launches = {name: launches_vcf[name] + launches_disc[name]
+                for name in counters}
     report = {"kernels": [
         {"name": "extract_canonical", "route": "cuda",
          "source": "kmer_denovo_filter_tpu_torch/csrc/extract_canonical.cu",
          "replaces": "kmer_denovo_filter_tpu/ops/pallas_extract.py:54",
          "launches": launches["extract_canonical"],
          "max_abs_err": err["extract_canonical"],
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain,
+         "bound_ms": k1_lim[0], "bound_by": k1_lim[1], "library_ms": None},
         {"name": "probe_tally", "route": "cuda",
          "source": "kmer_denovo_filter_tpu_torch/csrc/probe_tally.cu",
          "replaces": "kmer_denovo_filter_tpu/ops/pallas_probe.py:99",
          "launches": launches["probe_tally"],
          "max_abs_err": err["probe_tally"],
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": k2_lim[0], "bound_by": k2_lim[1], "library_ms": None},
+        {"name": "probe_tally_weighted", "route": "cuda",
+         "source": "kmer_denovo_filter_tpu_torch/csrc/probe_tally.cu",
+         "replaces": "kmer_denovo_filter_tpu/ops/pallas_join.py:679",
+         "launches": launches["probe_tally_weighted"],
+         "max_abs_err": err["probe_tally_weighted"],
+         "ms": k3_ms, "plain_ms": k3_plain,
+         "bound_ms": k3_lim[0], "bound_by": k3_lim[1], "library_ms": None},
+        {"name": "probe_member", "route": "cuda",
+         "source": "kmer_denovo_filter_tpu_torch/csrc/probe_member.cu",
+         "replaces": "kmer_denovo_filter_tpu/ops/pallas_join.py:223",
+         "launches": launches["probe_member"],
+         "max_abs_err": err["probe_member"],
+         "ms": k4_ms, "plain_ms": k4_plain,
+         "bound_ms": k4_lim[0], "bound_by": k4_lim[1],
+         "library_ms": k4_isin},
     ]}
     print(card)
     print(json.dumps(report))

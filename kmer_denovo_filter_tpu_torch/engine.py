@@ -1,30 +1,54 @@
-"""Device k-mer engine, slice 1: the filtered counter of the parent scan.
+"""Device k-mer engine of the port: counters, tables and the anchoring scan.
 
-Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
+Counterparts of :mod:`kmer_denovo_filter_tpu.engine`, single device:
 
-* :class:`KmerIndex` (:101) — the sorted child k-mer table, held on the
-  device as one int64 key per row (:mod:`.ops.keys`);
+* :class:`KmerIndex` (:101) — the sorted canonical k-mer table, held on
+  the device as one int64 key per row (:mod:`.ops.keys`), with
+  :meth:`~KmerIndex.membership` / :meth:`~KmerIndex.counts_of` through
+  kernel K4 (``probe_member``);
+* :class:`HostKmerIndex` (:238) and :class:`HostFilteredCounter` (:1201)
+  — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
+  host C++ hash (a table on a CUDA device never goes to the host);
+* :func:`make_membership_index` (:303) — that gate;
+* :class:`StreamCounter` (:335) — ``jellyfish count -C``: K1 window keys,
+  a device sort-count per batch, host merge of the per-batch uniques;
 * :class:`FilteredCounter` (:473) — ``jellyfish count -C --if``: a
-  per-table-row tally of streamed read batches, on the small-table
-  branch of the reference (:913–954, :983–1031);
-* :func:`make_filtered_counter` (:1370), single device only.
+  per-table-row tally, K1 → K2 (VCF mode, :func:`make_filtered_counter`)
+  or K1 → batch dedup → K3 (discovery, :func:`make_parent_filter_counter`);
+* :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
+  (:1065, :1242) — the anchoring scan, K1 → K4.
 
-The device is explicit: it is chosen at the entry point and passed to
-:class:`KmerIndex`; the counter and its kernels run where the table
-lives.  Keys of W > 2 words (k > 31) are not ported yet.
+Host-facing keys stay the JAX package's (M, W) uint32 words, so the
+pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
+become int64 at this boundary.  The device is explicit: chosen at the
+entry point and passed to every table and counter.  Keys of W > 2 words
+(k > 31), sharded counters and scanners are not ported (ROADMAP queue 1
+items 8 and 9).
 
 The reference's ``pad_read_batch`` (engine.py:70) has no counterpart:
 it padded every batch to bound XLA's distinct compiled shapes, and the
-CUDA kernels take any (B, L) without a recompile.
+CUDA kernels take any (B, L) without a recompile.  Nor do its overflow
+ladders: the binary-search kernels have no capacity to overflow.
 """
+
+import logging
+import os
 
 import numpy as np
 import torch
 
-from kmer_denovo_filter_tpu.ops import encode as enc
+from kmer_denovo_filter_tpu_torch.htsio import native
+from kmer_denovo_filter_tpu_torch.ops import device as dev
+from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.extract import extract_canonical
-from kmer_denovo_filter_tpu_torch.ops.probe import probe_tally
+from kmer_denovo_filter_tpu_torch.ops.member import probe_member, probe_rows
+from kmer_denovo_filter_tpu_torch.ops.probe import (
+    probe_tally,
+    probe_tally_weighted,
+)
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(device):
@@ -36,6 +60,22 @@ def resolve_device(device):
             f"device {device} requested but torch.cuda.is_available() "
             "is False")
     return device
+
+
+def _to_device(codes, lengths, device):
+    """Host (B, L) uint8 codes and (B,) lengths as tensors on *device*."""
+    return (torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
+            .to(device),
+            torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32))
+            .to(device))
+
+
+def _window_keys(codes, lengths, k, device):
+    """K1 over one host batch: (B, L - k + 1) int64 keys on *device*,
+    or None when the batch holds no window."""
+    if codes.shape[0] == 0 or codes.shape[1] < k:
+        return None
+    return extract_canonical(*_to_device(codes, lengths, device), k)
 
 
 class KmerIndex:
@@ -66,39 +106,356 @@ class KmerIndex:
     def to_strings(self):
         return enc.keys_to_kmers(self.keys_np, self.k)
 
+    def membership(self, query_keys_np):
+        """bool array: which (N, W) query rows are in the table (K4);
+        sentinel rows are never found."""
+        q = keys64.words_to_keys64(query_keys_np, self.k)
+        return probe_member(q.to(self.device), self.table).cpu().numpy()
+
+    def counts_of(self, query_keys_np):
+        """int64 counts per query row (0 when absent): K4 finds each
+        row's table row on the device, the host gathers its count."""
+        if self.counts_np is None:
+            raise ValueError("index has no counts")
+        q = keys64.words_to_keys64(query_keys_np, self.k)
+        if self.n == 0:
+            return np.zeros(q.shape[0], dtype=np.int64)
+        rows = probe_rows(q.to(self.device), self.table).cpu().numpy()
+        return np.where(rows >= 0, self.counts_np[np.maximum(rows, 0)], 0)
+
+
+class HostKmerIndex:
+    """Host-resident membership index for CPU-device tables over
+    ``KDF_DEVICE_TABLE_BYTES``.
+
+    The analog of the reference's mmap'd jellyfish index (reference
+    kmer_utils.py:124–136): probes run on the multithreaded C++ hash
+    over the int64 keys, or a numpy searchsorted where the native
+    library cannot be built.  Exposes the :class:`KmerIndex` subset the
+    reference subtraction uses (``k``, ``n``, ``membership``,
+    ``counts_of``).
+    """
+
+    def __init__(self, keys_np, k, counts_np=None):
+        keys64.check_k(k)
+        self.k = k
+        self.w = enc.words_per_kmer(k)
+        self.keys_np = np.ascontiguousarray(keys_np, np.uint32)
+        self.counts_np = counts_np
+        self.n = keys_np.shape[0]
+        self._keys = keys64.words_to_keys64(self.keys_np, k).numpy()
+        self._ht = (native.HostHashTable(self._keys.view(np.uint64))
+                    if native.available() else None)
+
+    def _locate(self, query_keys_np):
+        q = keys64.words_to_keys64(query_keys_np, self.k).numpy()
+        if self._ht is not None:
+            found, pos = self._ht.member(q.view(np.uint64),
+                                         want_index=True)
+        elif self.n == 0:
+            found = np.zeros(q.shape[0], dtype=bool)
+            pos = np.zeros(q.shape[0], dtype=np.int64)
+        else:
+            pos = np.minimum(np.searchsorted(self._keys, q), self.n - 1)
+            found = self._keys[pos] == q
+        return found & (q != keys64.SENTINEL), pos
+
+    def membership(self, query_keys_np):
+        return self._locate(query_keys_np)[0]
+
+    def counts_of(self, query_keys_np):
+        if self.counts_np is None:
+            raise ValueError("index has no counts")
+        found, pos = self._locate(query_keys_np)
+        return np.where(found, self.counts_np[pos] if self.n else 0, 0)
+
+
+def _check_card_holds(n_bytes, device, what):
+    """Raise when CUDA *device* cannot allocate *n_bytes* for a table:
+    a table on the card never goes to the host."""
+    free = torch.cuda.mem_get_info(device)[0] + (
+        torch.cuda.memory_reserved(device)
+        - torch.cuda.memory_allocated(device))
+    if n_bytes > free:
+        raise RuntimeError(
+            f"the {what} table needs {n_bytes / 2 ** 30:.2f} GB on "
+            f"{device}, which has {free / 2 ** 30:.2f} GB free; tables "
+            "larger than one card wait for the sharded engine (ROADMAP "
+            "queue 1 item 9)")
+
+
+def _host_resident(n, what):
+    """True (and logged) when an n-key table on the CPU device exceeds
+    ``KDF_DEVICE_TABLE_BYTES`` (the reference's budget, engine.py:299);
+    the host C++ hash then answers it."""
+    budget = os.environ.get("KDF_DEVICE_TABLE_BYTES")
+    if budget is None or 8 * n <= int(budget):
+        return False
+    logger.info("  %s table %d keys (%.2f GB) exceeds "
+                "KDF_DEVICE_TABLE_BYTES (%.2f GB) — host-resident", what, n,
+                8 * n / 2 ** 30, int(budget) / 2 ** 30)
+    return True
+
+
+def make_membership_index(keys_np, k, counts_np=None, *, device):
+    """:class:`KmerIndex` on *device*.  On the CPU device a table over
+    ``KDF_DEVICE_TABLE_BYTES`` becomes a :class:`HostKmerIndex`; on a
+    CUDA device one the card cannot hold raises."""
+    device = resolve_device(device)
+    n = keys_np.shape[0]
+    if device.type == "cuda":
+        _check_card_holds(8 * n, device, "reference")
+    elif _host_resident(n, "reference"):
+        return HostKmerIndex(keys_np, k, counts_np)
+    return KmerIndex(keys_np, k, counts_np, device=device)
+
+
+class StreamCounter:
+    """Canonical k-mer counting over streamed (codes, lengths) batches.
+
+    Each batch: K1 window keys → device sort-count → host (keys, counts)
+    chunk.  The chunks consolidate progressively exactly as in the
+    reference (engine.py:358–389): whenever the pending chunks hold at
+    least as many rows as the consolidated array (and at least
+    ``KDF_MERGE_ROWS``), everything merges by ``enc.unique_with_counts``
+    — here over (N, 1) int64 rows, converted to words in :meth:`result`.
+    """
+
+    def __init__(self, k, *, device):
+        keys64.check_k(k)
+        self.k = k
+        self.w = enc.words_per_kmer(k)
+        self.device = resolve_device(device)
+        self._chunks = []  # pending per-batch (unique (N, 1) keys, counts)
+        self._pending_rows = 0
+        self._merged = None  # consolidated (sorted keys, counts)
+        self._merge_floor = int(os.environ.get(
+            "KDF_MERGE_ROWS", 16 * 1024 * 1024))
+        self.total_windows = 0
+
+    def _consolidate(self):
+        if not self._chunks:
+            return
+        parts = self._chunks
+        if self._merged is not None:
+            parts = [self._merged] + parts
+        all_keys = np.concatenate([c[0] for c in parts], axis=0)
+        all_counts = np.concatenate([c[1] for c in parts], axis=0)
+        self._merged = enc.unique_with_counts(all_keys,
+                                              weights=all_counts)
+        self._chunks = []
+        self._pending_rows = 0
+
+    def feed(self, codes, lengths):
+        win = _window_keys(codes, lengths, self.k, self.device)
+        if win is None:
+            return
+        uk, counts = dev.sort_count(win.reshape(-1))
+        uk = uk.cpu().numpy()[:, None]
+        counts = counts.cpu().numpy()
+        self._chunks.append((uk, counts))
+        self._pending_rows += uk.shape[0]
+        self.total_windows += int(counts.sum())
+        merged_rows = (self._merged[0].shape[0]
+                       if self._merged is not None else 0)
+        if self._pending_rows >= max(self._merge_floor, merged_rows):
+            self._consolidate()
+
+    def feed_sequence(self, seq):
+        """Count k-mers of one long sequence (reference contigs), in
+        chunks of 2**20 bases overlapping by k - 1 so no window is lost
+        (the reference's power-of-two padding of each chunk bounded
+        XLA's compiled shapes and is not needed here)."""
+        codes = enc.ASCII_TO_CODE[
+            np.frombuffer(seq.upper().encode("ascii"), dtype=np.uint8)]
+        chunk = 1 << 20
+        k = self.k
+        n = len(codes)
+        if n < k:
+            return
+        step = chunk - (k - 1)
+        for off in range(0, max(n - k + 1, 1), step):
+            part = codes[off:off + chunk]
+            self.feed(part[None, :], np.array([len(part)], dtype=np.int32))
+
+    def result(self):
+        """Final (sorted unique (M, W) uint32 keys, int64 counts)."""
+        self._consolidate()
+        if self._merged is None:
+            return (np.zeros((0, self.w), dtype=np.uint32),
+                    np.zeros(0, dtype=np.int64))
+        keys, counts = self._merged
+        return keys64.keys64_to_words(keys[:, 0], self.k), counts
+
+    def to_index(self):
+        keys, counts = self.result()
+        return KmerIndex.from_keys_counts(keys, counts, self.k,
+                                          device=self.device)
+
+
+def make_stream_counter(k, *, device):
+    """Single-device :class:`StreamCounter` (the sharded counter is
+    ROADMAP queue 1 item 9)."""
+    return StreamCounter(k, device=device)
+
 
 class FilteredCounter:
-    """Count stream k-mers restricted to a fixed index (``--if`` analog)."""
+    """Count stream k-mers restricted to a fixed index (``--if`` analog).
 
-    def __init__(self, index):
+    Two forms of one tally, both adding into an int64 accumulator IN
+    PLACE (the JAX counter rebinds a new array each step):
+
+    * plain (``dedup=False``): K1 window keys → K2, one probe per window;
+    * dedup-first (``dedup=True``): K1 → :func:`~.ops.device.dedup_windows`
+      (sort + run-length count of the batch) → K3, one probe and one
+      weighted add per distinct key — the reference's large-table branch
+      with dedup on (engine.py:484–504, ``join_tally_step_dedup``).
+    """
+
+    def __init__(self, index, dedup=False):
         self.index = index
+        self.dedup = dedup
         self.acc = torch.zeros(index.n, dtype=torch.int64,
                                device=index.device)
 
     def feed(self, codes, lengths):
-        """Tally one (B, L) uint8 code batch with (B,) lengths.
-
-        Host → device copy, K1 (window keys), then K2 adds the hits
-        into the int64 accumulator IN PLACE — unlike the JAX counter,
-        which rebinds a new accumulator array each step.  The batch goes
-        over unpadded; one narrower than k holds no window.
-        """
-        if codes.shape[0] == 0 or codes.shape[1] < self.index.k:
+        """Tally one (B, L) uint8 code batch with (B,) lengths.  The
+        batch goes over unpadded; one narrower than k holds no window."""
+        win = _window_keys(codes, lengths, self.index.k, self.index.device)
+        if win is None:
             return
-        device = self.index.device
-        codes_t = torch.from_numpy(
-            np.ascontiguousarray(codes, dtype=np.uint8)).to(device)
-        lens_t = torch.from_numpy(
-            np.ascontiguousarray(lengths, dtype=np.int32)).to(device)
-        win = extract_canonical(codes_t, lens_t, self.index.k)
-        probe_tally(win.reshape(-1), self.index.table, self.acc)
+        if self.dedup:
+            keys, weights = dev.dedup_windows(win.reshape(-1))
+            probe_tally_weighted(keys, weights, self.index.table, self.acc)
+        else:
+            probe_tally(win.reshape(-1), self.index.table, self.acc)
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""
         return self.acc.to("cpu", copy=True).numpy()
 
 
+class HostFilteredCounter:
+    """``--if`` filtered counter over a host-resident table.
+
+    For filter tables on the CPU device over ``KDF_DEVICE_TABLE_BYTES``:
+    windows are extracted on the CPU and the multithreaded C++ hash
+    answers the random-access tally at host-memory speed (the role the
+    mmap'd jellyfish index plays in the reference, kmer_utils.py:124–136).
+    """
+
+    def __init__(self, keys_np, k):
+        keys64.check_k(k)
+        if not native.available():
+            raise RuntimeError("native library unavailable")
+        self.k = k
+        self.w = enc.words_per_kmer(k)
+        self.keys_np = np.ascontiguousarray(keys_np, np.uint32)
+        self.n = keys_np.shape[0]
+        self._ht = native.HostHashTable(
+            keys64.words_to_keys64(self.keys_np, k).numpy().view(np.uint64))
+        self._tally = np.zeros(self.n, dtype=np.int64)
+
+    def feed(self, codes, lengths):
+        win = _window_keys(codes, lengths, self.k, torch.device("cpu"))
+        if win is None:
+            return
+        # sentinel (INT64_MAX) windows are no table key: they never match
+        self._ht.tally(win.reshape(-1).numpy().view(np.uint64), self._tally)
+
+    def result(self):
+        return self._tally.copy()
+
+
 def make_filtered_counter(index):
-    """Single-device :class:`FilteredCounter` (multi-device sharding is
-    ROADMAP queue 1 item 9)."""
+    """VCF-mode parent scan: the plain K1 → K2 :class:`FilteredCounter`
+    (multi-device sharding is ROADMAP queue 1 item 9)."""
     return FilteredCounter(index)
+
+
+def make_parent_filter_counter(keys_np, k, *, device):
+    """Discovery parent filter (Module 2) built straight from host keys.
+
+    The table becomes a :class:`KmerIndex` on *device* with the
+    dedup-first :class:`FilteredCounter` (reference engine.py:1401,
+    single device).  On a CUDA device it must fit the card (table and
+    accumulator) or this raises; on the CPU device a table over
+    ``KDF_DEVICE_TABLE_BYTES`` goes to :class:`HostFilteredCounter`.
+    """
+    device = resolve_device(device)
+    n = keys_np.shape[0]
+    if device.type == "cuda":
+        _check_card_holds(16 * n, device, "filter")
+    elif _host_resident(n, "filter") and native.available():
+        return HostFilteredCounter(keys_np, k)
+    return FilteredCounter(KmerIndex(keys_np, k, device=device), dedup=True)
+
+
+def scan_reads_for_hits(index, codes, lengths):
+    """Window hit mask of a read batch against *index* (K1 → K4).
+
+    The anchoring-scan primitive (replaces the per-read Aho-Corasick /
+    jellyfish-query loop of reference core/bam_scanner.py:340–507).
+    Returns a (B, L - k + 1) bool numpy array: window *s* of read *b* is
+    a canonical k-mer present in the index.
+    """
+    return scan_reads_for_hits_many(index, [(codes, lengths)])[0]
+
+
+def scan_reads_for_hits_many(index, batches):
+    """Anchoring scan of a GROUP of read batches in one device pass.
+
+    *batches* is a list of ``(codes, lengths)`` numpy pairs.  They are
+    padded to a common width with code 4, stacked into one
+    (sum B_i, L) batch, and run through K1 and K4 once — the
+    counterpart of the reference's one member join per super-batch
+    (``join_member_superbatch_dedup``, kernel 5); the mask is then split
+    back per batch.  Returns a list of (B_i, L_i - k + 1) bool masks.
+    """
+    k = index.k
+    shapes = [(c.shape[0], max(0, c.shape[1] - k + 1)) for c, _ in batches]
+    lmax = max([c.shape[1] for c, _ in batches] + [k])
+    codes = np.full((sum(b for b, _ in shapes), lmax), 4, dtype=np.uint8)
+    lengths = np.concatenate(
+        [np.asarray(l, dtype=np.int32) for _, l in batches]
+        + [np.zeros(0, np.int32)])
+    row = 0
+    for c, _ in batches:
+        codes[row:row + c.shape[0], :c.shape[1]] = c
+        row += c.shape[0]
+    win = _window_keys(codes, lengths, k, index.device)
+    found = (np.zeros((codes.shape[0], lmax - k + 1), dtype=bool)
+             if win is None else
+             probe_member(win.reshape(-1), index.table)
+             .reshape(win.shape).cpu().numpy())
+    out, row = [], 0
+    for b, s in shapes:
+        out.append(found[row:row + b, :s])
+        row += b
+    return out
+
+
+def make_scanner(index):
+    """Anchoring-scan callable for *index* (single device)."""
+
+    def scan(codes, lengths):
+        return scan_reads_for_hits(index, codes, lengths)
+
+    return scan
+
+
+def make_scanner_many(index):
+    """Group-scan callable: list of (codes, lengths) → list of masks."""
+
+    def scan_many(batches):
+        return scan_reads_for_hits_many(index, batches)
+
+    return scan_many
+
+
+def count_reads(read_batches, k, *, device):
+    """Count canonical k-mers across an iterator of (codes, lengths)."""
+    sc = StreamCounter(k, device=device)
+    for codes, lengths in read_batches:
+        sc.feed(codes, lengths)
+    return sc

@@ -23,7 +23,7 @@ counterpart here.
 import numpy as np
 import torch
 
-from kmer_denovo_filter_tpu.ops import encode as enc
+from kmer_denovo_filter_tpu_torch.ops import encode as enc
 
 SENTINEL = torch.iinfo(torch.int64).max
 MAX_K = 31

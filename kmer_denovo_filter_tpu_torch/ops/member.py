@@ -1,0 +1,64 @@
+"""Kernel K4 wrapper: membership of window keys in a sorted table.
+
+Counterpart of the Pallas member joins of
+:mod:`kmer_denovo_filter_tpu.ops.pallas_join`: ``_join_kernel`` (:223,
+one batch, via ``join_member_step`` :478 and ``join_member_step_dedup``
+:1193) and ``_member_kernel_sb`` (:1277, a super-batch of NB batches in
+one join, via ``join_member_superbatch_dedup`` :1386), and of the XLA
+``ops/device.py:small_table_member`` (:313).  The engine's
+``scan_reads_for_hits_many`` stacks a group into one call, the
+counterpart of the super-batch join.  The CUDA kernel is
+``csrc/probe_member.cu``; CPU tensors take the plain PyTorch version
+:func:`~kmer_denovo_filter_tpu_torch.ops.device.member`.
+"""
+
+import torch
+
+from kmer_denovo_filter_tpu_torch.ops import _cuda
+from kmer_denovo_filter_tpu_torch.ops import device as dev
+from kmer_denovo_filter_tpu_torch.ops.probe import check_probe_args
+
+# CUDA kernel launches since import (or since a caller reset it to 0)
+launches = 0
+
+
+def probe_member(keys, table):
+    """(N,) bool: ``keys[i]`` is in *table*; sentinel keys are never found.
+
+    *keys*: (N,) int64.  *table*: (M,) int64 sorted ascending, unique
+    apart from trailing sentinel rows.  A CUDA tensor launches the
+    kernel; a CPU tensor runs the plain version.
+    """
+    if check_probe_args(keys, table, []) == "cpu":
+        return dev.member(table, keys)
+    return _launch(keys, table, torch.bool)
+
+
+def probe_rows(keys, table):
+    """(N,) int64: the row of ``keys[i]`` in *table*, or -1 where it is
+    absent or a sentinel; arguments as for :func:`probe_member`.  The
+    same kernel K4, writing rows instead of found bytes."""
+    if check_probe_args(keys, table, []) == "cpu":
+        return dev.find_rows(table, keys)
+    return _launch(keys, table, torch.int64)
+
+
+def _launch(keys, table, dtype):
+    """K4 over checked CUDA tensors: found bytes (bool) or rows (int64)."""
+    global launches
+    n, m = keys.shape[0], table.shape[0]
+    if m == 0:
+        return torch.full((n,), -1 if dtype == torch.int64 else 0,
+                          dtype=dtype, device=keys.device)
+    out = torch.empty(n, dtype=dtype, device=keys.device)
+    if n == 0:
+        return out
+    found, rows = ((out.data_ptr(), None) if dtype == torch.bool
+                   else (None, out.data_ptr()))
+    with torch.cuda.device(keys.device):
+        err = _cuda.lib().kdf_probe_member(
+            keys.data_ptr(), n, table.data_ptr(), m, found, rows,
+            _cuda.stream_of(keys))
+    _cuda.check(err, "probe_member")
+    launches += 1
+    return out

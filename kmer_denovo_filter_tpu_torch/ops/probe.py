@@ -1,11 +1,21 @@
-"""Kernel K2 wrapper: filtered tally of window keys against a table.
+"""Kernel K2 and K3 wrappers: filtered tallies of window keys against a
+sorted table.
 
-Counterpart of :func:`kmer_denovo_filter_tpu.ops.pallas_probe.pallas_small_tally`
-(Pallas kernel ``_sweep_tally_kernel``, pallas_probe.py:99) and of the
-XLA sweeps ``pallas_join.small_weighted_tally`` (:1016) and
-``ops/device.py:small_table_tally`` (:281).  The CUDA kernel is
-``csrc/probe_tally.cu``; CPU tensors take the plain PyTorch version
-:func:`~kmer_denovo_filter_tpu_torch.ops.device.small_table_tally`.
+K2 (``probe_tally``) is the counterpart of
+:func:`kmer_denovo_filter_tpu.ops.pallas_probe.pallas_small_tally`
+(Pallas kernel ``_sweep_tally_kernel``, pallas_probe.py:99), of the XLA
+sweeps ``pallas_join.small_weighted_tally`` (:1016) and
+``ops/device.py:small_table_tally`` (:281), and of the unweighted tile
+join ``pallas_join._tally_kernel`` (:273, via ``join_tally_step`` :394):
+on its global-memory branch it computes what that kernel computes.
+
+K3 (``probe_tally_weighted``) is the counterpart of the weighted tile
+join ``pallas_join._tally_kernel_w`` (:679, via ``join_tally_step_dedup``
+:808 and ``join_tally_superbatch_dedup`` :915): the tally of a batch's
+compacted (key, weight) stream.
+
+Both kernels are in ``csrc/probe_tally.cu``; CPU tensors take the plain
+PyTorch versions in :mod:`.device`.
 """
 
 import torch
@@ -13,8 +23,37 @@ import torch
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 
-# CUDA kernel launches since import (or since a caller reset it to 0)
-launches = 0
+# CUDA kernel launches since import (or since a caller reset them to 0)
+launches = 0           # K2
+weighted_launches = 0  # K3
+
+
+def check_probe_args(keys, table, others):
+    """Checks shared by the probe wrappers: (N,) int64 *keys*, (M,)
+    int64 *table* with M < 2**31 (the kernels' row index is int32), and
+    *others* ((name, tensor, shape) triples) on one device.  Returns
+    the device type."""
+    if keys.dim() != 1 or table.dim() != 1:
+        raise ValueError(f"expected keys (N,) and table (M,), got "
+                         f"{tuple(keys.shape)} and {tuple(table.shape)}")
+    tensors = [keys, table] + [t for _n, t, _s in others]
+    for name, t, shape in others:
+        if t.shape != shape:
+            raise ValueError(f"expected {name} of shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+    if not all(t.dtype == torch.int64 for t in tensors):
+        raise TypeError("probe tensors must be int64")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("probe tensors on different devices")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {keys.device}")
+    if keys.device.type == "cuda":
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("probe tensors must be contiguous")
+        if table.shape[0] >= 1 << 31:
+            raise ValueError(f"table of {table.shape[0]} keys exceeds the "
+                             "kernels' int32 row index")
+    return keys.device.type
 
 
 def probe_tally(keys, table, acc):
@@ -26,26 +65,10 @@ def probe_tally(keys, table, acc):
     CPU tensor runs the plain version.
     """
     global launches
-    if keys.dim() != 1 or table.dim() != 1 or acc.shape != table.shape:
-        raise ValueError(f"expected keys (N,), table (M,), acc (M,), got "
-                         f"{tuple(keys.shape)}, {tuple(table.shape)}, "
-                         f"{tuple(acc.shape)}")
-    if not all(t.dtype == torch.int64 for t in (keys, table, acc)):
-        raise TypeError("keys, table and acc must be int64")
-    if not keys.device == table.device == acc.device:
-        raise ValueError("keys, table and acc on different devices")
-    if keys.device.type == "cpu":
+    if check_probe_args(keys, table, [("acc", acc, table.shape)]) == "cpu":
         acc += dev.small_table_tally(table, keys)
         return acc
-    if keys.device.type != "cuda":
-        raise ValueError(f"unsupported device {keys.device}")
-    if not (keys.is_contiguous() and table.is_contiguous()
-            and acc.is_contiguous()):
-        raise ValueError("keys, table and acc must be contiguous")
     n, m = keys.shape[0], table.shape[0]
-    if m >= 1 << 31:
-        raise ValueError(f"table of {m} keys exceeds the kernel's int32 "
-                         "row index")
     if n == 0 or m == 0:
         return acc
     with torch.cuda.device(keys.device):
@@ -54,4 +77,29 @@ def probe_tally(keys, table, acc):
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally")
     launches += 1
+    return acc
+
+
+def probe_tally_weighted(keys, weights, table, acc):
+    """``acc[j] += sum(weights[i] : keys[i] == table[j])``, in place;
+    returns *acc*.
+
+    *keys*, *weights*: (N,) int64, normally the distinct keys of a batch
+    and their multiplicities (:func:`.device.dedup_windows`); sentinel
+    keys are skipped.  *table*, *acc* as for :func:`probe_tally`.  A
+    CUDA tensor launches kernel K3; a CPU tensor runs the plain version.
+    """
+    global weighted_launches
+    if check_probe_args(keys, table, [("weights", weights, keys.shape),
+                                      ("acc", acc, table.shape)]) == "cpu":
+        return dev.weighted_tally(table, keys, weights, acc)
+    n, m = keys.shape[0], table.shape[0]
+    if n == 0 or m == 0:
+        return acc
+    with torch.cuda.device(keys.device):
+        err = _cuda.lib().kdf_probe_tally_weighted(
+            keys.data_ptr(), weights.data_ptr(), n, table.data_ptr(), m,
+            acc.data_ptr(), _cuda.stream_of(keys))
+    _cuda.check(err, "probe_tally_weighted")
+    weighted_launches += 1
     return acc

@@ -1,6 +1,8 @@
-"""Re-export shim (counterpart of ``kmer_denovo_filter_tpu.pipeline``),
-VCF mode only: discovery is a later slice of the port."""
+"""Re-export shim (counterpart of ``kmer_denovo_filter_tpu.pipeline``)."""
 
+from kmer_denovo_filter_tpu_torch.discovery.pipeline import (  # noqa: F401
+    run_discovery_pipeline,
+)
 from kmer_denovo_filter_tpu_torch.vcf.pipeline import (  # noqa: F401
     _collect_child_kmers,
     _parse_vcf_variants,

@@ -9,9 +9,9 @@ K2 probe-tally against the child k-mer table.
 
 The host helpers below are copies of the JAX module's (cited at each),
 because that module imports ``engine`` and with it jax; the I/O, k-mer
-and report code they call is imported from the JAX package.  Not
-ported in this slice: multi-host striping and the ``KDF_PROFILE``
-trace (ROADMAP queue 1 items 9 and 10).
+and report code they call is the port's own copy of the JAX package's.
+Not ported: multi-host striping and the ``KDF_PROFILE`` trace (ROADMAP
+queue 1 items 9 and 10).
 """
 
 import collections
@@ -22,24 +22,24 @@ import statistics
 import sys
 import time
 
-from kmer_denovo_filter_tpu.htsio.bam import (
+from kmer_denovo_filter_tpu_torch.htsio.bam import (
     BamWriter,
     open_bam,
     packed_batches,
     resolve_alignment_input,
 )
-from kmer_denovo_filter_tpu.htsio.vcf import (
+from kmer_denovo_filter_tpu_torch.htsio.vcf import (
     VcfReader,
     _select_alt_from_gt,
     write_annotated_vcf,
 )
-from kmer_denovo_filter_tpu.kmer import (
+from kmer_denovo_filter_tpu_torch.kmer import (
     extract_variant_spanning_kmers,
     is_symbolic,
     read_supports_alt,
 )
-from kmer_denovo_filter_tpu.memory_utils import log_disk_usage
-from kmer_denovo_filter_tpu.utils import (
+from kmer_denovo_filter_tpu_torch.memory_utils import log_disk_usage
+from kmer_denovo_filter_tpu_torch.utils import (
     check_tool,
     format_elapsed,
     format_file_size,
@@ -603,7 +603,7 @@ def _run_pipeline_impl(args, device):
     name_map = None
     all_informative_names = set()
     if kraken2_db is not None:
-        from kmer_denovo_filter_tpu.kraken2 import (
+        from kmer_denovo_filter_tpu_torch.kraken2 import (
             Kraken2Runner,
             run_kraken2_on_reads,
         )
@@ -622,7 +622,7 @@ def _run_pipeline_impl(args, device):
                     format_elapsed(time.monotonic() - step_start))
         name_map = Kraken2Runner.load_name_map(kraken2_db)
 
-        from kmer_denovo_filter_tpu.kraken2 import TALLY_CATEGORIES
+        from kmer_denovo_filter_tpu_torch.kraken2 import TALLY_CATEGORIES
 
         # Per-variant contamination fractions (ref vcf/pipeline.py:
         # 1782–1807): for each classification category, the share of
@@ -664,7 +664,7 @@ def _run_pipeline_impl(args, device):
                     len(informative_reads_by_variant))
 
     if kraken2_result is not None:
-        from kmer_denovo_filter_tpu.kraken2_beds import (
+        from kmer_denovo_filter_tpu_torch.kraken2_beds import (
             collect_read_alignment_metadata,
             write_kraken2_expanded_span_bed,
             write_kraken2_read_detail_bed,
@@ -749,7 +749,7 @@ def _run_pipeline_impl(args, device):
     if report_path:
         logger.info("[Report] Generating interactive HTML report: %s",
                     report_path)
-        from kmer_denovo_filter_tpu.report import generate_report
+        from kmer_denovo_filter_tpu_torch.report import generate_report
         generate_report(output_path=report_path,
                         vcf_metrics_path=args.metrics,
                         vcf_summary_path=args.summary,

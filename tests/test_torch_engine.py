@@ -9,7 +9,9 @@ import torch
 
 from kmer_denovo_filter_tpu import engine as jeng
 from kmer_denovo_filter_tpu import kmer as K
+from kmer_denovo_filter_tpu.ops import encode as jenc
 from kmer_denovo_filter_tpu_torch import engine as teng
+from kmer_denovo_filter_tpu_torch.ops import encode as tenc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from tests.test_engine import pack_reads
 
@@ -177,3 +179,160 @@ def test_cuda_device_raises_without_cuda():
 def test_wide_k_not_ported():
     with pytest.raises(NotImplementedError, match="item 8"):
         teng.KmerIndex.from_strings({"A" * 33}, 33, device=CPU)
+
+
+# ── slice 2: stream counter, indexes, dedup-first and host counters ──
+
+
+def _words(kmers, k):
+    return jeng.KmerIndex.from_strings(kmers, k).keys_np
+
+
+@pytest.mark.parametrize("k", [15, 31])
+def test_stream_counter_matches_jax_and_oracle(k, monkeypatch):
+    """Several feeds with a tiny merge floor, so per-batch chunks
+    consolidate more than once."""
+    monkeypatch.setenv("KDF_MERGE_ROWS", "64")
+    stream = _reads(61, 60, k, with_n=True)
+    sc = teng.make_stream_counter(k, device=CPU)
+    jsc = jeng.StreamCounter(k)
+    for lo in range(0, 60, 20):
+        batch, lens = pack_reads(stream[lo:lo + 20])
+        sc.feed(batch, lens)
+        jsc.feed(batch, lens)
+    keys, counts = sc.result()
+    jkeys, jcounts = jsc.result()
+    assert keys.dtype == np.uint32 and keys.shape[1] == (2 * k + 31) // 32
+    assert np.array_equal(keys, jkeys) and np.array_equal(counts, jcounts)
+    assert sc.total_windows == jsc.total_windows == int(counts.sum())
+    oracle = Counter()
+    for s in stream:
+        oracle.update(K.extract_read_kmers(s, k)[0].values())
+    got = dict(zip(tenc.keys_to_kmers(keys, k), counts.tolist()))
+    assert got == dict(oracle)
+    idx = sc.to_index()
+    assert idx.device == CPU and np.array_equal(idx.counts_np, counts)
+
+
+def test_stream_counter_feed_sequence_crosses_chunk_boundary():
+    """A contig longer than the 2**20-base chunk: every window counted
+    once, equal to a host count by the JAX package's numpy encoder (the
+    JAX StreamCounter pads the contig to 1,024 rows, too large for a
+    CPU test)."""
+    k = 31
+    rng = np.random.default_rng(7)
+    codes = rng.integers(0, 4, (1 << 20) + 3000).astype(np.uint8)
+    codes[500] = 4
+    seq = np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
+    sc = teng.StreamCounter(k, device=CPU)
+    sc.feed_sequence(seq)
+    sc.feed_sequence(seq[:k - 1])  # shorter than k: nothing
+    keys, counts = sc.result()
+    windows = np.lib.stride_tricks.sliding_window_view(codes, k)
+    ref_keys, valid = jenc.canonical_keys(windows)
+    ref_keys, ref_counts = jenc.unique_with_counts(ref_keys[valid])
+    assert np.array_equal(keys, ref_keys)
+    assert np.array_equal(counts, ref_counts)
+    assert sc.total_windows == len(seq) - k + 1 - k  # k windows hold the N
+
+
+def test_count_reads_and_empty_result():
+    k = 21
+    assert teng.StreamCounter(k, device=CPU).result()[0].shape == (0, 2)
+    stream = _reads(62, 10, k, with_n=False)
+    sc = teng.count_reads([pack_reads(stream)], k, device=CPU)
+    jsc = jeng.count_reads([pack_reads(stream)], k)
+    assert all(np.array_equal(a, b)
+               for a, b in zip(sc.result(), jsc.result()))
+
+
+def test_index_membership_and_counts_of_match_jax():
+    k = 31
+    kmers = _filter_set(_reads(63, 30, k, with_n=False), k)
+    words = _words(kmers, k)
+    counts = np.arange(1, words.shape[0] + 1, dtype=np.int64)
+    queries = np.concatenate([
+        words[::3], _words(_filter_set(_reads(64, 5, k, False), k), k),
+        np.full((2, 2), 0xFFFFFFFF, np.uint32)])
+    tidx = teng.KmerIndex(words, k, counts, device=CPU)
+    jidx = jeng.KmerIndex(words, k, counts)
+    found = tidx.membership(queries)
+    assert found.any() and not found.all() and not found[-2:].any()
+    assert np.array_equal(found, jidx.membership(queries))
+    assert np.array_equal(tidx.counts_of(queries), jidx.counts_of(queries))
+    hidx = teng.HostKmerIndex(words, k, counts)
+    jhidx = jeng.HostKmerIndex(words, k, counts)
+    assert np.array_equal(hidx.membership(queries), found)
+    assert np.array_equal(hidx.membership(queries),
+                          jhidx.membership(queries))
+    assert np.array_equal(hidx.counts_of(queries), jhidx.counts_of(queries))
+    with pytest.raises(ValueError, match="no counts"):
+        teng.KmerIndex(words, k, device=CPU).counts_of(queries)
+
+
+def test_budget_gate_sends_tables_to_the_host(monkeypatch):
+    k = 31
+    stream = _reads(65, 40, k, with_n=True)
+    words = _words(_filter_set(stream[::2], k), k)
+    assert isinstance(teng.make_membership_index(words, k, device=CPU),
+                      teng.KmerIndex)
+    assert isinstance(teng.make_parent_filter_counter(words, k, device=CPU),
+                      teng.FilteredCounter)
+    monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", str(8 * words.shape[0] - 1))
+    assert isinstance(teng.make_membership_index(words, k, device=CPU),
+                      teng.HostKmerIndex)
+    fc = teng.make_parent_filter_counter(words, k, device=CPU)
+    assert isinstance(fc, teng.HostFilteredCounter)
+    jfc = jeng.HostFilteredCounter(words, k)
+    for lo in range(0, 40, 15):
+        batch, lens = pack_reads(stream[lo:lo + 15])
+        fc.feed(batch, lens)
+        jfc.feed(batch, lens)
+    got = fc.result()
+    assert np.array_equal(got, jfc.result())
+    tidx = teng.KmerIndex(words, k, device=CPU)
+    assert _found(tidx, got) == _oracle(stream, set(tidx.to_strings()), k)
+
+
+def test_card_table_that_does_not_fit_raises(monkeypatch):
+    """On a CUDA device no table goes to the host, whatever
+    ``KDF_DEVICE_TABLE_BYTES`` says: one the card cannot hold (the
+    filter needs its accumulator too) raises before any allocation."""
+    k = 31
+    words = _words(_filter_set(_reads(67, 20, k, with_n=False), k), k)
+    n = words.shape[0]
+    monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device: 24)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device: 16)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: (8 * n - 9, 1 << 40))
+    with pytest.raises(RuntimeError, match="sharded engine"):
+        teng.make_membership_index(words, k, device="cuda")
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: (16 * n - 9, 1 << 40))
+    with pytest.raises(RuntimeError, match="sharded engine"):
+        teng.make_parent_filter_counter(words, k, device="cuda")
+
+
+def test_dedup_first_counter_over_several_feeds():
+    """The discovery parent filter (K1 → dedup → K3) equals the plain
+    K1 → K2 counter and the JAX FilteredCounter, with duplicated reads
+    giving dedup weights above 1."""
+    k = 31
+    stream = _reads(66, 60, k, with_n=True)
+    stream = stream + stream[:20]
+    words = _words(_filter_set(stream[::4], k), k)
+    fc = teng.make_parent_filter_counter(words, k, device=CPU)
+    assert fc.dedup
+    plain = teng.make_filtered_counter(teng.KmerIndex(words, k, device=CPU))
+    assert not plain.dedup
+    jfc = jeng.FilteredCounter(jeng.KmerIndex(words, k))
+    for lo in range(0, 80, 25):
+        batch, lens = pack_reads(stream[lo:lo + 25])
+        for c in (fc, plain, jfc):
+            c.feed(batch, lens)
+    got = fc.result()
+    assert np.array_equal(got, plain.result())
+    assert np.array_equal(got, jfc.result())
+    assert (got > 1).any()

@@ -13,7 +13,7 @@ import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.ops import device as dev
-from kmer_denovo_filter_tpu_torch.ops import extract, probe
+from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 
 pytestmark = pytest.mark.gpu
@@ -81,3 +81,90 @@ def test_filtered_counter_cuda_matches_cpu(cuda):
         results.append(fc.result())
     assert np.array_equal(results[0], results[1])
     assert results[0].sum() > 0
+
+
+def _table_for(keys, m, cuda):
+    """(≈m,) sorted unique int64 table: half batch keys, half random."""
+    live = torch.unique(keys[keys != keys64.SENTINEL])
+    gen = torch.Generator(device="cpu").manual_seed(m)
+    from_batch = live[torch.randperm(live.numel(), generator=gen)[
+        :max(1, m // 2)].to(cuda)]
+    rand = torch.randint(0, 4 ** 31, (m - from_batch.numel(),),
+                         generator=gen).to(cuda)
+    return torch.unique(torch.cat([from_batch, rand]))
+
+
+@pytest.mark.parametrize("m", [1, 777, 6144, 6145, 100_000])
+def test_weighted_probe_kernel_matches_plain(cuda, m):
+    """K3 over a dedup'd batch with duplicated reads (weights > 1)."""
+    codes, lengths = (t.to(cuda) for t in _batch(m))
+    codes = torch.cat([codes, codes[:700]])
+    lengths = torch.cat([lengths, lengths[:700]])
+    win = extract.extract_canonical(codes, lengths, 31).reshape(-1)
+    table = _table_for(win, m, cuda)
+    keys, weights = dev.dedup_windows(win)
+    acc = torch.full((table.numel(),), 3, dtype=torch.int64, device=cuda)
+    before = probe.weighted_launches
+    probe.probe_tally_weighted(keys, weights, table, acc)
+    ref = 3 + dev.small_table_tally(table, win)
+    torch.cuda.synchronize()
+    assert probe.weighted_launches == before + 1
+    assert torch.equal(acc, ref)
+    assert int(ref.max()) > 4
+
+
+@pytest.mark.parametrize("m", [1, 777, 6144, 6145, 100_000])
+def test_member_kernel_matches_plain(cuda, m):
+    codes, lengths = (t.to(cuda) for t in _batch(m + 1))
+    win = extract.extract_canonical(codes, lengths, 31).reshape(-1)
+    table = _table_for(win, m, cuda)
+    before = member.launches
+    got = member.probe_member(win, table)
+    rows = member.probe_rows(win, table)
+    ref = dev.member(table, win)
+    ref_rows = dev.find_rows(table, win)
+    torch.cuda.synchronize()
+    assert member.launches == before + 2
+    assert got.dtype == torch.bool and torch.equal(got, ref)
+    assert rows.dtype == torch.int64 and torch.equal(rows, ref_rows)
+    assert bool(ref.any()) and not bool(ref.all())
+
+
+def test_discovery_engine_cuda_matches_cpu(cuda):
+    """Dedup-first counter and grouped scan on the card equal the CPU."""
+    codes, lengths = _batch(7, n=3000)
+    keys = dev.extract_canonical_windows(codes, lengths, 31)[0]
+    live = torch.unique(keys[keys != keys64.SENTINEL])[::5]
+    words = keys64.keys64_to_words(live, 31)
+    batches = [(codes[i:i + 1000].numpy(), lengths[i:i + 1000].numpy())
+               for i in range(0, 3000, 1000)]
+    counts, masks = [], []
+    for device in (cuda, torch.device("cpu")):
+        fc = eng.make_parent_filter_counter(words, 31, device=device)
+        for c, l in batches:
+            fc.feed(c, l)
+        counts.append(fc.result())
+        masks.append(eng.scan_reads_for_hits_many(
+            eng.KmerIndex(words, 31, device=device), batches))
+    assert np.array_equal(counts[0], counts[1]) and counts[0].sum() > 0
+    assert all(np.array_equal(a, b) for a, b in zip(*masks))
+
+
+def test_cuda_tables_stay_on_the_card(cuda, monkeypatch):
+    """``KDF_DEVICE_TABLE_BYTES`` sends no CUDA table to the host: the
+    index and the parent filter stay on the card, and ``counts_of``
+    (K4 rows) equals the CPU index."""
+    codes, lengths = _batch(11, n=1000)
+    keys = dev.extract_canonical_windows(codes, lengths, 31)[0]
+    live = torch.unique(keys[keys != keys64.SENTINEL])
+    words = keys64.keys64_to_words(live[::3], 31)
+    counts = np.arange(words.shape[0], dtype=np.int64) + 1
+    monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", "1")
+    idx = eng.make_membership_index(words, 31, counts, device=cuda)
+    assert isinstance(idx, eng.KmerIndex) and idx.table.is_cuda
+    fc = eng.make_parent_filter_counter(words, 31, device=cuda)
+    assert isinstance(fc, eng.FilteredCounter) and fc.acc.is_cuda
+    queries = keys64.keys64_to_words(live[::2], 31)
+    cpu_idx = eng.KmerIndex(words, 31, counts, device="cpu")
+    got = idx.counts_of(queries)
+    assert np.array_equal(got, cpu_idx.counts_of(queries)) and got.any()
