@@ -34,18 +34,37 @@ any failure exits non-zero before the result line:
    keys) in both forms, K1 -> K2 and K1 -> dedup -> K3, each equal to
    the plain path; the anchoring scan (``scan_reads_for_hits_many``) over groups
    of 8 x 4,096 reads at M = 2**20, equal to the plain path.  Reads/s.
-6. Profile: the phase-5 and phase-5b loops once more under
+3w. Wide keys (k = 33..207, rows of Q = ceil(k / 31) int64 limbs):
+   K1w (extract_canonical_wide) at k in {33, 63, 127, 151, 201} on
+   32,768 random reads of 152 bp (256 bp at k = 201), with N bases and
+   ragged lengths; at k = 63 and M in {4,096, 262,144, 2**24}, and at
+   k = 201 and M in {4,096, 2**22}, K7 (probe_tally_wide) unweighted on
+   the flat windows and weighted on their dedup, K8 (probe_member_wide)
+   found bytes and rows; the batch dedup both ways (Q stable sorts, the
+   port's form, and ``torch.unique(dim=0)``).  Exact; CUDA events.
+4c. Main path, wide: ``kmer-denovo-torch`` and ``kmer-discovery-torch``
+   with ``--kmer-size 63`` on the GIAB trio, each on a copy of
+   ``mini_ref.fa`` (Module 0 counts the FASTA at k > 31 and caches it
+   beside it); the same pipelines on ``device="cpu"`` (the plain
+   versions) must give byte-equal outputs (3 + 6), and K1w, K7 in both
+   forms and K8 must have been launched during the card runs.
+5c. Wide scale, phase-5 recipe: the parent filter at k = 63, M = 2**24
+   (every distinct key of the 16 batches plus random fill) and at
+   k = 201, M = 2**22 on 3 batches of 256 bp reads, both forms, each
+   equal to the plain path; the anchoring scan at k = 63, M = 2**20,
+   in groups of 8 x 4,096.  Reads/s.
+6. Profile: the phase-5, 5b and 5c loops once more under
    ``torch.profiler``; device busy time (union of kernel and copy
    spans), each device op's ms per batch, and the device's idle share
    against the loop's wall time with and without the profiler.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches in phases 4 and 4b, its largest deviation from the plain
-version, its time beside the plain version's, its bound (the larger of
-the bytes this run's data makes it move over 3.35 TB/s and its
-operations over 67 T/s) and the time of a PyTorch call that computes
-the same function where there is one; the last line is
-``{"ok": true, "device": {...}}``.
+launches in phases 4 and 4b (phase 4c for the wide kernels), its
+largest deviation from the plain version, its time beside the plain
+version's, its bound (the larger of the bytes this run's data makes it
+move over 3.35 TB/s and its operations over 67 T/s) and the time of a
+PyTorch call that computes the same function where there is one; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import gzip
@@ -72,6 +91,11 @@ GROUP, GROUP_B = 8, 4096
 SCAN_M = 1 << 20
 SCALE_BATCHES = 16
 SCALE_TABLE_MS = (4096, 262144)
+KS_WIDE = (33, 63, 127, 151, 201)
+L_K201 = 256  # 2 x 250 bp Illumina reads, as bench.py runs k = 201
+WIDE_TABLE_MS = {63: (4096, 262144, BIG_M), 201: (4096, 1 << 22)}
+WIDE_FILTER_M = {63: BIG_M, 201: 1 << 22}
+WIDE_BATCHES = {63: SCALE_BATCHES, 201: 3}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 # H100 SXM float32 peak outside the tensor cores: no integer rate is
 # published, and an int64 compare is no cheaper, so the count over it is
@@ -129,13 +153,13 @@ def probe_bound(key_bytes, row_bytes, keys, table, sentinel):
     return bound(key_bytes * keys.numel() + row_bytes * rows_hit, n_ops)
 
 
-def random_batch(rng):
+def random_batch(rng, length=L):
     """Random codes with ~0.5 % N, 10 % ragged rows, some shorter than k."""
-    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
-    codes[rng.random((B, L)) < 0.005] = 4
-    lengths = np.full(B, L, np.int32)
+    codes = rng.integers(0, 4, (B, length), dtype=np.uint8)
+    codes[rng.random((B, length)) < 0.005] = 4
+    lengths = np.full(B, length, np.int32)
     ragged = rng.random(B) < 0.1
-    lengths[ragged] = rng.integers(0, L + 1, int(ragged.sum()))
+    lengths[ragged] = rng.integers(0, length + 1, int(ragged.sum()))
     return codes, lengths
 
 
@@ -221,6 +245,373 @@ def profile_loop(label, n_batches, run, wall_unprofiled, card):
           f"device ms per batch: {ops} ({card})", flush=True)
 
 
+def make_table_wide(rng, flat, m, k, device, n_from=None):
+    """Sorted unique (m, Q) limb-row table: *n_from* (default half) of the
+    distinct live rows of *flat*, the rest random rows, drawn on
+    *device* from a generator seeded by *rng*."""
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 62)))
+    live = dev.unique_rows(flat[flat[:, 0] != keys64.SENTINEL])[0]
+    n_from = max(1, m // 2) if n_from is None else n_from
+    from_batch = live[torch.randperm(live.shape[0], generator=gen,
+                                     device=device)[:n_from]]
+    n_rand = m - from_batch.shape[0]
+    rand = torch.stack([torch.randint(0, 4 ** nb, (2 * n_rand + 16,),
+                                      generator=gen, device=device)
+                        for nb in keys64.limb_bases(k)], 1)
+    rand = dev.unique_rows(
+        rand[~dev.member_wide(dev.unique_rows(from_batch)[0], rand)])[0]
+    rand = rand[torch.randperm(rand.shape[0], generator=gen,
+                               device=device)[:n_rand]]
+    table = dev.unique_rows(torch.cat([from_batch, rand]))[0]
+    if table.shape[0] != m:
+        fail(f"wide table construction gave {table.shape[0]} rows, "
+             f"wanted {m}")
+    return table
+
+
+def wide_probe_bound(key_bytes, row_bytes, keys, rows_hit, m):
+    """Bound of a wide probe of (N, Q) *keys* into an M-row table:
+    *key_bytes* per key plus *row_bytes* per distinct table row hit, and
+    (ceil(log2(M + 1)) + 1) * Q compares per live key."""
+    n_live = int((keys[:, 0] != torch.iinfo(torch.int64).max).sum())
+    n_ops = n_live * (m.bit_length() + 1) * keys.shape[1]
+    return bound(key_bytes * keys.shape[0] + row_bytes * rows_hit, n_ops)
+
+
+def phase_3w(rng, cuda, check, times):
+    """Wide kernels against their plain versions, timed beside them."""
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
+    for k in KS_WIDE:
+        length = L_K201 if k == 201 else L
+        codes_np, lengths_np = random_batch(rng, length)
+        codes = torch.from_numpy(codes_np).to(cuda)
+        lengths = torch.from_numpy(lengths_np).to(cuda)
+        got = extract.extract_canonical_wide(codes, lengths, k)
+        check("extract_canonical_wide", got,
+              dev.extract_canonical_windows_wide(codes, lengths, k)[0],
+              f"k={k}")
+        ms = cuda_ms(lambda: extract.extract_canonical_wide(codes, lengths,
+                                                            k))
+        plain_ms = cuda_ms(
+            lambda: dev.extract_canonical_windows_wide(codes, lengths, k))
+        q = got.shape[2]
+        n_win = got.shape[0] * got.shape[1]
+        # codes and lengths read, limb rows written; per window a rolling
+        # shift-or pair per limb and strand, a compare per limb, the
+        # validity test: 5Q + 1 operations
+        lim = bound(codes.numel() + 4 * B + 8 * got.numel(),
+                    (5 * q + 1) * n_win)
+        times[("extract_canonical_wide", k)] = (ms, plain_ms, lim)
+        live = int((got[..., 0] != torch.iinfo(torch.int64).max).sum())
+        print(f"[3w] K1w k={k} Q={q} ({length} bp): equal ({n_win} windows, "
+              f"{live} live); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {lim[0]:.4f} ms by {lim[1]}", flush=True)
+        if k not in WIDE_TABLE_MS:
+            continue
+        flat = got.flatten(0, 1)
+        uniq, weights = dev.dedup_windows_wide(flat)
+        lib_uniq, lib_counts = torch.unique(flat, dim=0, sorted=True,
+                                            return_counts=True)
+        if not (torch.equal(uniq, lib_uniq)
+                and torch.equal(weights, lib_counts)):
+            fail(f"dedup_windows_wide differs from torch.unique at k={k}")
+        sort_ms = cuda_ms(lambda: dev.dedup_windows_wide(flat), reps=5,
+                          warmup=1)
+        unique_ms = cuda_ms(lambda: torch.unique(flat, dim=0, sorted=True,
+                                                 return_counts=True),
+                            reps=3, warmup=1)
+        print(f"[3w] k={k} batch dedup of {flat.shape[0]} rows to "
+              f"{uniq.shape[0]}: Q stable sorts {sort_ms:.4f} ms, "
+              f"torch.unique(dim=0) {unique_ms:.4f} ms", flush=True)
+        for m in WIDE_TABLE_MS[k]:
+            table = make_table_wide(rng, flat, m, k, cuda)
+            reps = 3 if m > 262144 else 20
+            ref = dev.small_table_tally_wide(table, flat)
+            acc = torch.zeros(m, dtype=torch.int64, device=cuda)
+            probe.probe_tally_wide(flat, table, acc)
+            check("probe_tally_wide", acc, ref, f"k={k}, M={m}")
+            acc_w = torch.zeros_like(acc)
+            probe.probe_tally_wide(uniq, table, acc_w, weights)
+            check("probe_tally_wide_weighted", acc_w, ref, f"k={k}, M={m}")
+            found = member.probe_member_wide(flat, table)
+            check("probe_member_wide", found, dev.member_wide(table, flat),
+                  f"k={k}, M={m}")
+            check("probe_member_wide", member.probe_rows_wide(flat, table),
+                  dev.find_rows_wide(table, flat), f"k={k}, M={m}, rows")
+            if not bool(found.any()):
+                fail(f"probe_member_wide found nothing at k={k}, M={m}")
+            rows_hit = int((ref > 0).sum())
+            # keys (and weights) read; per row hit its limbs read and its
+            # count read and written (K7), or found bytes written (K8)
+            runs = {
+                "probe_tally_wide": (
+                    lambda: probe.probe_tally_wide(flat, table, acc),
+                    lambda: acc.add_(dev.small_table_tally_wide(table,
+                                                                flat)),
+                    wide_probe_bound(8 * q, 8 * q + 16, flat, rows_hit, m)),
+                "probe_tally_wide_weighted": (
+                    lambda: probe.probe_tally_wide(uniq, table, acc_w,
+                                                   weights),
+                    lambda: dev.weighted_tally_wide(table, uniq, weights,
+                                                    acc_w),
+                    wide_probe_bound(8 * q + 8, 8 * q + 16, uniq, rows_hit,
+                                     m)),
+                "probe_member_wide": (
+                    lambda: member.probe_member_wide(flat, table),
+                    lambda: dev.member_wide(table, flat),
+                    wide_probe_bound(8 * q + 1, 8 * q, flat, rows_hit, m)),
+            }
+            for name, (kernel, plain, lim) in runs.items():
+                ms = cuda_ms(kernel)
+                plain_ms = cuda_ms(plain, reps=reps, warmup=1)
+                times[(name, k, m)] = (ms, plain_ms, lim)
+                print(f"[3w] {name} k={k} M={m}: equal ({rows_hit} rows "
+                      f"hit, {int(ref.sum())} hits); kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms by "
+                      f"{lim[1]}", flush=True)
+            del table, acc, acc_w, ref
+
+
+def phase_4c(cuda, reset_counts, read_counts):
+    """The wide main path on the card, held byte for byte against the
+    same pipelines on the CPU; returns each run's launch counts."""
+    from kmer_denovo_filter_tpu_torch import cli
+    from kmer_denovo_filter_tpu_torch.pipeline import (
+        run_discovery_pipeline,
+        run_pipeline,
+    )
+    giab = os.path.join(REPO, "tests", "data", "giab")
+    giab_files = sorted(os.listdir(giab))
+    k = "63"
+    trio = ["--child", os.path.join(giab, "HG002_child.bam"),
+            "--mother", os.path.join(giab, "HG004_mother.bam"),
+            "--father", os.path.join(giab, "HG003_father.bam")]
+
+    def vcf_argv(out):
+        return trio + [
+            "--vcf", os.path.join(giab, "candidates.vcf.gz"),
+            "--output", os.path.join(out, "annotated.vcf.gz"),
+            "--metrics", os.path.join(out, "metrics.json"),
+            "--summary", os.path.join(out, "summary.txt"),
+            "--proband-id", "HG002", "--kmer-size", k]
+
+    def discovery_argv(out):
+        return trio + [
+            "--ref-fasta", os.path.join(out, "mini_ref.fa"),
+            "--out-prefix", os.path.join(out, "giab_discovery"),
+            "--min-child-count", "3", "--kmer-size", k,
+            "--candidate-summary", os.path.join(out, "summary.txt")]
+
+    root = tempfile.mkdtemp(prefix="kdf_chip_smoke_")
+    try:
+        outs = {}
+        for where in ("card", "cpu"):
+            outs[where] = os.path.join(root, where)
+            os.makedirs(outs[where])
+            for name in ("mini_ref.fa", "mini_ref.fa.fai"):
+                shutil.copy(os.path.join(giab, name), outs[where])
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.vcf_main(vcf_argv(outs["card"]))
+        torch.cuda.synchronize()
+        wall_vcf = time.perf_counter() - t0
+        launches_vcf = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.discovery_main(discovery_argv(outs["card"]))
+        torch.cuda.synchronize()
+        wall_disc = time.perf_counter() - t0
+        launches_disc = read_counts()
+        cpu = torch.device("cpu")
+        t0 = time.perf_counter()
+        run_pipeline(cli.parse_vcf_args(vcf_argv(outs["cpu"])), cpu)
+        run_discovery_pipeline(
+            cli.parse_discovery_args(discovery_argv(outs["cpu"])), cpu)
+        wall_cpu = time.perf_counter() - t0
+        names = ["annotated.vcf.gz", "metrics.json", "summary.txt"] + [
+            f"giab_discovery.{suffix}" for suffix in DISCOVERY_OUTPUTS]
+        for name in names:
+            opener = gzip.open if name.endswith(".gz") else open
+            with opener(os.path.join(outs["card"], name), "rb") as a, \
+                    opener(os.path.join(outs["cpu"], name), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"k=63 {name}: the card run differs from the "
+                         "plain CPU run")
+        for where in outs:
+            if not os.path.isfile(os.path.join(outs[where],
+                                               "mini_ref.fa.k63.kdx.npz")):
+                fail("Module 0 wrote no k=63 reference cache")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, launches in (("extract_canonical_wide", launches_vcf),
+                           ("probe_tally_wide", launches_vcf),
+                           ("extract_canonical_wide", launches_disc),
+                           ("probe_tally_wide_weighted", launches_disc),
+                           ("probe_member_wide", launches_disc)):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the k=63 main path")
+    if sorted(os.listdir(giab)) != giab_files:
+        fail("the k=63 main paths wrote into tests/data/giab")
+    print(f"[4c] k=63: kmer-denovo-torch {wall_vcf:.3f} s, "
+          f"kmer-discovery-torch {wall_disc:.3f} s on the card; 3 + 6 "
+          f"outputs byte-equal to the plain CPU run ({wall_cpu:.3f} s); "
+          f"launches {launches_vcf} / {launches_disc}", flush=True)
+    return launches_vcf, launches_disc
+
+
+def phase_5c(rng, genome, batches_152, cuda, card):
+    """Wide scale: the parent filter at k = 63 and 201 in both forms and
+    the anchoring scan at k = 63, each equal to the plain path.  Returns
+    the profiled loops for phase 6."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    profiles = []
+    forms = {"K1w->K7": False, "K1w->dedup->K7w": True}
+    for k in (63, 201):
+        if k == 201:
+            batches = [synth_reads(rng, genome, B, L_K201)
+                       for _ in range(WIDE_BATCHES[k])]
+        else:
+            batches = batches_152[:WIDE_BATCHES[k]]
+        width = batches[0].shape[1]
+        lens = np.full(B, width, np.int32)
+        lens_t = torch.from_numpy(lens).to(cuda)
+        n_reads = len(batches) * B
+        seen = dev.unique_rows(torch.cat([
+            dev.unique_rows(extract.extract_canonical_wide(
+                torch.from_numpy(c).to(cuda), lens_t, k).flatten(0, 1))[0]
+            for c in batches]))[0]
+        seen = seen[seen[:, 0] != keys64.SENTINEL]
+        m = WIDE_FILTER_M[k]
+        table = make_table_wide(rng, seen, m, k, cuda,
+                                n_from=seen.shape[0])
+        index = eng.KmerIndex(keys64.limbs_to_words(table, k), k,
+                              device=cuda)
+        if not torch.equal(index.table, table):
+            fail("KmerIndex table does not round-trip the limb rows")
+        del table
+
+        def feed_all(fc, batches=batches, lens=lens):
+            for c in batches:
+                fc.feed(c, lens)
+            torch.cuda.synchronize()
+            return fc
+
+        def run_feed(name, index=index, n_reads=n_reads, feed_all=feed_all):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fc = feed_all(eng.FilteredCounter(index, dedup=forms[name]))
+            return fc.acc, n_reads / (time.perf_counter() - t)
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = torch.zeros(index.n, dtype=torch.int64, device=cuda)
+        for c in batches:
+            win = dev.extract_canonical_windows_wide(
+                torch.from_numpy(c).to(cuda), lens_t, k)[0]
+            plain += dev.small_table_tally_wide(index.table,
+                                                win.flatten(0, 1))
+        torch.cuda.synchronize()
+        plain_rate = n_reads / (time.perf_counter() - t)
+        for name in forms:  # warm-up
+            run_feed(name)
+        rates = {name: [] for name in forms}
+        order = list(forms) + list(forms)[::-1]
+        for name in order:
+            acc, rate = run_feed(name)
+            rates[name].append(rate)
+            if not torch.equal(acc, plain):
+                fail(f"parent filter {name} at k={k}, M={m} differs from "
+                     "the plain path")
+            del acc
+        fc = eng.FilteredCounter(index, dedup=True)
+        t = time.perf_counter()
+        fc.result()
+        result_ms = (time.perf_counter() - t) * 1e3
+        a, b = forms
+        print(f"[5c] parent filter k={k} M={m} ({seen.shape[0]} batch keys, "
+              f"{8 * index.table.numel() >> 20} MB table): {n_reads} reads x "
+              f"{width} bp, {int(plain.sum())} hits, both forms equal to "
+              f"plain; feed reads/s {a} {rates[a][0]:.1f} / "
+              f"{rates[a][1]:.1f}, {b} {rates[b][0]:.1f} / "
+              f"{rates[b][1]:.1f}, plain {plain_rate:.1f}; result() of the "
+              f"{8 * m >> 20} MB accumulator {result_ms:.3f} ms ({card})",
+              flush=True)
+        del plain, fc, seen
+        if k == 63:
+            for name in forms:
+                profiles.append((
+                    f"parent filter k=63 M={m} {name} (feed)", len(batches),
+                    lambda name=name, index=index, feed_all=feed_all:
+                    feed_all(eng.FilteredCounter(index, dedup=forms[name])),
+                    n_reads / max(rates[name])))
+        else:
+            del index
+
+    k = 63
+    batches = batches_152
+    lens = np.full(B, L, np.int32)
+    n_reads = len(batches) * B
+    flat = torch.cat([extract.extract_canonical_wide(
+        torch.from_numpy(c).to(cuda), torch.from_numpy(lens).to(cuda),
+        k).flatten(0, 1) for c in batches[:2]])
+    scan_index = eng.KmerIndex(keys64.limbs_to_words(
+        make_table_wide(rng, flat, SCAN_M, k, cuda), k), k, device=cuda)
+    del flat
+    small = [(c[i:i + GROUP_B], lens[i:i + GROUP_B])
+             for c in batches for i in range(0, B, GROUP_B)]
+    groups = [small[i:i + GROUP] for i in range(0, len(small), GROUP)]
+    scan_many = eng.make_scanner_many(scan_index)
+
+    def run_scan():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        masks = [scan_many(g) for g in groups]
+        return masks, n_reads / (time.perf_counter() - t)
+
+    def run_scan_plain():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        masks = []
+        for g in groups:
+            gc, gl = stack_group(g)
+            win = dev.extract_canonical_windows_wide(
+                torch.from_numpy(gc).to(cuda), torch.from_numpy(gl).to(cuda),
+                k)[0]
+            found = dev.member_wide(scan_index.table, win.flatten(0, 1))
+            masks.append(np.split(found.reshape(win.shape[:2]).cpu().numpy(),
+                                  len(g)))
+        return masks, n_reads / (time.perf_counter() - t)
+
+    run_scan()  # warm-up
+    ref_masks, plain_a = run_scan_plain()
+    got_a, scan_a = run_scan()
+    got_b, scan_b = run_scan()
+    _ref_b, plain_b = run_scan_plain()
+    n_found = 0
+    for got in (got_a, got_b):
+        for g_got, g_ref in zip(got, ref_masks):
+            for mask, ref in zip(g_got, g_ref):
+                if not np.array_equal(mask, ref):
+                    fail("k=63 anchoring scan differs from the plain path")
+                n_found += int(mask.sum())
+    if not n_found:
+        fail("k=63 anchoring scan found nothing")
+    print(f"[5c] anchoring scan k=63 M={SCAN_M}: {len(groups)} groups of "
+          f"{GROUP} x {GROUP_B} reads, {n_found // 2} windows found, equal "
+          f"to plain; reads/s kernel {scan_a:.1f} / {scan_b:.1f}, plain "
+          f"{plain_a:.1f} / {plain_b:.1f} ({card})", flush=True)
+    profiles.append((f"anchoring scan k=63 M={SCAN_M}", len(groups),
+                     run_scan, n_reads / max(scan_a, scan_b)))
+    return profiles
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA GPU")
@@ -234,7 +625,12 @@ def main():
     counters = {"extract_canonical": (extract, "launches"),
                 "probe_tally": (probe, "launches"),
                 "probe_tally_weighted": (probe, "weighted_launches"),
-                "probe_member": (member, "launches")}
+                "probe_member": (member, "launches"),
+                "extract_canonical_wide": (extract, "wide_launches"),
+                "probe_tally_wide": (probe, "wide_launches"),
+                "probe_tally_wide_weighted": (probe,
+                                              "wide_weighted_launches"),
+                "probe_member_wide": (member, "wide_launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -360,6 +756,9 @@ def main():
                   f"torch.isin {isin_ms:.4f} ms, bound {lim[0]:.4f} ms by "
                   f"{lim[1]}", flush=True)
 
+    # ── 3w. wide kernels against their plain versions ──────────────
+    phase_3w(rng, cuda, check, times)
+
     # ── 4. main path, VCF mode: kmer-denovo-torch on the GIAB trio ──
     giab = os.path.join(REPO, "tests", "data", "giab")
     goldens = os.path.join(REPO, "tests", "goldens")
@@ -438,6 +837,9 @@ def main():
         fail("the main paths wrote into tests/data/giab")
     print(f"[4b] kmer-discovery-torch: 6 goldens byte-equal in {wall:.3f} s; "
           f"launches {launches_disc}", flush=True)
+
+    # ── 4c. main path, wide: both CLIs at k = 63 ──────────────────
+    launches_wide = phase_4c(cuda, reset_counts, read_counts)
 
     # ── 5. scale: FilteredCounter on cuda vs the plain path ────────
     k = 31
@@ -596,6 +998,12 @@ def main():
           f"{plain_a:.1f} / {plain_b:.1f} ({card})", flush=True)
     profile_loop(f"anchoring scan M={SCAN_M}", len(groups),
                  run_scan, n_reads / max(scan_a, scan_b), card)
+    del scan_index, scan_table, seen
+
+    # ── 5c. wide scale: parent filter at k = 63 and 201, scan ──────
+    for label, n_batches, run, wall in phase_5c(rng, genome, batches, cuda,
+                                                card):
+        profile_loop(label, n_batches, run, wall, card)
 
     if "jax" in sys.modules or any(
             m == "kmer_denovo_filter_tpu"
@@ -610,6 +1018,28 @@ def main():
                                               BIG_M)]
     launches = {name: launches_vcf[name] + launches_disc[name]
                 for name in counters}
+    for name in ("extract_canonical_wide", "probe_tally_wide",
+                 "probe_tally_wide_weighted", "probe_member_wide"):
+        launches[name] = sum(run[name] for run in launches_wide)
+    wide = {name: times[(name, 63, BIG_M)]
+            for name in ("probe_tally_wide", "probe_tally_wide_weighted",
+                         "probe_member_wide")}
+    wide["extract_canonical_wide"] = times[("extract_canonical_wide", 63)]
+    wide_replaces = {
+        "extract_canonical_wide": "kmer_denovo_filter_tpu/ops/device.py:33",
+        "probe_tally_wide": "kmer_denovo_filter_tpu/ops/pallas_join.py:1905",
+        "probe_tally_wide_weighted":
+            "kmer_denovo_filter_tpu/ops/pallas_join.py:1905",
+        "probe_member_wide":
+            "kmer_denovo_filter_tpu/ops/pallas_join.py:1997"}
+    wide_source = {
+        "extract_canonical_wide":
+            "kmer_denovo_filter_tpu_torch/csrc/extract_wide.cu",
+        "probe_tally_wide": "kmer_denovo_filter_tpu_torch/csrc/probe_wide.cu",
+        "probe_tally_wide_weighted":
+            "kmer_denovo_filter_tpu_torch/csrc/probe_wide.cu",
+        "probe_member_wide":
+            "kmer_denovo_filter_tpu_torch/csrc/probe_wide.cu"}
     report = {"kernels": [
         {"name": "extract_canonical", "route": "cuda",
          "source": "kmer_denovo_filter_tpu_torch/csrc/extract_canonical.cu",
@@ -640,7 +1070,12 @@ def main():
          "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_lim[0], "bound_by": k4_lim[1],
          "library_ms": k4_isin},
-    ]}
+    ] + [
+        {"name": name, "route": "cuda", "source": wide_source[name],
+         "replaces": wide_replaces[name], "launches": launches[name],
+         "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": lim[0], "bound_by": lim[1], "library_ms": None}
+        for name, (ms, plain_ms, lim) in wide.items()]}
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

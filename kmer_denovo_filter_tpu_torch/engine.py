@@ -3,12 +3,14 @@
 Counterparts of :mod:`kmer_denovo_filter_tpu.engine`, single device:
 
 * :class:`KmerIndex` (:101) — the sorted canonical k-mer table, held on
-  the device as one int64 key per row (:mod:`.ops.keys`), with
-  :meth:`~KmerIndex.membership` / :meth:`~KmerIndex.counts_of` through
-  kernel K4 (``probe_member``);
+  the device as one int64 key (or one row of int64 limbs) per k-mer
+  (:mod:`.ops.keys`), with :meth:`~KmerIndex.membership` /
+  :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
+  K8 (``probe_member_wide``);
 * :class:`HostKmerIndex` (:238) and :class:`HostFilteredCounter` (:1201)
   — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
-  host C++ hash (a table on a CUDA device never goes to the host);
+  host C++ hash or a numpy search (a table on a CUDA device never goes
+  to the host);
 * :func:`make_membership_index` (:303) — that gate;
 * :class:`StreamCounter` (:335) — ``jellyfish count -C``: K1 window keys,
   a device sort-count per batch, host merge of the per-batch uniques;
@@ -20,15 +22,22 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.engine`, single device:
 
 Host-facing keys stay the JAX package's (M, W) uint32 words, so the
 pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
-become int64 at this boundary.  The device is explicit: chosen at the
-entry point and passed to every table and counter.  Keys of W > 2 words
-(k > 31), sharded counters and scanners are not ported (ROADMAP queue 1
-items 8 and 9).
+become int64 at this boundary (:mod:`.ops.keys`): one int64 per key for
+k <= 31, a row of Q = ceil(k / 31) int64 limbs for k = 33..207.  The
+wide path runs K1w → K7 (tally, unweighted or weighted) and K1w → K8
+(membership, rows) where the narrow one runs K1 → K2/K3 and K1 → K4.
+The device is explicit: chosen at the entry point and passed to every
+table and counter.  Sharded counters and scanners are not ported
+(ROADMAP queue 1 item 9).
 
 The reference's ``pad_read_batch`` (engine.py:70) has no counterpart:
 it padded every batch to bound XLA's distinct compiled shapes, and the
 CUDA kernels take any (B, L) without a recompile.  Nor do its overflow
-ladders: the binary-search kernels have no capacity to overflow.
+ladders: the binary-search kernels have no capacity to overflow.  For
+wide keys that also drops the cross-batch ``_wide_buf`` flush of the
+reference's ``FilteredCounter`` (engine.py:519–521, :868–903), which
+densified window-sparse batches for the ~40-row VMEM windows of its wide
+tile joins: every batch goes to K7 as it comes.
 """
 
 import logging
@@ -41,10 +50,19 @@ from kmer_denovo_filter_tpu_torch.htsio import native
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
-from kmer_denovo_filter_tpu_torch.ops.extract import extract_canonical
-from kmer_denovo_filter_tpu_torch.ops.member import probe_member, probe_rows
+from kmer_denovo_filter_tpu_torch.ops.extract import (
+    extract_canonical,
+    extract_canonical_wide,
+)
+from kmer_denovo_filter_tpu_torch.ops.member import (
+    probe_member,
+    probe_member_wide,
+    probe_rows,
+    probe_rows_wide,
+)
 from kmer_denovo_filter_tpu_torch.ops.probe import (
     probe_tally,
+    probe_tally_wide,
     probe_tally_weighted,
 )
 
@@ -71,11 +89,44 @@ def _to_device(codes, lengths, device):
 
 
 def _window_keys(codes, lengths, k, device):
-    """K1 over one host batch: (B, L - k + 1) int64 keys on *device*,
-    or None when the batch holds no window."""
+    """K1 (K1w) over one host batch: (B, L - k + 1) int64 keys
+    ((B, L - k + 1, Q) limb rows for k > 31) on *device*, or None when
+    the batch holds no window."""
     if codes.shape[0] == 0 or codes.shape[1] < k:
         return None
-    return extract_canonical(*_to_device(codes, lengths, device), k)
+    extract = (extract_canonical if k <= keys64.NARROW_K
+               else extract_canonical_wide)
+    return extract(*_to_device(codes, lengths, device), k)
+
+
+def _key_tensor(keys_np, k):
+    """Host (N, W) uint32 words → (N,) int64 keys, or (N, Q) limb rows
+    for k > 31 (CPU tensor)."""
+    if k <= keys64.NARROW_K:
+        return keys64.words_to_keys64(keys_np, k)
+    return keys64.words_to_limbs(keys_np, k)
+
+
+def _member(keys, table):
+    """K4, or K8 for a (M, Q) table: found bools."""
+    return (probe_member_wide if table.dim() == 2 else probe_member)(
+        keys, table)
+
+
+def _rows(keys, table):
+    """K4, or K8 for a (M, Q) table: table rows, -1 where absent."""
+    return (probe_rows_wide if table.dim() == 2 else probe_rows)(
+        keys, table)
+
+
+def _tally(keys, table, acc, weights=None):
+    """``acc += `` the tally of *keys* (weighted when *weights* is
+    given): K2/K3, or K7 for a (M, Q) table."""
+    if table.dim() == 2:
+        return probe_tally_wide(keys, table, acc, weights)
+    if weights is None:
+        return probe_tally(keys, table, acc)
+    return probe_tally_weighted(keys, weights, table, acc)
 
 
 class KmerIndex:
@@ -90,7 +141,8 @@ class KmerIndex:
         self.keys_np = keys_np
         self.counts_np = counts_np
         self.device = resolve_device(device)
-        self.table = keys64.words_to_keys64(keys_np, k).to(self.device)
+        # (M,) int64 keys, or (M, Q) limb rows for k > 31
+        self.table = _key_tensor(keys_np, k).to(self.device)
 
     @classmethod
     def from_strings(cls, kmers, k, *, device):
@@ -107,20 +159,20 @@ class KmerIndex:
         return enc.keys_to_kmers(self.keys_np, self.k)
 
     def membership(self, query_keys_np):
-        """bool array: which (N, W) query rows are in the table (K4);
-        sentinel rows are never found."""
-        q = keys64.words_to_keys64(query_keys_np, self.k)
-        return probe_member(q.to(self.device), self.table).cpu().numpy()
+        """bool array: which (N, W) query rows are in the table (K4, or
+        K8 for k > 31); sentinel rows are never found."""
+        q = _key_tensor(query_keys_np, self.k)
+        return _member(q.to(self.device), self.table).cpu().numpy()
 
     def counts_of(self, query_keys_np):
-        """int64 counts per query row (0 when absent): K4 finds each
+        """int64 counts per query row (0 when absent): K4 (K8) finds each
         row's table row on the device, the host gathers its count."""
         if self.counts_np is None:
             raise ValueError("index has no counts")
-        q = keys64.words_to_keys64(query_keys_np, self.k)
+        q = _key_tensor(query_keys_np, self.k)
         if self.n == 0:
             return np.zeros(q.shape[0], dtype=np.int64)
-        rows = probe_rows(q.to(self.device), self.table).cpu().numpy()
+        rows = _rows(q.to(self.device), self.table).cpu().numpy()
         return np.where(rows >= 0, self.counts_np[np.maximum(rows, 0)], 0)
 
 
@@ -129,9 +181,11 @@ class HostKmerIndex:
     ``KDF_DEVICE_TABLE_BYTES``.
 
     The analog of the reference's mmap'd jellyfish index (reference
-    kmer_utils.py:124–136): probes run on the multithreaded C++ hash
-    over the int64 keys, or a numpy searchsorted where the native
-    library cannot be built.  Exposes the :class:`KmerIndex` subset the
+    kmer_utils.py:124–136): for k <= 31 probes run on the multithreaded
+    C++ hash over the int64 keys, or a numpy searchsorted where the
+    native library cannot be built; wider keys take a numpy searchsorted
+    over the words' big-endian bytes, as the reference does for W != 2
+    (engine.py:264–278).  Exposes the :class:`KmerIndex` subset the
     reference subtraction uses (``k``, ``n``, ``membership``,
     ``counts_of``).
     """
@@ -143,12 +197,22 @@ class HostKmerIndex:
         self.keys_np = np.ascontiguousarray(keys_np, np.uint32)
         self.counts_np = counts_np
         self.n = keys_np.shape[0]
-        self._keys = keys64.words_to_keys64(self.keys_np, k).numpy()
+        self._keys = self._searchable(self.keys_np)
         self._ht = (native.HostHashTable(self._keys.view(np.uint64))
-                    if native.available() else None)
+                    if native.available() and k <= keys64.NARROW_K
+                    else None)
+
+    def _searchable(self, words):
+        """(N,) keys that sort like the rows of (N, W) *words*: int64
+        keys for k <= 31, else one big-endian byte string per row."""
+        if self.k <= keys64.NARROW_K:
+            return keys64.words_to_keys64(words, self.k).numpy()
+        big = np.ascontiguousarray(np.asarray(words, np.uint32)
+                                   .astype(">u4"))
+        return big.view(f"S{4 * self.w}").ravel()
 
     def _locate(self, query_keys_np):
-        q = keys64.words_to_keys64(query_keys_np, self.k).numpy()
+        q = self._searchable(query_keys_np)
         if self._ht is not None:
             found, pos = self._ht.member(q.view(np.uint64),
                                          want_index=True)
@@ -158,7 +222,8 @@ class HostKmerIndex:
         else:
             pos = np.minimum(np.searchsorted(self._keys, q), self.n - 1)
             found = self._keys[pos] == q
-        return found & (q != keys64.SENTINEL), pos
+        live = (np.asarray(query_keys_np) != keys64.SENTINEL32).any(axis=1)
+        return found & live, pos
 
     def membership(self, query_keys_np):
         return self._locate(query_keys_np)[0]
@@ -184,17 +249,23 @@ def _check_card_holds(n_bytes, device, what):
             "queue 1 item 9)")
 
 
-def _host_resident(n, what):
+def _host_resident(n, k, what):
     """True (and logged) when an n-key table on the CPU device exceeds
     ``KDF_DEVICE_TABLE_BYTES`` (the reference's budget, engine.py:299);
-    the host C++ hash then answers it."""
+    the host then answers it."""
     budget = os.environ.get("KDF_DEVICE_TABLE_BYTES")
-    if budget is None or 8 * n <= int(budget):
+    n_bytes = _key_bytes(k) * n
+    if budget is None or n_bytes <= int(budget):
         return False
     logger.info("  %s table %d keys (%.2f GB) exceeds "
                 "KDF_DEVICE_TABLE_BYTES (%.2f GB) — host-resident", what, n,
-                8 * n / 2 ** 30, int(budget) / 2 ** 30)
+                n_bytes / 2 ** 30, int(budget) / 2 ** 30)
     return True
+
+
+def _key_bytes(k):
+    """Device bytes of one key: 8 per int64 limb."""
+    return 8 * keys64.limbs_per_kmer(k)
 
 
 def make_membership_index(keys_np, k, counts_np=None, *, device):
@@ -204,8 +275,8 @@ def make_membership_index(keys_np, k, counts_np=None, *, device):
     device = resolve_device(device)
     n = keys_np.shape[0]
     if device.type == "cuda":
-        _check_card_holds(8 * n, device, "reference")
-    elif _host_resident(n, "reference"):
+        _check_card_holds(_key_bytes(k) * n, device, "reference")
+    elif _host_resident(n, k, "reference"):
         return HostKmerIndex(keys_np, k, counts_np)
     return KmerIndex(keys_np, k, counts_np, device=device)
 
@@ -213,12 +284,13 @@ def make_membership_index(keys_np, k, counts_np=None, *, device):
 class StreamCounter:
     """Canonical k-mer counting over streamed (codes, lengths) batches.
 
-    Each batch: K1 window keys → device sort-count → host (keys, counts)
-    chunk.  The chunks consolidate progressively exactly as in the
-    reference (engine.py:358–389): whenever the pending chunks hold at
-    least as many rows as the consolidated array (and at least
+    Each batch: K1 (K1w) window keys → device sort-count → host
+    (keys, counts) chunk.  The chunks consolidate progressively exactly
+    as in the reference (engine.py:358–389): whenever the pending chunks
+    hold at least as many rows as the consolidated array (and at least
     ``KDF_MERGE_ROWS``), everything merges by ``enc.unique_with_counts``
-    — here over (N, 1) int64 rows, converted to words in :meth:`result`.
+    — here over (N, Q) int64 limb rows (Q = 1 for k <= 31), converted
+    to words in :meth:`result`.
     """
 
     def __init__(self, k, *, device):
@@ -226,7 +298,7 @@ class StreamCounter:
         self.k = k
         self.w = enc.words_per_kmer(k)
         self.device = resolve_device(device)
-        self._chunks = []  # pending per-batch (unique (N, 1) keys, counts)
+        self._chunks = []  # pending per-batch (unique (N, Q) keys, counts)
         self._pending_rows = 0
         self._merged = None  # consolidated (sorted keys, counts)
         self._merge_floor = int(os.environ.get(
@@ -250,8 +322,12 @@ class StreamCounter:
         win = _window_keys(codes, lengths, self.k, self.device)
         if win is None:
             return
-        uk, counts = dev.sort_count(win.reshape(-1))
-        uk = uk.cpu().numpy()[:, None]
+        if win.dim() == 3:
+            uk, counts = dev.sort_count_wide(win.flatten(0, 1))
+            uk = uk.cpu().numpy()
+        else:
+            uk, counts = dev.sort_count(win.reshape(-1))
+            uk = uk.cpu().numpy()[:, None]
         counts = counts.cpu().numpy()
         self._chunks.append((uk, counts))
         self._pending_rows += uk.shape[0]
@@ -285,6 +361,8 @@ class StreamCounter:
             return (np.zeros((0, self.w), dtype=np.uint32),
                     np.zeros(0, dtype=np.int64))
         keys, counts = self._merged
+        if self.k > keys64.NARROW_K:
+            return keys64.limbs_to_words(keys, self.k), counts
         return keys64.keys64_to_words(keys[:, 0], self.k), counts
 
     def to_index(self):
@@ -310,6 +388,11 @@ class FilteredCounter:
       (sort + run-length count of the batch) → K3, one probe and one
       weighted add per distinct key — the reference's large-table branch
       with dedup on (engine.py:484–504, ``join_tally_step_dedup``).
+
+    For k > 31 the same forms run K1w → K7 unweighted (the reference's
+    ``join_tally_flat_wide``) and K1w →
+    :func:`~.ops.device.dedup_windows_wide` → K7 weighted
+    (``join_tally_flat_wide_dedup``).
     """
 
     def __init__(self, index, dedup=False):
@@ -324,11 +407,14 @@ class FilteredCounter:
         win = _window_keys(codes, lengths, self.index.k, self.index.device)
         if win is None:
             return
+        flat = win.flatten(0, 1)
         if self.dedup:
-            keys, weights = dev.dedup_windows(win.reshape(-1))
-            probe_tally_weighted(keys, weights, self.index.table, self.acc)
+            dedup = (dev.dedup_windows_wide if flat.dim() == 2
+                     else dev.dedup_windows)
+            keys, weights = dedup(flat)
+            _tally(keys, self.index.table, self.acc, weights)
         else:
-            probe_tally(win.reshape(-1), self.index.table, self.acc)
+            _tally(flat, self.index.table, self.acc)
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""
@@ -342,10 +428,13 @@ class HostFilteredCounter:
     windows are extracted on the CPU and the multithreaded C++ hash
     answers the random-access tally at host-memory speed (the role the
     mmap'd jellyfish index plays in the reference, kmer_utils.py:124–136).
+    k <= 31 only, as in the reference (engine.py:1217).
     """
 
     def __init__(self, keys_np, k):
         keys64.check_k(k)
+        if k > keys64.NARROW_K:
+            raise ValueError("host filtered counter requires W <= 2")
         if not native.available():
             raise RuntimeError("native library unavailable")
         self.k = k
@@ -380,19 +469,23 @@ def make_parent_filter_counter(keys_np, k, *, device):
     dedup-first :class:`FilteredCounter` (reference engine.py:1401,
     single device).  On a CUDA device it must fit the card (table and
     accumulator) or this raises; on the CPU device a table over
-    ``KDF_DEVICE_TABLE_BYTES`` goes to :class:`HostFilteredCounter`.
+    ``KDF_DEVICE_TABLE_BYTES`` goes to :class:`HostFilteredCounter` for
+    k <= 31, while a wide table stays on the device, as in the reference
+    (engine.py:1437).
     """
     device = resolve_device(device)
     n = keys_np.shape[0]
     if device.type == "cuda":
-        _check_card_holds(16 * n, device, "filter")
-    elif _host_resident(n, "filter") and native.available():
+        _check_card_holds((_key_bytes(k) + 8) * n, device, "filter")
+    elif (k <= keys64.NARROW_K and _host_resident(n, k, "filter")
+          and native.available()):
         return HostFilteredCounter(keys_np, k)
     return FilteredCounter(KmerIndex(keys_np, k, device=device), dedup=True)
 
 
 def scan_reads_for_hits(index, codes, lengths):
-    """Window hit mask of a read batch against *index* (K1 → K4).
+    """Window hit mask of a read batch against *index* (K1 → K4, or
+    K1w → K8 for k > 31).
 
     The anchoring-scan primitive (replaces the per-read Aho-Corasick /
     jellyfish-query loop of reference core/bam_scanner.py:340–507).
@@ -407,9 +500,10 @@ def scan_reads_for_hits_many(index, batches):
 
     *batches* is a list of ``(codes, lengths)`` numpy pairs.  They are
     padded to a common width with code 4, stacked into one
-    (sum B_i, L) batch, and run through K1 and K4 once — the
-    counterpart of the reference's one member join per super-batch
-    (``join_member_superbatch_dedup``, kernel 5); the mask is then split
+    (sum B_i, L) batch, and run through K1 and K4 (K1w and K8) once —
+    the counterpart of the reference's one member join per super-batch
+    (``join_member_superbatch_dedup``, kernel 5; for k > 31 it joins
+    each batch by ``join_member_step_wide``); the mask is then split
     back per batch.  Returns a list of (B_i, L_i - k + 1) bool masks.
     """
     k = index.k
@@ -426,8 +520,8 @@ def scan_reads_for_hits_many(index, batches):
     win = _window_keys(codes, lengths, k, index.device)
     found = (np.zeros((codes.shape[0], lmax - k + 1), dtype=bool)
              if win is None else
-             probe_member(win.reshape(-1), index.table)
-             .reshape(win.shape).cpu().numpy())
+             _member(win.flatten(0, 1), index.table)
+             .reshape(win.shape[:2]).cpu().numpy())
     out, row = [], 0
     for b, s in shapes:
         out.append(found[row:row + b, :s])

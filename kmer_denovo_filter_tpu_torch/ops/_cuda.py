@@ -119,6 +119,15 @@ def lib():
             so.kdf_probe_member.argtypes = [ptr, i64, ptr, i32, ptr, ptr,
                                             ptr]
             so.kdf_probe_member.restype = i32
+            so.kdf_extract_canonical_wide.argtypes = [ptr, ptr, ptr, i32,
+                                                      i32, i32, ptr]
+            so.kdf_extract_canonical_wide.restype = i32
+            so.kdf_probe_tally_wide.argtypes = [ptr, ptr, i64, ptr, i32, i32,
+                                                ptr, ptr]
+            so.kdf_probe_tally_wide.restype = i32
+            so.kdf_probe_member_wide.argtypes = [ptr, i64, ptr, i32, i32, ptr,
+                                                 ptr, ptr]
+            so.kdf_probe_member_wide.restype = i32
             so.kdf_cuda_error_string.argtypes = [i32]
             so.kdf_cuda_error_string.restype = ctypes.c_char_p
             _lib = so

@@ -16,11 +16,26 @@ hold :data:`~.keys.SENTINEL`, which is never found and never tallied.
 The all-pairs sweeps and tile joins of the JAX package become a binary
 search (``torch.searchsorted``): on a GPU the probe is O(N log M) where
 the TPU sweep was O(N·M).
+
+Wide keys (k = 33..207) are (N, Q) int64 limb rows.  Their functions
+(``*_wide``, the plain versions of kernels K1w, K7 and K8) reduce rows
+to int64 ranks by :func:`unique_rows` (Q stable sorts) and then search
+in one dimension.  The JAX wide path's route hash
+(``pallas_join.route_hash_np``/``_route_hash``), tile partitions
+(``build_tile_partitions_wide``), routing (``_route_wide``), chunk-local
+compaction (``_dedup_compact_wide``) and VMEM window ladders
+(``max_wide_w_part_tally``/``_member``, ``wide_dd_w_part_cap``) are TPU
+workarounds with no counterpart: a binary search has no window and no
+capacity that can overflow.
 """
 
 import torch
 
-from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+from kmer_denovo_filter_tpu_torch.ops.keys import (
+    BASES_PER_LIMB,
+    SENTINEL,
+    limb_bases,
+)
 
 
 def extract_canonical_windows(codes, lengths, k):
@@ -51,12 +66,18 @@ def extract_canonical_windows(codes, lengths, k):
         fwd |= clean[:, i:i + s]
         rc |= comp[:, i:i + s] << (2 * i)
     canon = torch.minimum(fwd, rc)  # k odd: fwd != rc, no ties
+    valid = _valid_windows(bad, lengths, k)
+    return torch.where(valid, canon, SENTINEL), valid
+
+
+def _valid_windows(bad, lengths, k):
+    """(B, S) bool: window free of bad codes and inside its read."""
+    s = bad.shape[1] - k + 1
     n_bad = torch.nn.functional.pad(bad.to(torch.int32).cumsum(1), (1, 0))
     bad_in_window = n_bad[:, k:k + s] - n_bad[:, :s]
-    starts = torch.arange(s, device=codes.device)
-    valid = (bad_in_window == 0) & (
+    starts = torch.arange(s, device=bad.device)
+    return (bad_in_window == 0) & (
         starts[None, :] + k <= lengths[:, None].to(torch.int64))
-    return torch.where(valid, canon, SENTINEL), valid
 
 
 def sort_count(flat):
@@ -150,3 +171,157 @@ def small_scan_hits_step(table, codes, lengths, k):
     against *table* (extract → member)."""
     keys, _valid = extract_canonical_windows(codes, lengths, k)
     return member(table, keys.reshape(-1)).reshape(keys.shape)
+
+
+# ── wide keys (k = 33..207): (N, Q) int64 limb rows (ops/keys.py) ──────
+
+
+def extract_canonical_windows_wide(codes, lengths, k):
+    """Canonical limb rows of every window of a padded read batch.
+
+    The wide counterpart of :func:`extract_canonical_windows` (JAX
+    ``extract_canonical_windows``, its W >= 3 branch), for any odd k the
+    keys carry.  Like the JAX function it packs once per position and
+    slices per limb: ``pack[t]`` holds bases t .. t + 30 and ``rpack[u]``
+    the complements of bases u, u - 1, .., u - 30, so forward limb j of
+    window t is ``pack[t + 31j]`` and reverse-complement limb j (bases
+    ``3 - base[k - 1 - i]``, i = 31j ..) is ``rpack[t + k - 1 - 31j]``,
+    a short last limb shifted down.  The canonical key is the
+    lexicographic minimum of the two limb rows.
+
+    Returns:
+        keys: (B, S, Q) int64; a row of :data:`SENTINEL` where the
+            window holds a code >= 4 or runs past the read's length.
+        valid: (B, S) bool.
+    """
+    b, length = codes.shape
+    s = length - k + 1
+    if s <= 0:
+        raise ValueError(f"reads shorter than k={k}")
+    c = codes.to(torch.int64)
+    bad = c >= 4
+    clean = torch.where(bad, 0, c)
+    span = BASES_PER_LIMB - 1
+    ahead = torch.nn.functional.pad(clean, (0, span))
+    behind = torch.nn.functional.pad(3 - clean, (span, 0))
+    pack = torch.zeros((b, length), dtype=torch.int64, device=codes.device)
+    rpack = torch.zeros_like(pack)
+    for i in range(BASES_PER_LIMB):
+        pack |= ahead[:, i:i + length] << (2 * (span - i))
+        rpack |= behind[:, span - i:span - i + length] << (2 * (span - i))
+    fwd, rc = [], []
+    for j, nb in enumerate(limb_bases(k)):
+        drop = 2 * (BASES_PER_LIMB - nb)
+        first = BASES_PER_LIMB * j
+        fwd.append(pack[:, first:first + s] >> drop)
+        rc.append(rpack[:, k - 1 - first:k - 1 - first + s] >> drop)
+    lt = torch.zeros((b, s), dtype=torch.bool, device=codes.device)
+    eq = torch.ones_like(lt)
+    for f, r in zip(fwd, rc):
+        lt |= eq & (f < r)
+        eq &= f == r
+    valid = _valid_windows(bad, lengths, k)
+    keys = torch.stack([torch.where(valid, torch.where(lt, f, r), SENTINEL)
+                        for f, r in zip(fwd, rc)], dim=-1)
+    return keys, valid
+
+
+def lexsort_rows(rows):
+    """Permutation sorting (N, Q) int64 *rows* lexicographically: Q
+    stable sorts, from the last limb to the first."""
+    order = torch.arange(rows.shape[0], device=rows.device)
+    for j in range(rows.shape[1] - 1, -1, -1):
+        order = order[torch.sort(rows[order, j], stable=True).indices]
+    return order
+
+
+def unique_rows(rows):
+    """``torch.unique(rows, dim=0, sorted=True, return_inverse=True,
+    return_counts=True)`` by :func:`lexsort_rows`: the distinct rows
+    ascending, each input row's index among them, and their counts."""
+    n = rows.shape[0]
+    if n == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=rows.device)
+        return rows, empty, empty
+    order = lexsort_rows(rows)
+    srt = rows[order]
+    new = torch.ones(n, dtype=torch.bool, device=rows.device)
+    new[1:] = (srt[1:] != srt[:-1]).any(1)
+    inverse = torch.empty_like(order)
+    inverse[order] = new.cumsum(0) - 1
+    starts = new.nonzero().squeeze(1)
+    counts = torch.diff(starts, append=starts.new_tensor([n]))
+    return srt[starts], inverse, counts
+
+
+def dedup_windows_wide(flat):
+    """Distinct rows of a flat (N, Q) window stream, ascending (a
+    sentinel row, if any, last), with int64 multiplicities: the batch
+    dedup in front of the weighted K7 (the JAX dedup-first front half,
+    ``pallas_join._dedup_compact_wide``, over the whole batch)."""
+    uniq, _inverse, counts = unique_rows(flat)
+    return uniq, counts
+
+
+def sort_count_wide(flat):
+    """Distinct live rows of a flat (N, Q) window stream, ascending,
+    and their int64 counts; the sentinel row is dropped (JAX
+    ``sort_count`` for W >= 3 plus the StreamCounter's sentinel mask)."""
+    keys, counts = dedup_windows_wide(flat)
+    if keys.shape[0] and bool(keys[-1, 0] == SENTINEL):
+        keys, counts = keys[:-1], counts[:-1]
+    return keys, counts
+
+
+def _locate_wide(table, keys):
+    """Row of each (N, Q) key in the sorted (M, Q) *table* (clamped) and
+    whether it is a live key found there: rows become int64 ranks over
+    table and keys together, then a 1-D search."""
+    m = table.shape[0]
+    ranks = unique_rows(torch.cat([table, keys]))[1]
+    table_ranks, key_ranks = ranks[:m], ranks[m:]
+    idx = torch.searchsorted(table_ranks, key_ranks).clamp_(max=m - 1)
+    return idx, (table_ranks[idx] == key_ranks) & (keys[:, 0] != SENTINEL)
+
+
+def weighted_tally_wide(table, keys, weights, acc):
+    """``acc[j] += sum(weights[i] : keys[i] == table[j])`` over limb rows,
+    in place; returns *acc*.  *table*: (M, Q) int64 sorted (trailing
+    sentinel rows allowed); *keys*: (N, Q); *weights*: (N,) int64;
+    *acc*: (M,) int64.  The plain version of kernel K7, weighted."""
+    if table.shape[0] == 0 or keys.shape[0] == 0:
+        return acc
+    idx, hit = _locate_wide(table, keys)
+    acc.index_add_(0, idx[hit], weights[hit])
+    return acc
+
+
+def small_table_tally_wide(table, flat_keys):
+    """(M,) int64 hit counts of (N, Q) *flat_keys* per row of the sorted
+    (M, Q) *table*: the plain version of kernel K7, unweighted (JAX
+    ``join_tally_flat_wide``)."""
+    counts = torch.zeros(table.shape[0], dtype=torch.int64,
+                         device=table.device)
+    ones = torch.ones(flat_keys.shape[0], dtype=torch.int64,
+                      device=flat_keys.device)
+    return weighted_tally_wide(table, flat_keys, ones, counts)
+
+
+def member_wide(table, keys):
+    """(N,) bool: which (N, Q) *keys* are rows of the sorted (M, Q)
+    *table*; sentinel keys are never found.  The plain version of kernel
+    K8 (JAX ``join_member_step_wide``'s found bits)."""
+    if table.shape[0] == 0:
+        return torch.zeros(keys.shape[0], dtype=torch.bool,
+                           device=keys.device)
+    return _locate_wide(table, keys)[1]
+
+
+def find_rows_wide(table, keys):
+    """(N,) int64: the table row of each (N, Q) key, -1 where it is
+    absent or a sentinel.  The plain version of K8's row output."""
+    if table.shape[0] == 0:
+        return torch.full((keys.shape[0],), -1, dtype=torch.int64,
+                          device=keys.device)
+    idx, hit = _locate_wide(table, keys)
+    return torch.where(hit, idx, -1)

@@ -8,18 +8,30 @@ one join, via ``join_member_superbatch_dedup`` :1386), and of the XLA
 ``ops/device.py:small_table_member`` (:313).  The engine's
 ``scan_reads_for_hits_many`` stacks a group into one call, the
 counterpart of the super-batch join.  The CUDA kernel is
-``csrc/probe_member.cu``; CPU tensors take the plain PyTorch version
-:func:`~kmer_denovo_filter_tpu_torch.ops.device.member`.
+``csrc/probe_member.cu``.
+
+Kernel K8 (``probe_member_wide``, ``probe_rows_wide``) is the wide
+counterpart: (N, Q) int64 limb rows (:mod:`.keys`) against a sorted
+(M, Q) table, replacing ``pallas_join._member_kernel_wide`` (:1997, via
+``join_member_step_wide`` :2216).  Its CUDA kernel is in
+``csrc/probe_wide.cu``.
+
+CPU tensors take the plain PyTorch versions in :mod:`.device`
+(``member``/``find_rows``, ``member_wide``/``find_rows_wide``).
 """
 
 import torch
 
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
-from kmer_denovo_filter_tpu_torch.ops.probe import check_probe_args
+from kmer_denovo_filter_tpu_torch.ops.probe import (
+    check_probe_args,
+    check_wide_probe_args,
+)
 
-# CUDA kernel launches since import (or since a caller reset it to 0)
-launches = 0
+# CUDA kernel launches since import (or since a caller reset them to 0)
+launches = 0       # K4
+wide_launches = 0  # K8
 
 
 def probe_member(keys, table):
@@ -61,4 +73,47 @@ def _launch(keys, table, dtype):
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_member")
     launches += 1
+    return out
+
+
+def probe_member_wide(keys, table):
+    """(N,) bool: row ``keys[i]`` is in *table*; sentinel rows are never
+    found.
+
+    *keys*: (N, Q) int64 limb rows.  *table*: (M, Q) int64 rows
+    ascending, unique apart from trailing sentinel rows.  A CUDA tensor
+    launches kernel K8; a CPU tensor runs the plain version.
+    """
+    if check_wide_probe_args(keys, table, []) == "cpu":
+        return dev.member_wide(table, keys)
+    return _launch_wide(keys, table, torch.bool)
+
+
+def probe_rows_wide(keys, table):
+    """(N,) int64: the table row of ``keys[i]``, or -1 where it is absent
+    or a sentinel; arguments as for :func:`probe_member_wide`.  The same
+    kernel K8, writing rows instead of found bytes."""
+    if check_wide_probe_args(keys, table, []) == "cpu":
+        return dev.find_rows_wide(table, keys)
+    return _launch_wide(keys, table, torch.int64)
+
+
+def _launch_wide(keys, table, dtype):
+    """K8 over checked CUDA tensors: found bytes (bool) or rows (int64)."""
+    global wide_launches
+    n, m = keys.shape[0], table.shape[0]
+    if m == 0:
+        return torch.full((n,), -1 if dtype == torch.int64 else 0,
+                          dtype=dtype, device=keys.device)
+    out = torch.empty(n, dtype=dtype, device=keys.device)
+    if n == 0:
+        return out
+    found, rows = ((out.data_ptr(), None) if dtype == torch.bool
+                   else (None, out.data_ptr()))
+    with torch.cuda.device(keys.device):
+        err = _cuda.lib().kdf_probe_member_wide(
+            keys.data_ptr(), n, table.data_ptr(), m, table.shape[1], found,
+            rows, _cuda.stream_of(keys))
+    _cuda.check(err, "probe_member_wide")
+    wide_launches += 1
     return out

@@ -14,18 +14,28 @@ join ``pallas_join._tally_kernel_w`` (:679, via ``join_tally_step_dedup``
 :808 and ``join_tally_superbatch_dedup`` :915): the tally of a batch's
 compacted (key, weight) stream.
 
-Both kernels are in ``csrc/probe_tally.cu``; CPU tensors take the plain
-PyTorch versions in :mod:`.device`.
+Both kernels are in ``csrc/probe_tally.cu``.
+
+K7 (``probe_tally_wide``) is the counterpart of the wide tile join
+``pallas_join._tally_kernel_wide`` (:1905) in both its forms: unweighted
+via ``join_tally_flat_wide`` (:2180) and weighted via
+``join_tally_flat_wide_dedup`` (:1564).  Keys are (N, Q) int64 limb rows
+(:mod:`.keys`); its CUDA kernel is in ``csrc/probe_wide.cu``.
+
+CPU tensors take the plain PyTorch versions in :mod:`.device`.
 """
 
 import torch
 
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
+from kmer_denovo_filter_tpu_torch.ops.keys import MAX_K, limbs_per_kmer
 
 # CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0           # K2
-weighted_launches = 0  # K3
+launches = 0                # K2
+weighted_launches = 0       # K3
+wide_launches = 0           # K7, unweighted
+wide_weighted_launches = 0  # K7, weighted
 
 
 def check_probe_args(keys, table, others):
@@ -36,6 +46,12 @@ def check_probe_args(keys, table, others):
     if keys.dim() != 1 or table.dim() != 1:
         raise ValueError(f"expected keys (N,) and table (M,), got "
                          f"{tuple(keys.shape)} and {tuple(table.shape)}")
+    return _check_tensors(keys, table, others)
+
+
+def _check_tensors(keys, table, others):
+    """Shapes of *others*, dtypes, one device, contiguity and the table's
+    row count; returns the device type."""
     tensors = [keys, table] + [t for _n, t, _s in others]
     for name, t, shape in others:
         if t.shape != shape:
@@ -102,4 +118,55 @@ def probe_tally_weighted(keys, weights, table, acc):
             acc.data_ptr(), _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally_weighted")
     weighted_launches += 1
+    return acc
+
+
+def check_wide_probe_args(keys, table, others):
+    """Checks shared by the wide probe wrappers: (N, Q) int64 *keys* and
+    (M, Q) int64 *table* with Q in 2..7 (k = 33..207) and M < 2**31,
+    and *others* ((name, tensor, shape) triples) on one device.  Returns
+    the device type."""
+    if keys.dim() != 2 or table.dim() != 2 or keys.shape[1] != table.shape[1]:
+        raise ValueError(f"expected keys (N, Q) and table (M, Q), got "
+                         f"{tuple(keys.shape)} and {tuple(table.shape)}")
+    if not 2 <= table.shape[1] <= limbs_per_kmer(MAX_K):
+        raise ValueError(f"expected Q in 2..{limbs_per_kmer(MAX_K)} limbs, "
+                         f"got {table.shape[1]}")
+    return _check_tensors(keys, table, others)
+
+
+def probe_tally_wide(keys, table, acc, weights=None):
+    """``acc[j] += #{i : keys[i] == table[j]}``, or the sum of
+    ``weights[i]`` over those i when *weights* is given, in place;
+    returns *acc*.
+
+    *keys*: (N, Q) int64 limb rows, sentinel rows skipped.  *table*:
+    (M, Q) int64 rows ascending, unique apart from trailing sentinel
+    rows (which count 0).  *acc*: (M,) int64.  *weights*: (N,) int64,
+    normally the multiplicities of a batch's distinct keys
+    (:func:`.device.dedup_windows_wide`).  A CUDA tensor launches kernel
+    K7; a CPU tensor runs the plain version.
+    """
+    global wide_launches, wide_weighted_launches
+    others = [("acc", acc, table.shape[:1])]
+    if weights is not None:
+        others.append(("weights", weights, keys.shape[:1]))
+    if check_wide_probe_args(keys, table, others) == "cpu":
+        if weights is None:
+            acc += dev.small_table_tally_wide(table, keys)
+            return acc
+        return dev.weighted_tally_wide(table, keys, weights, acc)
+    n, m = keys.shape[0], table.shape[0]
+    if n == 0 or m == 0:
+        return acc
+    with torch.cuda.device(keys.device):
+        err = _cuda.lib().kdf_probe_tally_wide(
+            keys.data_ptr(), None if weights is None else weights.data_ptr(),
+            n, table.data_ptr(), m, table.shape[1], acc.data_ptr(),
+            _cuda.stream_of(keys))
+    _cuda.check(err, "probe_tally_wide")
+    if weights is None:
+        wide_launches += 1
+    else:
+        wide_weighted_launches += 1
     return acc

@@ -177,8 +177,11 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_wide_k_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        teng.KmerIndex.from_strings({"A" * 33}, 33, device=CPU)
+    """k = 33 is a wide index now; k = 209 (W = 14) raises."""
+    idx = teng.KmerIndex.from_strings({"A" * 33}, 33, device=CPU)
+    assert idx.table.shape == (1, 2) and idx.to_strings() == ["A" * 33]
+    with pytest.raises(ValueError, match="W <= 13"):
+        teng.KmerIndex.from_strings({"A" * 209}, 209, device=CPU)
 
 
 # ── slice 2: stream counter, indexes, dedup-first and host counters ──
@@ -336,3 +339,126 @@ def test_dedup_first_counter_over_several_feeds():
     assert np.array_equal(got, plain.result())
     assert np.array_equal(got, jfc.result())
     assert (got > 1).any()
+
+
+# ── slice 3: wide keys (k = 63, Q = 3 limbs) ──────────────────────────
+
+K_WIDE = 63
+
+
+def test_wide_index_membership_and_counts_of_match_jax():
+    k = K_WIDE
+    kmers = _filter_set(_reads(71, 30, k, with_n=False), k)
+    words = _words(kmers, k)
+    counts = np.arange(1, words.shape[0] + 1, dtype=np.int64)
+    queries = np.concatenate([
+        words[::3], _words(_filter_set(_reads(72, 5, k, False), k), k),
+        np.full((2, words.shape[1]), 0xFFFFFFFF, np.uint32)])
+    tidx = teng.KmerIndex(words, k, counts, device=CPU)
+    assert tidx.table.shape == (words.shape[0], 3)
+    jidx = jeng.KmerIndex(words, k, counts)
+    found = tidx.membership(queries)
+    assert found.any() and not found.all() and not found[-2:].any()
+    assert np.array_equal(found, jidx.membership(queries))
+    assert np.array_equal(tidx.counts_of(queries), jidx.counts_of(queries))
+    hidx = teng.HostKmerIndex(words, k, counts)
+    jhidx = jeng.HostKmerIndex(words, k, counts)
+    assert np.array_equal(hidx.membership(queries), found)
+    assert np.array_equal(hidx.counts_of(queries), jhidx.counts_of(queries))
+    assert np.array_equal(hidx.counts_of(queries), tidx.counts_of(queries))
+    empty = teng.KmerIndex(words[:0], k, counts[:0], device=CPU)
+    assert not empty.membership(queries).any()
+    assert not empty.counts_of(queries).any()
+    assert not teng.HostKmerIndex(words[:0], k).membership(queries).any()
+
+
+def test_wide_stream_counter_matches_jax(monkeypatch):
+    """Batches with N bases (several merges under a tiny merge floor)
+    and a short contig through feed_sequence."""
+    monkeypatch.setenv("KDF_MERGE_ROWS", "64")
+    k = K_WIDE
+    stream = _reads(73, 45, k, with_n=True)
+    sc = teng.make_stream_counter(k, device=CPU)
+    jsc = jeng.StreamCounter(k)
+    stream = stream + _reads(79, 15, k, with_n=False) * 2
+    for lo in range(0, 75, 15):
+        batch, lens = pack_reads(stream[lo:lo + 15])
+        sc.feed(batch, lens)
+        jsc.feed(batch, lens)
+    contig = "".join(_reads(74, 30, k, with_n=True))
+    sc.feed_sequence(contig)
+    jsc.feed_sequence(contig)
+    keys, counts = sc.result()
+    jkeys, jcounts = jsc.result()
+    assert keys.dtype == np.uint32 and keys.shape[1] == 4
+    assert np.array_equal(keys, jkeys) and np.array_equal(counts, jcounts)
+    assert sc.total_windows == jsc.total_windows == int(counts.sum())
+    assert (counts > 1).any()
+    idx = sc.to_index()
+    assert idx.table.shape == (keys.shape[0], 3)
+
+
+@pytest.mark.parametrize("dedup", [False, True], ids=["K7", "dedup-K7w"])
+def test_wide_filtered_counter_matches_jax_and_oracle(dedup):
+    """Both forms over several feeds, duplicated reads giving dedup
+    weights above 1, against the JAX FilteredCounter and the oracle."""
+    k = K_WIDE
+    stream = _reads(75, 60, k, with_n=True)
+    stream = stream + stream[:20]
+    filter_set = _filter_set(stream[::4] + _reads(76, 10, k, False), k)
+    words = _words(filter_set, k)
+    if dedup:
+        fc = teng.make_parent_filter_counter(words, k, device=CPU)
+    else:
+        fc = teng.make_filtered_counter(teng.KmerIndex(words, k, device=CPU))
+    assert fc.dedup == dedup
+    jfc = jeng.FilteredCounter(jeng.KmerIndex(words, k))
+    for lo in range(0, 80, 25):
+        batch, lens = pack_reads(stream[lo:lo + 25])
+        fc.feed(batch, lens)
+        jfc.feed(batch, lens)
+    got = fc.result()
+    assert got.shape == (words.shape[0],) and (got > 1).any()
+    assert np.array_equal(got, jfc.result()[:words.shape[0]])
+    assert _found(fc.index, got) == _oracle(stream, filter_set, k)
+
+
+def test_wide_scan_many_matches_jax_per_batch():
+    """A group of batches of different B and L, one narrower than k."""
+    k = K_WIDE
+    stream = _reads(77, 50, k, with_n=False)
+    words = _words(_filter_set(stream[::3], k), k)
+    tidx = teng.KmerIndex(words, k, device=CPU)
+    jidx = jeng.KmerIndex(words, k)
+    batches = [pack_reads(stream[lo:hi])
+               for lo, hi in ((0, 20), (20, 28), (28, 50))]
+    short, short_lens = pack_reads([s[:k - 2] for s in stream[:4]])
+    batches.insert(1, (short, short_lens))
+    masks = teng.make_scanner_many(tidx)(batches)
+    assert masks[1].shape == (4, 0)
+    for (codes, lens), mask in zip(batches, masks):
+        if codes.shape[1] >= k:
+            assert np.array_equal(mask,
+                                  jeng.scan_reads_for_hits(jidx, codes, lens))
+    assert all(m.any() for i, m in enumerate(masks) if i != 1)
+    assert np.array_equal(teng.make_scanner(tidx)(*batches[0]), masks[0])
+
+
+def test_wide_tables_stay_on_the_device_over_budget(monkeypatch):
+    """Over ``KDF_DEVICE_TABLE_BYTES`` a wide reference set goes to the
+    host (numpy search), but a wide filter table stays on the device
+    (the host hash is k <= 31, as in the reference)."""
+    k = K_WIDE
+    stream = _reads(78, 30, k, with_n=True)
+    words = _words(_filter_set(stream[::2], k), k)
+    monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", str(24 * words.shape[0] - 1))
+    idx = teng.make_membership_index(words, k, device=CPU)
+    assert isinstance(idx, teng.HostKmerIndex)
+    assert idx.membership(words).all()
+    fc = teng.make_parent_filter_counter(words, k, device=CPU)
+    assert isinstance(fc, teng.FilteredCounter) and fc.dedup
+    with pytest.raises(ValueError, match="W <= 2"):
+        teng.HostFilteredCounter(words, k)
+    monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", str(24 * words.shape[0]))
+    assert isinstance(teng.make_membership_index(words, k, device=CPU),
+                      teng.KmerIndex)

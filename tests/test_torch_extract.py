@@ -13,7 +13,10 @@ from kmer_denovo_filter_tpu.ops import pallas_join as pj
 from kmer_denovo_filter_tpu.ops.pallas_extract import extract_mixed
 from kmer_denovo_filter_tpu_torch.ops import device as tdev
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
-from kmer_denovo_filter_tpu_torch.ops.extract import extract_canonical
+from kmer_denovo_filter_tpu_torch.ops.extract import (
+    extract_canonical,
+    extract_canonical_wide,
+)
 
 
 def _batch(seed, k, n=48, length=72):
@@ -74,8 +77,11 @@ def test_wrapper_rejects_bad_inputs():
         extract_canonical(codes[:, :20], lengths, 31)
     with pytest.raises(ValueError):
         extract_canonical(codes, lengths[:3], 31)
-    with pytest.raises(NotImplementedError):
-        extract_canonical(codes, lengths, 33)
+    with pytest.raises(ValueError, match="extract_canonical_wide"):
+        extract_canonical(codes, lengths, 33)  # K1 is k <= 31
+    wide = torch.zeros((4, 220), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="W <= 13"):
+        extract_canonical_wide(wide, lengths, 209)
     # a non-CPU tensor never takes the plain path
     with pytest.raises(ValueError, match="unsupported device"):
         extract_canonical(codes.to("meta"), lengths.to("meta"), 31)

@@ -168,3 +168,95 @@ def test_cuda_tables_stay_on_the_card(cuda, monkeypatch):
     cpu_idx = eng.KmerIndex(words, 31, counts, device="cpu")
     got = idx.counts_of(queries)
     assert np.array_equal(got, cpu_idx.counts_of(queries)) and got.any()
+
+
+# ── wide keys: K1w, K7 (both forms), K8 ────────────────────────────────
+
+
+def _wide_table_for(flat, m, k, cuda):
+    """(≈m, Q) sorted unique limb rows: half batch keys, half random."""
+    live = dev.unique_rows(flat[flat[:, 0] != keys64.SENTINEL])[0]
+    gen = torch.Generator(device="cpu").manual_seed(m)
+    from_batch = live[torch.randperm(live.shape[0], generator=gen)[
+        :max(1, m // 2)].to(cuda)]
+    rand = torch.stack([torch.randint(0, 4 ** nb, (m - from_batch.shape[0],),
+                                      generator=gen)
+                        for nb in keys64.limb_bases(k)], 1).to(cuda)
+    return dev.unique_rows(torch.cat([from_batch, rand]))[0]
+
+
+@pytest.mark.parametrize("k", [33, 63, 127, 151, 201, 207])
+def test_extract_wide_kernel_matches_plain(cuda, k):
+    codes, lengths = (t.to(cuda) for t in _batch(k, length=k + 60))
+    before = extract.wide_launches
+    got = extract.extract_canonical_wide(codes, lengths, k)
+    ref = dev.extract_canonical_windows_wide(codes, lengths, k)[0]
+    torch.cuda.synchronize()
+    assert extract.wide_launches == before + 1
+    assert got.shape == ref.shape == (2048, 61, keys64.limbs_per_kmer(k))
+    assert torch.equal(got, ref)
+    assert bool((ref[..., 0] != keys64.SENTINEL).any())
+
+
+@pytest.mark.parametrize("k,m", [(33, 1), (63, 777), (63, 2048), (63, 2049),
+                                 (63, 100_000), (201, 877), (201, 878),
+                                 (201, 50_000)])
+def test_wide_probe_kernels_match_plain(cuda, k, m):
+    """K7 unweighted and weighted, K8 found and rows, around the 48 KB
+    shared-memory staging edge (6,144 / Q rows)."""
+    codes, lengths = (t.to(cuda) for t in _batch(m, length=k + 40))
+    codes = torch.cat([codes, codes[:700]])
+    lengths = torch.cat([lengths, lengths[:700]])
+    flat = extract.extract_canonical_wide(codes, lengths, k).flatten(0, 1)
+    table = _wide_table_for(flat, m, k, cuda)
+    ref = dev.small_table_tally_wide(table, flat)
+    counts = (probe.wide_launches, probe.wide_weighted_launches,
+              member.wide_launches)
+    acc = torch.full((table.shape[0],), 5, dtype=torch.int64, device=cuda)
+    probe.probe_tally_wide(flat, table, acc)
+    keys, weights = dev.dedup_windows_wide(flat)
+    acc_w = torch.full_like(acc, 3)
+    probe.probe_tally_wide(keys, table, acc_w, weights)
+    found = member.probe_member_wide(flat, table)
+    rows = member.probe_rows_wide(flat, table)
+    torch.cuda.synchronize()
+    assert (probe.wide_launches, probe.wide_weighted_launches,
+            member.wide_launches) == (counts[0] + 1, counts[1] + 1,
+                                      counts[2] + 2)
+    assert torch.equal(acc, ref + 5) and torch.equal(acc_w, ref + 3)
+    assert m == 1 or int(ref.max()) > 1  # duplicated reads
+    assert torch.equal(found, dev.member_wide(table, flat))
+    assert torch.equal(rows, dev.find_rows_wide(table, flat))
+    assert bool(found.any()) and not bool(found.all())
+
+
+def test_wide_engine_cuda_matches_cpu(cuda):
+    """k = 63: both filter forms, the grouped scan and counts_of on the
+    card equal the CPU."""
+    k = 63
+    codes, lengths = _batch(13, n=3000)
+    win = dev.extract_canonical_windows_wide(codes, lengths, k)[0]
+    flat = win.flatten(0, 1)
+    live = dev.unique_rows(flat[flat[:, 0] != keys64.SENTINEL])[0]
+    words = keys64.limbs_to_words(live[::5], k)
+    counts_np = np.arange(words.shape[0], dtype=np.int64) + 1
+    batches = [(codes[i:i + 1000].numpy(), lengths[i:i + 1000].numpy())
+               for i in range(0, 3000, 1000)]
+    queries = keys64.limbs_to_words(live[::2], k)
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        plain = eng.make_filtered_counter(eng.KmerIndex(words, k,
+                                                        device=device))
+        dedup = eng.make_parent_filter_counter(words, k, device=device)
+        for c, l in batches:
+            plain.feed(c, l)
+            dedup.feed(c, l)
+        idx = eng.KmerIndex(words, k, counts_np, device=device)
+        results.append((plain.result(), dedup.result(),
+                        eng.scan_reads_for_hits_many(idx, batches),
+                        idx.counts_of(queries)))
+    (p0, d0, m0, c0), (p1, d1, m1, c1) = results
+    assert np.array_equal(p0, p1) and np.array_equal(d0, d1)
+    assert np.array_equal(p0, d0) and p0.sum() > 0
+    assert all(np.array_equal(a, b) for a, b in zip(m0, m1))
+    assert np.array_equal(c0, c1) and c0.any()

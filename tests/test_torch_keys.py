@@ -61,9 +61,14 @@ def test_acc_to_int64_drops_padding():
 
 @pytest.mark.parametrize("k", [33, 63])
 def test_wide_k_not_ported(k):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        keys64.words_to_keys64(
-            np.zeros((1, enc.words_per_kmer(k)), np.uint32), k)
+    """The one-int64 form stays k <= 31: wide keys are limb rows, and
+    k = 209 (W = 14) is past the JAX wide kernels' limit."""
+    words = np.zeros((1, enc.words_per_kmer(k)), np.uint32)
+    with pytest.raises(ValueError, match="words_to_limbs"):
+        keys64.words_to_keys64(words, k)
+    assert keys64.words_to_limbs(words, k).shape == (1, (k + 30) // 31)
+    with pytest.raises(ValueError, match="W <= 13"):
+        keys64.words_to_limbs(np.zeros((1, 14), np.uint32), 209)
 
 
 def test_even_k_rejected():
