@@ -34,6 +34,12 @@ any failure exits non-zero before the result line:
    keys) in both forms, K1 -> K2 and K1 -> dedup -> K3, each equal to
    the plain path; the anchoring scan (``scan_reads_for_hits_many``) over groups
    of 8 x 4,096 reads at M = 2**20, equal to the plain path.  Reads/s.
+3s. Segment-local sort and dedup: K9 (seg_sort) and K9d (seg_dedup)
+   against their plain versions (``torch.sort(dim=1)`` with the payload
+   gathered; a per-segment run-length count) on the phase-3 random batch
+   and on one 40x-coverage batch at k = 31 (488 segments of 8,192
+   windows each), beside ``torch.sort(dim=1)`` and ``dedup_windows``
+   (the whole-batch dedup of the engine).  Exact; CUDA events.
 3w. Wide keys (k = 33..207, rows of Q = ceil(k / 31) int64 limbs):
    K1w (extract_canonical_wide) at k in {33, 63, 127, 151, 201} on
    32,768 random reads of 152 bp (256 bp at k = 201), with N bases and
@@ -53,13 +59,24 @@ any failure exits non-zero before the result line:
    k = 201, M = 2**22 on 3 batches of 256 bp reads, both forms, each
    equal to the plain path; the anchoring scan at k = 63, M = 2**20,
    in groups of 8 x 4,096.  Reads/s.
-6. Profile: the phase-5, 5b and 5c loops once more under
+5d. The parent filter of 5b in a third form, the segment form of the
+   v5 prototype (``experiments.x_join_variants.SegmentDedupCounter``:
+   K1 -> K9d -> sort -> K3), interleaved with the two engine forms on
+   the same batches at each M, all three equal to the plain path.
+   Reads/s.  K9d's launches are counted over the 5b/5d filter loops.
+6. Profile: the phase-5, 5b, 5d and 5c loops once more under
    ``torch.profiler``; device busy time (union of kernel and copy
    spans), each device op's ms per batch, and the device's idle share
    against the loop's wall time with and without the profiler.
 
+7. Experiments: every ported command of ``experiments.x_fused`` (sort,
+   prof, transposed, unroll2) and ``experiments.x_join_variants`` (v5,
+   kernel, xextract, xextract3, xmicro) once, in this process, with 3
+   timed repetitions; a false parity line fails the run.
+
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches in phases 4 and 4b (phase 4c for the wide kernels), its
+launches in phases 4 and 4b (phase 4c for the wide kernels; phases 5d
+and 7 for K9 and K9d), its
 largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
 move over 3.35 TB/s and its operations over 67 T/s) and the time of a
@@ -376,6 +393,121 @@ def phase_3w(rng, cuda, check, times):
             del table, acc, acc_w, ref
 
 
+def phase_3s(flat_random, cuda, check, times):
+    """K9 and K9d against their plain versions, timed beside them and
+    the PyTorch calls nearest to them, on the phase-3 random batch and
+    on one 40x batch."""
+    from kmer_denovo_filter_tpu_torch.experiments.x_fused import pair_order
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract, segsort
+    from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
+    flat_40x = extract.extract_canonical(
+        torch.from_numpy(synth_reads(rng, genome, B, L)).to(cuda),
+        torch.full((B,), L, dtype=torch.int32, device=cuda), 31).reshape(-1)
+    for label, flat in (("random", flat_random), ("40x", flat_40x)):
+        payload = torch.arange(flat.numel(), dtype=torch.int32, device=cuda)
+        segs = segsort.segments(flat, SENTINEL)
+        pays = segsort.segments(payload, -1)
+        keys, pay = segsort.seg_sort(flat, payload)
+        ref_keys, ref_pay = dev.segment_sort(segs, pays)
+        check("seg_sort", keys, ref_keys, f"{label} batch, keys")
+        for got, want in zip(pair_order(keys, pay),
+                             pair_order(ref_keys, ref_pay)):
+            check("seg_sort", got, want,
+                  f"{label} batch, (key, payload) pairs per segment")
+        raw = segsort.seg_dedup(flat)
+        ref = dev.segment_runs(segs)
+        check("seg_dedup", raw[2], ref[2], f"{label} batch, counts")
+        for got, want in zip(segsort.compact(*raw), segsort.compact(*ref)):
+            check("seg_dedup", got, want, f"{label} batch, rows")
+        rows = int(raw[2].sum())
+        whole = dev.dedup_windows(flat)[0].numel()
+
+        def library_sort(segs=segs, pays=pays):
+            srt, order = torch.sort(segs, dim=1)
+            return srt, torch.gather(pays, 1, order)
+
+        n_rows, n_segs = segs.numel(), segs.shape[0]
+        # keys and payloads read once and written once; 91 compare-
+        # exchange stages of 4,096 pairs a segment
+        sort_lim = bound(24 * n_rows, 91 * n_rows // 2)
+        # keys read; a key and a weight written per distinct row and a
+        # count per segment
+        dedup_lim = bound(8 * n_rows + 16 * rows + 4 * n_segs,
+                          91 * n_rows // 2)
+        sort_ms = cuda_ms(lambda: segsort.seg_sort(flat, payload))
+        sort_plain = cuda_ms(lambda: dev.segment_sort(segs, pays))
+        sort_lib = cuda_ms(library_sort)
+        dedup_ms = cuda_ms(lambda: segsort.seg_dedup(flat))
+        dedup_plain = cuda_ms(lambda: dev.segment_runs(segs), reps=5)
+        dedup_lib = cuda_ms(lambda: dev.dedup_windows(flat))
+        dense_ms = cuda_ms(lambda: segsort.dedup_segments(flat))
+        times[("seg_sort", label)] = (sort_ms, sort_plain, sort_lib,
+                                      sort_lim)
+        times[("seg_dedup", label)] = (dedup_ms, dedup_plain, dedup_lib,
+                                       dedup_lim)
+        print(f"[3s] K9 {label} batch: equal ({n_segs} segments, "
+              f"{flat.numel()} windows); kernel {sort_ms:.4f} ms, plain "
+              f"{sort_plain:.4f} ms, torch.sort(dim=1) + gather "
+              f"{sort_lib:.4f} ms, bound {sort_lim[0]:.4f} ms by "
+              f"{sort_lim[1]}", flush=True)
+        print(f"[3s] K9d {label} batch: equal ({rows} segment rows, "
+              f"{whole} distinct keys in the whole batch); kernel "
+              f"{dedup_ms:.4f} ms, plain {dedup_plain:.4f} ms, "
+              f"dedup_windows (whole batch) {dedup_lib:.4f} ms, bound "
+              f"{dedup_lim[0]:.4f} ms by {dedup_lim[1]}; dedup_segments "
+              f"(K9d, gather, global sort) {dense_ms:.4f} ms", flush=True)
+
+
+def phase_7(reset_counts, read_counts):
+    """Every ported experiment command once; returns the launch counts
+    of the whole phase.  ``x_fused transposed`` and ``unroll2`` run
+    ``x_join_variants v5``, which runs here on its own: for them the
+    phase checks that they reach ``run_v5`` and stops them there."""
+    import contextlib
+    import io
+    from kmer_denovo_filter_tpu_torch.experiments import (
+        x_fused,
+        x_join_variants,
+    )
+    reset_counts()
+    run_v5 = x_join_variants.run_v5
+    reached_v5 = []
+    for mod in (x_fused, x_join_variants):
+        name = mod.__name__.rsplit(".", 1)[1]
+        for command in mod.COMMANDS:
+            alias = mod is x_fused and command in x_fused.V5_LAYOUTS
+            x_join_variants.run_v5 = (
+                (lambda *a: reached_v5.append(command)) if alias else run_v5)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    mod.main([command, "--reps", "3"])
+            except AssertionError as exc:
+                print(out.getvalue(), end="")
+                fail(f"{name} {command}: {exc}")
+            finally:
+                x_join_variants.run_v5 = run_v5
+            text = out.getvalue()
+            print("".join(f"    {line}\n" for line in text.splitlines()),
+                  end="")
+            if alias:
+                said = "running x_join_variants v5" in text
+                if reached_v5[-1:] != [command] or not said:
+                    fail(f"{name} {command} did not run x_join_variants v5")
+                print(f"[7] {name} {command}: runs x_join_variants v5 (run "
+                      "on its own below)", flush=True)
+                continue
+            if "parity: False" in text or "parity: True" not in text:
+                fail(f"{name} {command} printed no true parity line")
+            print(f"[7] {name} {command}: every parity line true, "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return read_counts()
+
+
 def phase_4c(cuda, reset_counts, read_counts):
     """The wide main path on the card, held byte for byte against the
     same pipelines on the CPU; returns each run's launch counts."""
@@ -616,7 +748,16 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA GPU")
     from kmer_denovo_filter_tpu_torch import cli, engine as eng
-    from kmer_denovo_filter_tpu_torch.ops import _cuda, extract, member, probe
+    from kmer_denovo_filter_tpu_torch.experiments.x_join_variants import (
+        SegmentDedupCounter,
+    )
+    from kmer_denovo_filter_tpu_torch.ops import (
+        _cuda,
+        extract,
+        member,
+        probe,
+        segsort,
+    )
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 
@@ -630,7 +771,11 @@ def main():
                 "probe_tally_wide": (probe, "wide_launches"),
                 "probe_tally_wide_weighted": (probe,
                                               "wide_weighted_launches"),
-                "probe_member_wide": (member, "wide_launches")}
+                "probe_member_wide": (member, "wide_launches"),
+                "seg_sort": (segsort, "launches"),
+                "seg_dedup": (segsort, "dedup_launches"),
+                # K1 cut at a stage (the xmicro probes); not in the JSON
+                "extract_canonical_stage": (extract, "stage_launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -755,6 +900,9 @@ def main():
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"torch.isin {isin_ms:.4f} ms, bound {lim[0]:.4f} ms by "
                   f"{lim[1]}", flush=True)
+
+    # ── 3s. segment-local sort and dedup against their plain versions
+    phase_3s(flat, cuda, check, times)
 
     # ── 3w. wide kernels against their plain versions ──────────────
     phase_3w(rng, cuda, check, times)
@@ -904,27 +1052,31 @@ def main():
                      lambda: feed_all(eng.FilteredCounter(index)),
                      n_reads / max(kern_a, kern_b), card)
 
-    # ── 5b. discovery scale: parent filter and anchoring scan ──────
+    # ── 5b, 5d. discovery scale: the parent filter in three forms ──
     forms = {"K1->K2": False, "K1->dedup->K3": True}
+    seg_form = "K1->K9d->sort->K3"
 
     def run_feed(name, index):
         """(the form's accumulator on the card, reads/s of its feeds)."""
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fc = feed_all(eng.FilteredCounter(index, dedup=forms[name]))
+        fc = feed_all(SegmentDedupCounter(index) if name == seg_form
+                      else eng.FilteredCounter(index, dedup=forms[name]))
         return fc.acc, n_reads / (time.perf_counter() - t)
 
+    reset_counts()
     for m in FILTER_MS:
         table = make_table(rng, seen, m, k, sentinel, cuda,
                            n_from=seen.numel())
         index = eng.KmerIndex(keys64.keys64_to_words(table, k), k,
                               device=cuda)
         del table
-        for name in forms:  # warm-up
+        for name in list(forms) + [seg_form]:  # warm-up
             run_feed(name, index)
         plain, plain_rate = run_plain_path(index)
-        rates = {name: [] for name in forms}
-        for name in ("K1->K2", "K1->dedup->K3", "K1->dedup->K3", "K1->K2"):
+        rates = {name: [] for name in list(forms) + [seg_form]}
+        for name in ("K1->K2", "K1->dedup->K3", seg_form, seg_form,
+                     "K1->dedup->K3", "K1->K2"):
             acc, rate = run_feed(name, index)
             rates[name].append(rate)
             if not torch.equal(acc, plain):
@@ -943,15 +1095,26 @@ def main():
               f"{rates['K1->dedup->K3'][1]:.1f}, plain {plain_rate:.1f}; "
               f"result() of the {8 * m >> 20} MB accumulator "
               f"{result_ms:.3f} ms ({card})", flush=True)
+        print(f"[5d] parent filter M={m}: the segment form {seg_form} "
+              f"equal to plain; feed reads/s {rates[seg_form][0]:.1f} / "
+              f"{rates[seg_form][1]:.1f}, interleaved with K1->K2 and "
+              f"K1->dedup->K3 above ({card})", flush=True)
         del plain, fc
         if m in (BIG_M, FILTER_MS[-1]):
-            for name in forms:
+            for name in list(forms) + [seg_form]:
                 profile_loop(
                     f"parent filter M={m} {name} (feed)", SCALE_BATCHES,
-                    lambda: feed_all(eng.FilteredCounter(
-                        index, dedup=forms[name])),
+                    lambda: feed_all(
+                        SegmentDedupCounter(index) if name == seg_form
+                        else eng.FilteredCounter(index,
+                                                 dedup=forms[name])),
                     n_reads / max(rates[name]), card)
         del index
+    launches_5d = read_counts()
+    if launches_5d["seg_dedup"] <= 0:
+        fail("kernel seg_dedup was not launched by the 5d filter loops")
+    print(f"[5d] launches over the 5b/5d filter loops: {launches_5d}",
+          flush=True)
 
     scan_table = make_table(rng, seen, SCAN_M, k, sentinel, cuda)
     scan_index = eng.KmerIndex(keys64.keys64_to_words(scan_table, k), k,
@@ -1005,6 +1168,13 @@ def main():
                                                 card):
         profile_loop(label, n_batches, run, wall, card)
 
+    # ── 7. the ported experiment commands ─────────────────────────
+    launches_7 = phase_7(reset_counts, read_counts)
+    print(f"[7] launches over the experiments: {launches_7}", flush=True)
+    for name in ("seg_sort", "seg_dedup"):
+        if launches_7[name] <= 0:
+            fail(f"kernel {name} was not launched by the experiments")
+
     if "jax" in sys.modules or any(
             m == "kmer_denovo_filter_tpu"
             or m.startswith("kmer_denovo_filter_tpu.") for m in sys.modules):
@@ -1021,6 +1191,8 @@ def main():
     for name in ("extract_canonical_wide", "probe_tally_wide",
                  "probe_tally_wide_weighted", "probe_member_wide"):
         launches[name] = sum(run[name] for run in launches_wide)
+    for name in ("seg_sort", "seg_dedup"):
+        launches[name] = launches_5d[name] + launches_7[name]
     wide = {name: times[(name, 63, BIG_M)]
             for name in ("probe_tally_wide", "probe_tally_wide_weighted",
                          "probe_member_wide")}
@@ -1076,6 +1248,17 @@ def main():
          "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
          "bound_ms": lim[0], "bound_by": lim[1], "library_ms": None}
         for name, (ms, plain_ms, lim) in wide.items()]}
+    for name, replaces in (
+            ("seg_sort", "scripts/x_fused.py:133"),
+            ("seg_dedup", "kmer_denovo_filter_tpu/ops/pallas_join.py:600")):
+        ms, plain_ms, library_ms, lim = times[(name, "40x")]
+        report["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "kmer_denovo_filter_tpu_torch/csrc/seg_sort.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": lim[0], "bound_by": lim[1],
+            "library_ms": library_ms})
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

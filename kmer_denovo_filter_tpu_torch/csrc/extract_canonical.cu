@@ -36,6 +36,13 @@ namespace {
 constexpr long long kSentinel = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int kThreads = 256;
 
+// kStage cuts the kernel for timing probes (the counterpart of the stage
+// kernels of scripts/x_join_variants.py:_make_extract_stage, :1449):
+// 0 loads the window's codes and stores their XOR, 1 adds the forward
+// roll (stores it), 2 the reverse-complement roll (stores fwd ^ rc), 3
+// the canonical minimum, 4 the N-in-window mask, 5 the read-length test:
+// the full K1, the only instantiation the engine uses.
+template <int kStage>
 __global__ void extract_canonical_kernel(const uint8_t* __restrict__ codes,
                                          const int32_t* __restrict__ lengths,
                                          long long* __restrict__ keys,
@@ -49,31 +56,60 @@ __global__ void extract_canonical_kernel(const uint8_t* __restrict__ codes,
   const int start = static_cast<int>(i - static_cast<long long>(read) * s);
   const uint8_t* window =
       codes + static_cast<long long>(read) * length + start;
-  bool bad = start + k > lengths[read];
+  bool bad = kStage >= 5 && start + k > lengths[read];
   unsigned long long fwd = 0;
   unsigned long long rc = 0;
   for (int j = 0; j < k; ++j) {
     const unsigned code = window[j];
+    if (kStage == 0) {
+      fwd ^= code;
+      continue;
+    }
     bad |= code >= 4u;
     const unsigned long long base = code & 3u;
     fwd = (fwd << 2) | base;
-    rc |= (3ull - base) << (2 * j);
+    if (kStage >= 2) rc |= (3ull - base) << (2 * j);
   }
   const unsigned long long canonical = fwd < rc ? fwd : rc;
-  keys[i] = bad ? kSentinel : static_cast<long long>(canonical);
+  if (kStage <= 1) {
+    keys[i] = static_cast<long long>(fwd);
+  } else if (kStage == 2) {
+    keys[i] = static_cast<long long>(fwd ^ rc);
+  } else if (kStage == 3) {
+    keys[i] = static_cast<long long>(canonical);
+  } else {
+    keys[i] = bad ? kSentinel : static_cast<long long>(canonical);
+  }
+}
+
+template <int kStage>
+int launch_extract(const void* codes, const void* lengths, void* keys,
+                   int n_reads, int length, int k, void* stream) {
+  const long long n = static_cast<long long>(n_reads) * (length - k + 1);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  extract_canonical_kernel<kStage>
+      <<<static_cast<unsigned>(blocks), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(codes),
+          static_cast<const int32_t*>(lengths), static_cast<long long*>(keys),
+          n_reads, length, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// K1 cut at stage 0..5 (see extract_canonical_kernel); the engine passes
+// 5, the full K1.
 extern "C" int kdf_extract_canonical(const void* codes, const void* lengths,
                                      void* keys, int n_reads, int length,
-                                     int k, void* stream) {
-  const long long n = static_cast<long long>(n_reads) * (length - k + 1);
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  extract_canonical_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes),
-      static_cast<const int32_t*>(lengths), static_cast<long long*>(keys),
-      n_reads, length, k);
-  return static_cast<int>(cudaGetLastError());
+                                     int k, int stage, void* stream) {
+  switch (stage) {
+    case 0: return launch_extract<0>(codes, lengths, keys, n_reads, length, k, stream);
+    case 1: return launch_extract<1>(codes, lengths, keys, n_reads, length, k, stream);
+    case 2: return launch_extract<2>(codes, lengths, keys, n_reads, length, k, stream);
+    case 3: return launch_extract<3>(codes, lengths, keys, n_reads, length, k, stream);
+    case 4: return launch_extract<4>(codes, lengths, keys, n_reads, length, k, stream);
+    case 5: return launch_extract<5>(codes, lengths, keys, n_reads, length, k, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -109,8 +109,12 @@ def lib():
             so = ctypes.CDLL(build())
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             so.kdf_extract_canonical.argtypes = [ptr, ptr, ptr, i32, i32,
-                                                 i32, ptr]
+                                                 i32, i32, ptr]
             so.kdf_extract_canonical.restype = i32
+            so.kdf_seg_sort.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
+            so.kdf_seg_sort.restype = i32
+            so.kdf_seg_dedup.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
+            so.kdf_seg_dedup.restype = i32
             so.kdf_probe_tally.argtypes = [ptr, i64, ptr, i32, ptr, ptr]
             so.kdf_probe_tally.restype = i32
             so.kdf_probe_tally_weighted.argtypes = [ptr, ptr, i64, ptr, i32,

@@ -6,10 +6,11 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.ops.device`
 ``small_tally_step`` :337, ``small_tally_steps`` :351,
 ``small_scan_hits_step`` :368, ``lookup_sorted`` :657).  They run on
 any device: the kernel wrappers (:mod:`.extract`, :mod:`.probe`,
-:mod:`.member`) use them for CPU tensors, the CPU tests hold them
-against the JAX functions, and ``chip_smoke.py`` holds the CUDA kernels
-against them on the card.  :func:`sort_count` and :func:`dedup_windows`
-are no kernel's plain version: the engine calls them on every device.
+:mod:`.member`, :mod:`.segsort`) use them for CPU tensors, the CPU
+tests hold them against the JAX functions, and ``chip_smoke.py`` holds
+the CUDA kernels against them on the card.  :func:`sort_count` and
+:func:`dedup_windows` are no kernel's plain version: the engine calls
+them on every device.
 
 Keys are the right-aligned int64 form of :mod:`.keys`; invalid windows
 hold :data:`~.keys.SENTINEL`, which is never found and never tallied.
@@ -95,8 +96,40 @@ def dedup_windows(flat):
     a flat (N,) int64 window stream, ascending (a sentinel row, if any,
     last), with int64 multiplicities as weights.  The int64 counterpart
     of the JAX dedup-first front half (``pallas_join._dedup_compact``),
-    over the whole batch instead of 8,192-row local chunks."""
+    over the whole batch instead of 8,192-row local chunks (kernel K9d,
+    ``segsort.seg_dedup``, is the segment-local form)."""
     return torch.unique(flat, sorted=True, return_counts=True)
+
+
+def segment_sort(keys, payload=None):
+    """Each row of (S, 8192) int64 *keys* sorted ascending, an (S, 8192)
+    int32 *payload* gathered along: the plain version of kernel K9
+    (``segsort.seg_sort``).  Returns (keys, payload or None)."""
+    srt, order = torch.sort(keys, dim=1)
+    return srt, None if payload is None else torch.gather(payload, 1, order)
+
+
+def segment_runs(keys):
+    """Per-row run-length count of (S, 8192) int64 *keys*: the plain
+    version of kernel K9d (``segsort.seg_dedup``).  Returns (S, 8192)
+    int64 keys and weights and (S,) int32 counts: row s holds its
+    counts[s] distinct live keys ascending with their multiplicities at
+    the front, then :data:`SENTINEL` keys of weight 0.  Sentinel keys
+    form no run."""
+    srt = torch.sort(keys, dim=1).values
+    live = srt != SENTINEL
+    start = live.clone()
+    start[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    counts = start.sum(1)
+    seg, col = start.nonzero(as_tuple=True)  # row-major: by segment, then col
+    rank = start.cumsum(1)[seg, col] - 1
+    last = rank == counts[seg] - 1
+    nxt = torch.where(last, live.sum(1)[seg], torch.roll(col, -1))
+    out_keys = torch.full_like(srt, SENTINEL)
+    out_weights = torch.zeros_like(srt)
+    out_keys[seg, rank] = srt[seg, col]
+    out_weights[seg, rank] = nxt - col
+    return out_keys, out_weights, counts.to(torch.int32)
 
 
 def _locate(table, keys):

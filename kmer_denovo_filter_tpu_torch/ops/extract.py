@@ -12,6 +12,9 @@ XLA ``extract_canonical_windows`` for W >= 3 words (the JAX
 keys as (Q,) int64 limb rows (:mod:`.keys`).  Its CUDA kernel is
 ``csrc/extract_wide.cu``.
 
+``extract_canonical_stage`` runs K1 cut at a compile-time stage, the
+timing probe of ``scripts/x_join_variants.py xmicro``.
+
 CPU tensors take the plain PyTorch versions in :mod:`.device`.
 """
 
@@ -26,8 +29,9 @@ from kmer_denovo_filter_tpu_torch.ops.keys import (
 )
 
 # CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0       # K1
-wide_launches = 0  # K1w
+launches = 0        # K1
+wide_launches = 0   # K1w
+stage_launches = 0  # K1 cut at a stage (extract_canonical_stage)
 
 
 def _check_batch(codes, lengths, k):
@@ -59,12 +63,39 @@ def extract_canonical(codes, lengths, k):
     :data:`~kmer_denovo_filter_tpu_torch.ops.keys.SENTINEL`.  A CUDA
     tensor launches the kernel; a CPU tensor runs the plain version.
     """
-    global launches
     if k > NARROW_K:
         raise ValueError(f"K1 takes k <= {NARROW_K}, got k={k}: wide keys "
                          "go through extract_canonical_wide")
     if _check_batch(codes, lengths, k) == "cpu":
         return dev.extract_canonical_windows(codes, lengths, k)[0]
+    return _launch_k1(codes, lengths, k, 5, probe=False)
+
+
+def extract_canonical_stage(codes, lengths, k, stage):
+    """K1 cut at *stage* (0 load/store, 1 forward roll, 2 reverse-
+    complement roll, 3 canonical minimum, 4 N-in-window mask, 5 the full
+    K1): a timing probe, the counterpart of the stage kernels of
+    ``scripts/x_join_variants.py:_make_extract_stage`` (:1449).  Stage 5
+    equals :func:`extract_canonical`; only it is compared with anything,
+    so stages 0-4 have no plain version.  A CUDA tensor launches the
+    kernel's *stage* instantiation; a CPU tensor runs the plain version
+    of stage 5 and refuses the others."""
+    if k > NARROW_K or stage not in range(6):
+        raise ValueError(f"stage probes take k <= {NARROW_K} and a stage "
+                         f"in 0..5, got k={k}, stage={stage}")
+    if _check_batch(codes, lengths, k) == "cpu":
+        if stage != 5:
+            raise ValueError(f"stage {stage} is a timing probe of the CUDA "
+                             "kernel: on the CPU only stage 5 runs")
+        return dev.extract_canonical_windows(codes, lengths, k)[0]
+    return _launch_k1(codes, lengths, k, stage, probe=True)
+
+
+def _launch_k1(codes, lengths, k, stage, probe):
+    """(B, L - k + 1) int64 output of K1 cut at *stage* over a checked
+    CUDA batch (no launch for B = 0).  A launch adds one to
+    :data:`stage_launches` if it is a *probe*, else to :data:`launches`."""
+    global launches, stage_launches
     b, length = codes.shape
     keys = torch.empty((b, length - k + 1), dtype=torch.int64,
                        device=codes.device)
@@ -73,9 +104,12 @@ def extract_canonical(codes, lengths, k):
     with torch.cuda.device(codes.device):
         err = _cuda.lib().kdf_extract_canonical(
             codes.data_ptr(), lengths.data_ptr(), keys.data_ptr(), b,
-            length, k, _cuda.stream_of(codes))
+            length, k, stage, _cuda.stream_of(codes))
     _cuda.check(err, "extract_canonical")
-    launches += 1
+    if probe:
+        stage_launches += 1
+    else:
+        launches += 1
     return keys
 
 

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch.experiments.x_fused import pair_order
 from kmer_denovo_filter_tpu_torch.ops import device as dev
-from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
+from kmer_denovo_filter_tpu_torch.ops import extract, member, probe, segsort
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 
 pytestmark = pytest.mark.gpu
@@ -260,3 +261,104 @@ def test_wide_engine_cuda_matches_cpu(cuda):
     assert np.array_equal(p0, d0) and p0.sum() > 0
     assert all(np.array_equal(a, b) for a, b in zip(m0, m1))
     assert np.array_equal(c0, c1) and c0.any()
+
+
+# ── segment-local sort and dedup: K9, K9d; K1's stage probes ──────────
+
+
+def _segment_stream(seed, tail):
+    """A stream of four full segments (random keys with sentinels, one
+    key repeated, all sentinel, few distinct keys) and *tail* more rows,
+    so the last segment is padded."""
+    rng = np.random.default_rng(seed)
+    seg = segsort.SEGMENT
+    parts = [rng.integers(0, 4 ** 31, seg), np.full(seg, 12345),
+             np.full(seg, keys64.SENTINEL), rng.integers(0, 40, seg),
+             rng.integers(0, 4 ** 31, tail)]
+    flat = np.concatenate(parts).astype(np.int64)
+    flat[:seg][rng.random(seg) < 0.1] = keys64.SENTINEL
+    return torch.from_numpy(flat)
+
+
+@pytest.mark.parametrize("tail", [0, 1, 5000])
+def test_seg_sort_kernel_matches_plain(cuda, tail):
+    flat = _segment_stream(tail, tail).to(cuda)
+    payload = torch.arange(flat.numel(), dtype=torch.int32, device=cuda)
+    before = segsort.launches
+    keys, pay = segsort.seg_sort(flat, payload)
+    keys_only, none = segsort.seg_sort(flat)
+    ref_keys, ref_pay = dev.segment_sort(
+        segsort.segments(flat, keys64.SENTINEL), segsort.segments(payload, -1))
+    torch.cuda.synchronize()
+    assert segsort.launches == before + 2 and none is None
+    assert keys.shape == (4 + (tail > 0), segsort.SEGMENT)
+    assert torch.equal(keys, ref_keys) and torch.equal(keys_only, ref_keys)
+    got, ref = pair_order(keys, pay), pair_order(ref_keys, ref_pay)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("tail", [0, 1, 5000])
+def test_seg_dedup_kernel_matches_plain(cuda, tail):
+    flat = _segment_stream(tail + 1, tail).to(cuda)
+    before = segsort.dedup_launches
+    keys, weights, counts = segsort.seg_dedup(flat)
+    ref = dev.segment_runs(segsort.segments(flat, keys64.SENTINEL))
+    torch.cuda.synchronize()
+    assert segsort.dedup_launches == before + 1
+    assert torch.equal(counts, ref[2])
+    assert counts[1] == 1 and counts[2] == 0  # all equal, all sentinel
+    for got, want in zip(segsort.compact(keys, weights, counts),
+                         segsort.compact(*ref)):
+        assert torch.equal(got, want)
+    dense = segsort.dedup_segments(flat)
+    live = flat[flat != keys64.SENTINEL]
+    assert int(dense[1].sum()) == live.numel()
+    cpu = segsort.dedup_segments(flat.cpu())
+    assert torch.equal(dense[0].cpu(), cpu[0])
+    assert torch.equal(dense[1].cpu(), cpu[1])
+
+
+def test_cuda_segsort_never_takes_the_plain_path(cuda, monkeypatch):
+    def plain(*_args):
+        raise AssertionError("a CUDA tensor reached the plain path")
+    monkeypatch.setattr(dev, "segment_sort", plain)
+    monkeypatch.setattr(dev, "segment_runs", plain)
+    flat = _segment_stream(3, 17).to(cuda)
+    segsort.seg_sort(flat)
+    segsort.dedup_segments(flat)
+    torch.cuda.synchronize()
+
+
+def test_segment_counter_cuda_matches_cpu(cuda):
+    from kmer_denovo_filter_tpu_torch.experiments.x_join_variants import (
+        SegmentDedupCounter,
+    )
+    codes, lengths = _batch(17, n=3000)
+    keys = dev.extract_canonical_windows(codes, lengths, 31)[0]
+    live = torch.unique(keys[keys != keys64.SENTINEL])[::4]
+    words = keys64.keys64_to_words(live, 31)
+    before = segsort.dedup_launches
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        fc = SegmentDedupCounter(eng.KmerIndex(words, 31, device=device))
+        fc.feed(codes.numpy(), lengths.numpy())
+        fc.feed(codes[:1000].numpy(), lengths[:1000].numpy())
+        results.append(fc.result())
+    assert segsort.dedup_launches == before + 2
+    assert np.array_equal(results[0], results[1]) and results[0].max() > 1
+
+
+@pytest.mark.parametrize("stage", range(6))
+def test_extract_stage_kernel_matches_plain(cuda, stage):
+    """Every stage probe launches and counts once; stage 5, the only one
+    compared with anything, equals the plain K1."""
+    codes, lengths = (t.to(cuda) for t in _batch(stage + 40))
+    before, k1_before = extract.stage_launches, extract.launches
+    got = extract.extract_canonical_stage(codes, lengths, 31, stage)
+    torch.cuda.synchronize()
+    assert extract.stage_launches == before + 1
+    assert extract.launches == k1_before
+    assert got.shape == (codes.shape[0], codes.shape[1] - 30)
+    if stage == 5:
+        ref = dev.extract_canonical_windows(codes, lengths, 31)[0]
+        assert torch.equal(got, ref)
