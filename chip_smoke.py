@@ -10,7 +10,8 @@ any failure exits non-zero before the result line:
 2. Build: nvcc builds the kernels from ``kmer_denovo_filter_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions on the same card,
    exact equality, on 32,768 random reads x 152 bp with N bases and
-   ragged lengths: K1 (extract_canonical) at k in {15, 17, 21, 31}; at
+   ragged lengths: K1 (extract_canonical) at k in {15, 17, 21, 31}, and
+   on one (1, 2**20) row at k = 31 (a contig chunk of Module 0); at
    k = 31 and M in {1, 4,096, 262,144, 2**24} table keys (half drawn
    from the batch) K2 (probe_tally) on the flat windows, K3
    (probe_tally_weighted) on their batch dedup, K4 (probe_member) on the
@@ -43,8 +44,9 @@ any failure exits non-zero before the result line:
 3w. Wide keys (k = 33..207, rows of Q = ceil(k / 31) int64 limbs):
    K1w (extract_canonical_wide) at k in {33, 63, 127, 151, 201} on
    32,768 random reads of 152 bp (256 bp at k = 201), with N bases and
-   ragged lengths; at k = 63 and M in {4,096, 262,144, 2**24}, and at
-   k = 201 and M in {4,096, 2**22}, K7 (probe_tally_wide) unweighted on
+   ragged lengths, and on one (1, 2**20) row at k = 63; at k = 63 and M
+   in {4,096, 262,144, 2**24}, and at k = 201 and M in {4,096, 2**22},
+   K7 (probe_tally_wide) unweighted on
    the flat windows and weighted on their dedup, K8 (probe_member_wide)
    found bytes and rows; the batch dedup both ways (Q stable sorts, the
    port's form, and ``torch.unique(dim=0)``).  Exact; CUDA events.
@@ -110,6 +112,7 @@ SCALE_BATCHES = 16
 SCALE_TABLE_MS = (4096, 262144)
 KS_WIDE = (33, 63, 127, 151, 201)
 L_K201 = 256  # 2 x 250 bp Illumina reads, as bench.py runs k = 201
+ROW = 1 << 20  # the contig chunk of StreamCounter.feed_sequence
 WIDE_TABLE_MS = {63: (4096, 262144, BIG_M), 201: (4096, 1 << 22)}
 WIDE_FILTER_M = {63: BIG_M, 201: 1 << 22}
 WIDE_BATCHES = {63: SCALE_BATCHES, 201: 3}
@@ -128,21 +131,6 @@ GENOME_BASES = 4 << 20
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def cuda_ms(fn, reps=20, warmup=3):
-    """Mean device milliseconds of *fn* over *reps* launches."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def max_abs_err(got, ref):
@@ -289,6 +277,40 @@ def make_table_wide(rng, flat, m, k, device, n_from=None):
     return table
 
 
+def extract_row(cuda, check, times, k, label):
+    """K1 (k <= 31) or K1w on one (1, 2**20) row with N bases, as
+    ``StreamCounter.feed_sequence`` feeds a reference contig: exact
+    against the plain version, timed beside it.  Its own generator, so
+    the other phases draw what they drew before."""
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+    rng = np.random.default_rng(k)
+    codes_np = rng.integers(0, 4, (1, ROW), dtype=np.uint8)
+    codes_np[0, rng.random(ROW) < 0.005] = 4
+    codes = torch.from_numpy(codes_np).to(cuda)
+    lengths = torch.tensor([ROW], dtype=torch.int32, device=cuda)
+    if k <= 31:
+        name, kernel = "extract_canonical", extract.extract_canonical
+        plain = dev.extract_canonical_windows
+    else:
+        name, kernel = "extract_canonical_wide", extract.extract_canonical_wide
+        plain = dev.extract_canonical_windows_wide
+    got = kernel(codes, lengths, k)
+    check(name, got, plain(codes, lengths, k)[0], f"k={k}, one row of {ROW}")
+    ms = device_ms(lambda: kernel(codes, lengths, k))
+    plain_ms = device_ms(lambda: plain(codes, lengths, k), reps=5)
+    q = 1 if got.dim() == 2 else got.shape[2]
+    n_win = got.shape[1]
+    # as in phases 3 and 3w: 6 operations a K1 window, 5Q + 1 a K1w window
+    lim = bound(codes.numel() + 4 + 8 * got.numel(),
+                (6 if q == 1 else 5 * q + 1) * n_win)
+    times[(name, k, "row")] = (ms, plain_ms, lim)
+    print(f"[{label}] {'K1' if q == 1 else 'K1w'} k={k} one row of {ROW} "
+          f"bases: equal ({n_win} windows); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {lim[0]:.4f} ms by {lim[1]}", flush=True)
+
+
 def wide_probe_bound(key_bytes, row_bytes, keys, rows_hit, m):
     """Bound of a wide probe of (N, Q) *keys* into an M-row table:
     *key_bytes* per key plus *row_bytes* per distinct table row hit, and
@@ -302,6 +324,7 @@ def phase_3w(rng, cuda, check, times):
     """Wide kernels against their plain versions, timed beside them."""
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
     for k in KS_WIDE:
         length = L_K201 if k == 201 else L
         codes_np, lengths_np = random_batch(rng, length)
@@ -311,9 +334,9 @@ def phase_3w(rng, cuda, check, times):
         check("extract_canonical_wide", got,
               dev.extract_canonical_windows_wide(codes, lengths, k)[0],
               f"k={k}")
-        ms = cuda_ms(lambda: extract.extract_canonical_wide(codes, lengths,
-                                                            k))
-        plain_ms = cuda_ms(
+        ms = device_ms(
+            lambda: extract.extract_canonical_wide(codes, lengths, k))
+        plain_ms = device_ms(
             lambda: dev.extract_canonical_windows_wide(codes, lengths, k))
         q = got.shape[2]
         n_win = got.shape[0] * got.shape[1]
@@ -327,6 +350,8 @@ def phase_3w(rng, cuda, check, times):
         print(f"[3w] K1w k={k} Q={q} ({length} bp): equal ({n_win} windows, "
               f"{live} live); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {lim[0]:.4f} ms by {lim[1]}", flush=True)
+        if k == 63:
+            extract_row(cuda, check, times, k, "3w")
         if k not in WIDE_TABLE_MS:
             continue
         flat = got.flatten(0, 1)
@@ -336,11 +361,9 @@ def phase_3w(rng, cuda, check, times):
         if not (torch.equal(uniq, lib_uniq)
                 and torch.equal(weights, lib_counts)):
             fail(f"dedup_windows_wide differs from torch.unique at k={k}")
-        sort_ms = cuda_ms(lambda: dev.dedup_windows_wide(flat), reps=5,
-                          warmup=1)
-        unique_ms = cuda_ms(lambda: torch.unique(flat, dim=0, sorted=True,
-                                                 return_counts=True),
-                            reps=3, warmup=1)
+        sort_ms = device_ms(lambda: dev.dedup_windows_wide(flat), reps=5)
+        unique_ms = device_ms(lambda: torch.unique(
+            flat, dim=0, sorted=True, return_counts=True), reps=3)
         print(f"[3w] k={k} batch dedup of {flat.shape[0]} rows to "
               f"{uniq.shape[0]}: Q stable sorts {sort_ms:.4f} ms, "
               f"torch.unique(dim=0) {unique_ms:.4f} ms", flush=True)
@@ -383,8 +406,8 @@ def phase_3w(rng, cuda, check, times):
                     wide_probe_bound(8 * q + 1, 8 * q, flat, rows_hit, m)),
             }
             for name, (kernel, plain, lim) in runs.items():
-                ms = cuda_ms(kernel)
-                plain_ms = cuda_ms(plain, reps=reps, warmup=1)
+                ms = device_ms(kernel)
+                plain_ms = device_ms(plain, reps=reps)
                 times[(name, k, m)] = (ms, plain_ms, lim)
                 print(f"[3w] {name} k={k} M={m}: equal ({rows_hit} rows "
                       f"hit, {int(ref.sum())} hits); kernel {ms:.4f} ms, "
@@ -401,6 +424,7 @@ def phase_3s(flat_random, cuda, check, times):
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import extract, segsort
     from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
     rng = np.random.default_rng(4)
     genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
     flat_40x = extract.extract_canonical(
@@ -437,13 +461,13 @@ def phase_3s(flat_random, cuda, check, times):
         # count per segment
         dedup_lim = bound(8 * n_rows + 16 * rows + 4 * n_segs,
                           91 * n_rows // 2)
-        sort_ms = cuda_ms(lambda: segsort.seg_sort(flat, payload))
-        sort_plain = cuda_ms(lambda: dev.segment_sort(segs, pays))
-        sort_lib = cuda_ms(library_sort)
-        dedup_ms = cuda_ms(lambda: segsort.seg_dedup(flat))
-        dedup_plain = cuda_ms(lambda: dev.segment_runs(segs), reps=5)
-        dedup_lib = cuda_ms(lambda: dev.dedup_windows(flat))
-        dense_ms = cuda_ms(lambda: segsort.dedup_segments(flat))
+        sort_ms = device_ms(lambda: segsort.seg_sort(flat, payload))
+        sort_plain = device_ms(lambda: dev.segment_sort(segs, pays))
+        sort_lib = device_ms(library_sort)
+        dedup_ms = device_ms(lambda: segsort.seg_dedup(flat))
+        dedup_plain = device_ms(lambda: dev.segment_runs(segs), reps=5)
+        dedup_lib = device_ms(lambda: dev.dedup_windows(flat))
+        dense_ms = device_ms(lambda: segsort.dedup_segments(flat))
         times[("seg_sort", label)] = (sort_ms, sort_plain, sort_lib,
                                       sort_lim)
         times[("seg_dedup", label)] = (dedup_ms, dedup_plain, dedup_lib,
@@ -760,6 +784,7 @@ def main():
     )
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
 
     cuda = torch.device("cuda", 0)
     sentinel = keys64.SENTINEL
@@ -824,8 +849,8 @@ def main():
         got = extract.extract_canonical(codes, lengths, k)
         check("extract_canonical", got,
               dev.extract_canonical_windows(codes, lengths, k)[0], f"k={k}")
-        ms = cuda_ms(lambda: extract.extract_canonical(codes, lengths, k))
-        plain_ms = cuda_ms(
+        ms = device_ms(lambda: extract.extract_canonical(codes, lengths, k))
+        plain_ms = device_ms(
             lambda: dev.extract_canonical_windows(codes, lengths, k))
         # codes and lengths read, keys written; ~6 operations a window
         # (two shift-ors, the min, the validity test)
@@ -842,8 +867,8 @@ def main():
             probe.probe_tally(flat, table, acc)
             ref = dev.small_table_tally(table, flat)
             check("probe_tally", acc, ref, f"k={k}, M={m}")
-            ms = cuda_ms(lambda: probe.probe_tally(flat, table, acc))
-            plain_ms = cuda_ms(
+            ms = device_ms(lambda: probe.probe_tally(flat, table, acc))
+            plain_ms = device_ms(
                 lambda: acc.add_(dev.small_table_tally(table, flat)))
             # keys read; each row hit: key read, count read and written
             lim = probe_bound(8, 24, flat, table, sentinel)
@@ -851,6 +876,8 @@ def main():
             print(f"[3] K2 k={k} M={m}: equal ({int(ref.sum())} hits); "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{lim[0]:.4f} ms by {lim[1]}", flush=True)
+
+    extract_row(cuda, check, times, 31, "3")
 
     # K3 and K4 at k = 31: the batch above, its dedup, and a stacked
     # group of 8 x 4,096 reads of widths 152, 144, ..., 96
@@ -872,11 +899,11 @@ def main():
         probe.probe_tally_weighted(uniq, weights, table, acc)
         ref = dev.small_table_tally(table, flat)
         check("probe_tally_weighted", acc, ref, f"M={m}")
-        ms = cuda_ms(lambda: probe.probe_tally_weighted(uniq, weights,
-                                                        table, acc))
-        plain_ms = cuda_ms(lambda: dev.weighted_tally(table, uniq, weights,
-                                                      acc))
-        dedup_ms = cuda_ms(lambda: dev.dedup_windows(flat))
+        ms = device_ms(lambda: probe.probe_tally_weighted(uniq, weights,
+                                                          table, acc))
+        plain_ms = device_ms(lambda: dev.weighted_tally(table, uniq, weights,
+                                                        acc))
+        dedup_ms = device_ms(lambda: dev.dedup_windows(flat))
         # keys and weights read; each row hit as for K2
         lim = probe_bound(16, 24, uniq, table, sentinel)
         times[("probe_tally_weighted", m)] = (ms, plain_ms, lim)
@@ -890,9 +917,9 @@ def main():
                   f"M={m}, {form}")
             if not bool(got.any()):
                 fail(f"probe_member found nothing at M={m}, {form}")
-            ms = cuda_ms(lambda: member.probe_member(keys, table))
-            plain_ms = cuda_ms(lambda: dev.member(table, keys))
-            isin_ms = cuda_ms(lambda: torch.isin(keys, table))
+            ms = device_ms(lambda: member.probe_member(keys, table))
+            plain_ms = device_ms(lambda: dev.member(table, keys))
+            isin_ms = device_ms(lambda: torch.isin(keys, table))
             # keys read, found bytes written; each row hit read
             lim = probe_bound(9, 8, keys, table, sentinel)
             times[("probe_member", form, m)] = (ms, plain_ms, isin_ms, lim)

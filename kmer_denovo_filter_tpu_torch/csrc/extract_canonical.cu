@@ -3,90 +3,100 @@
 // Replaces the Pallas TPU kernel
 // kmer_denovo_filter_tpu/ops/pallas_extract.py:_extract_mix_kernel (:54),
 // without its Feistel route mix: the mix exists to order keys for the
-// TPU's partition routing, and the int64 keys here need none.
+// TPU's partition routing, and the int64 keys here need none.  Like that
+// kernel it packs bases into 2-bit words once and reads every window out
+// of the packed words; the TPU builds its packs by doubling shifts along
+// the lanes, here a block packs its tile in shared memory.
 //
 // In:  codes (B, L) uint8, 2-bit bases with 4 = N/padding; lengths (B,)
-//      int32; k odd in 3..31.
+//      int32; k odd in 1..31.
 // Out: keys (B, S = L - k + 1) int64, right-aligned 2-bit big-endian
 //      k-mer value min(forward, reverse complement); INT64_MAX where the
 //      window holds a code >= 4 or runs past the read's length.
 //
-// One thread per window loops over its k bases, building the forward
-// value by shift-in from the right and the reverse complement by placing
-// (3 - base) at bit 2j.  k is odd, so a k-mer never equals its reverse
-// complement and the min has no ties.
-//
-// Bound: by bytes it is write-bound — each window writes 8 bytes and
-// reads one new byte of codes (the k - 1 bases it shares with its
-// neighbours come from L1, since neighbouring threads read neighbouring
-// windows of the same read).  The design keeps the write fully coalesced
-// (thread i writes keys[i]) and does no other global traffic.  At 4.0M
-// windows the 37 MB move in ~11 us at 3.35 TB/s, but on an H100 SXM
-// (700 W) the kernel takes ~0.08 ms: the per-window k-step loop of 64-bit
-// shifts (~k * 6 integer instructions per window) bounds it, not the
-// writes.  A rolling forward/reverse value per thread over several
-// windows would cut that k-fold.
+// Bound: bytes.  Each window writes 8 bytes and the batch's codes are
+// read once: at 4.0M windows of 152 bp reads, 37 MB, 11 us at 3.35 TB/s.
+// The first K1 ran one thread per window over its k bases (~6k integer
+// instructions a window, two 64-bit shift-ors and a byte load per base),
+// which bounded it at ~7x the bytes.  This design does a constant number
+// of instructions per window:
+//   - a block takes a tile of kTile start positions of the flat code
+//     stream and packs its bytes (16-byte vector loads) into 2-bit words
+//     and an N bit mask in shared memory (packed_window.cuh);
+//   - the forward value is one three-word funnel extract; the reverse
+//     complement is the same 32 bases reversed by pairs (__brev of each
+//     half, a pair swap) and complemented, the N test a two-word funnel
+//     of the mask;
+//   - thread t walks positions t, t + kThreads, .. of the tile, carrying
+//     (read, column) by adds (for_each_window): one 64-bit division per
+//     tile, none per window;
+//   - thread i of a tile's window run writes keys[i]: stores coalesced.
+// k is odd, so a k-mer never equals its reverse complement and the min
+// has no ties.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "packed_window.cuh"
+
 namespace {
 
+using namespace kdf_packed;
+
 constexpr long long kSentinel = 0x7FFFFFFFFFFFFFFFLL;
-constexpr int kThreads = 256;
 
 // kStage cuts the kernel for timing probes (the counterpart of the stage
 // kernels of scripts/x_join_variants.py:_make_extract_stage, :1449):
-// 0 loads the window's codes and stores their XOR, 1 adds the forward
-// roll (stores it), 2 the reverse-complement roll (stores fwd ^ rc), 3
-// the canonical minimum, 4 the N-in-window mask, 5 the read-length test:
-// the full K1, the only instantiation the engine uses.
+// 0 loads and packs the tile and stores, per window, the XOR of the three
+// packed words it reads; 1 the forward extract (stores it); 2 adds the
+// reverse complement (stores fwd ^ rc); 3 the canonical minimum; 4 the
+// N-in-window mask; 5 the read-length test: the full K1, the only
+// instantiation the engine uses.
 template <int kStage>
-__global__ void extract_canonical_kernel(const uint8_t* __restrict__ codes,
-                                         const int32_t* __restrict__ lengths,
-                                         long long* __restrict__ keys,
-                                         int n_reads, int length, int k) {
+__global__ void __launch_bounds__(kThreads)
+    extract_canonical_kernel(const uint8_t* __restrict__ codes,
+                             const int32_t* __restrict__ lengths,
+                             long long* __restrict__ keys, int n_reads,
+                             int length, int k) {
+  __shared__ Packed sm;
+  __shared__ Tile tile;
   const int s = length - k + 1;
-  const long long n = static_cast<long long>(n_reads) * s;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int read = static_cast<int>(i / s);
-  const int start = static_cast<int>(i - static_cast<long long>(read) * s);
-  const uint8_t* window =
-      codes + static_cast<long long>(read) * length + start;
-  bool bad = kStage >= 5 && start + k > lengths[read];
-  unsigned long long fwd = 0;
-  unsigned long long rc = 0;
-  for (int j = 0; j < k; ++j) {
-    const unsigned code = window[j];
+  const long long total = static_cast<long long>(n_reads) * length;
+  if (threadIdx.x == 0) tile = make_tile(codes, total, length, s, k);
+  __syncthreads();
+  load_tile(codes, total, tile, sm);
+  __syncthreads();
+
+  const int head = tile.head;
+  for_each_window(tile, length, s, [&](int q, int read, unsigned col) {
+    const int u = q + head;
+    long long out;
     if (kStage == 0) {
-      fwd ^= code;
-      continue;
+      const int m = u >> 4;
+      out = static_cast<long long>(sm.codes[m] ^ sm.codes[m + 1] ^
+                                   sm.codes[m + 2]);
+    } else {
+      const uint64_t win = window64(sm.codes, u);
+      const uint64_t fwd = forward_bases(win, k);
+      uint64_t key = fwd;
+      if (kStage >= 2) {
+        const uint64_t rc = reverse_complement(win, k);
+        key = kStage == 2 ? fwd ^ rc : (fwd < rc ? fwd : rc);
+      }
+      bool bad = kStage >= 4 && any_n_short(sm.nmask, u, k);
+      if (kStage >= 5) bad |= static_cast<int>(col) + k > lengths[read];
+      out = bad ? kSentinel : static_cast<long long>(key);
     }
-    bad |= code >= 4u;
-    const unsigned long long base = code & 3u;
-    fwd = (fwd << 2) | base;
-    if (kStage >= 2) rc |= (3ull - base) << (2 * j);
-  }
-  const unsigned long long canonical = fwd < rc ? fwd : rc;
-  if (kStage <= 1) {
-    keys[i] = static_cast<long long>(fwd);
-  } else if (kStage == 2) {
-    keys[i] = static_cast<long long>(fwd ^ rc);
-  } else if (kStage == 3) {
-    keys[i] = static_cast<long long>(canonical);
-  } else {
-    keys[i] = bad ? kSentinel : static_cast<long long>(canonical);
-  }
+    keys[static_cast<long long>(read) * s + col] = out;
+  });
 }
 
 template <int kStage>
 int launch_extract(const void* codes, const void* lengths, void* keys,
                    int n_reads, int length, int k, void* stream) {
-  const long long n = static_cast<long long>(n_reads) * (length - k + 1);
-  const long long blocks = (n + kThreads - 1) / kThreads;
+  const long long total = static_cast<long long>(n_reads) * length;
+  const long long blocks = (total + kTile - 1) / kTile;
   extract_canonical_kernel<kStage>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
@@ -99,10 +109,11 @@ int launch_extract(const void* codes, const void* lengths, void* keys,
 }  // namespace
 
 // K1 cut at stage 0..5 (see extract_canonical_kernel); the engine passes
-// 5, the full K1.
+// 5, the full K1.  cudaErrorInvalidValue for a k outside 1..31.
 extern "C" int kdf_extract_canonical(const void* codes, const void* lengths,
                                      void* keys, int n_reads, int length,
                                      int k, int stage, void* stream) {
+  if (k < 1 || k > 31) return static_cast<int>(cudaErrorInvalidValue);
   switch (stage) {
     case 0: return launch_extract<0>(codes, lengths, keys, n_reads, length, k, stream);
     case 1: return launch_extract<1>(codes, lengths, keys, n_reads, length, k, stream);

@@ -15,6 +15,7 @@ import torch
 from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.ops.extract import extract_canonical
 from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
 
 K = 31
 READ_LEN = 152
@@ -90,21 +91,15 @@ def wgs_table(rng, genome, m, device):
 
 
 def timeit(label, fn, device, reps):
-    """Mean milliseconds of *fn* over *reps* calls after one warm-up:
-    CUDA events on the card, the host clock on the CPU.  Prints a
-    labelled line and returns the time."""
-    fn()
+    """Mean milliseconds of *fn* over *reps* calls after a warm-up:
+    device time by CUDA events on the card (``ops.timing.device_ms``),
+    the host clock on the CPU.  Prints a labelled line and returns the
+    time."""
     if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(device)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize(device)
-        ms = start.elapsed_time(stop) / reps
+        with torch.cuda.device(device):
+            ms = device_ms(fn, reps)
     else:
+        fn()
         t = time.perf_counter()
         for _ in range(reps):
             fn()

@@ -1,0 +1,174 @@
+"""K1, K1w, K2 and K7 of one checkout, each read three ways on the card:
+
+* ``device``: ``ops.timing.timings``' first reading, the calls queued
+  behind a spin, the timer of ``chip_smoke.py`` and the experiments;
+* ``loop``: its second reading, a plain loop of calls between two CUDA
+  events, which was their timer before the spin (it times the host's
+  launch rate for a kernel shorter than the launch);
+* ``profiler``: the device time of the calls' own kernels by
+  ``torch.profiler``, which no host timing can bias.
+
+The shapes are those of ``chip_smoke.py`` phases 3 and 3w: 32,768
+random reads of 152 bp (256 at k = 201) with ~0.5 % N and 10 % ragged
+lengths, tables of 4,096 keys half drawn from the batch, and one
+(1, 2**20) row.  The timer is always the one beside this file, whatever
+checkout's kernels it times, so two checkouts compare under one timer::
+
+    python kmer_denovo_filter_tpu_torch/experiments/timer_ab.py \\
+        [--root CHECKOUT] [--tag NAME]
+
+Run it as a file: *CHECKOUT* (default: the one that holds this file) goes
+first on ``sys.path`` and its package is imported.  Every output is
+checked against its plain version.  Prints a line per kernel and shape,
+then one JSON line."""
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+B, L, L_K201, ROW, M, REPS = 32768, 152, 256, 1 << 20, 4096, 20
+
+
+def load_timing():
+    """This checkout's ``ops/timing.py``, loaded by path."""
+    path = os.path.join(os.path.dirname(HERE), "ops", "timing.py")
+    spec = importlib.util.spec_from_file_location("kdf_ab_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def profiler_ms(fn, reps):
+    """Mean device milliseconds of the kernels *fn* launches, by
+    ``torch.profiler`` over *reps* calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def random_batch(rng, length):
+    codes = rng.integers(0, 4, (B, length), dtype=np.uint8)
+    codes[rng.random((B, length)) < 0.005] = 4
+    lengths = np.full(B, length, np.int32)
+    ragged = rng.random(B) < 0.1
+    lengths[ragged] = rng.integers(0, length + 1, int(ragged.sum()))
+    return codes, lengths
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="timer_ab")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("timer_ab: needs a CUDA GPU")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract, probe
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    timing = load_timing()
+    print(f"timer_ab {args.tag}: package {os.path.dirname(dev.__file__)}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    cuda = torch.device("cuda", 0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    rows = []
+
+    def time_it(name, shape, fn):
+        device_ms, loop_ms = timing.timings(fn, REPS)
+        prof_ms = profiler_ms(fn, REPS)
+        rows.append({"kernel": name, "shape": shape, "device_ms": device_ms,
+                     "loop_ms": loop_ms, "profiler_ms": prof_ms})
+        print(f"{args.tag:8s} {name:12s} {shape:24s} device "
+              f"{device_ms:.4f} ms, loop {loop_ms:.4f} ms, profiler "
+              f"{prof_ms:.4f} ms", flush=True)
+
+    def check(what, got, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            sys.exit(f"timer_ab: {what} differs from its plain version")
+
+    def table_of(flat, k):
+        """(M, Q) or (M,) sorted table: half live rows of *flat*, half
+        random."""
+        wide = flat.dim() == 2
+        live = flat[flat[:, 0] != keys64.SENTINEL] if wide else (
+            flat[flat != keys64.SENTINEL])
+        live = dev.unique_rows(live)[0] if wide else torch.unique(live)
+        pick = live[torch.randperm(live.shape[0], generator=gen,
+                                   device=cuda)[:M // 2]]
+        if wide:
+            rand = torch.stack([torch.randint(0, 4 ** nb, (M - M // 2,),
+                                              generator=gen, device=cuda)
+                                for nb in keys64.limb_bases(k)], 1)
+            return dev.unique_rows(torch.cat([pick, rand]))[0]
+        rand = torch.randint(0, 4 ** k, (M - M // 2,), generator=gen,
+                             device=cuda)
+        return torch.unique(torch.cat([pick, rand]))
+
+    rng = np.random.default_rng(0)
+    batches = {}
+    for length in (L, L_K201):
+        codes, lengths = random_batch(rng, length)
+        batches[length] = (torch.from_numpy(codes).to(cuda),
+                           torch.from_numpy(lengths).to(cuda))
+    row_np = rng.integers(0, 4, (1, ROW), dtype=np.uint8)
+    row_np[0, rng.random(ROW) < 0.005] = 4
+    row = (torch.from_numpy(row_np).to(cuda),
+           torch.tensor([ROW], dtype=torch.int32, device=cuda))
+
+    for k in (31, 33, 63, 127, 151, 201):
+        codes, lengths = batches[L_K201 if k == 201 else L]
+        if k <= 31:
+            name, kernel = "K1", extract.extract_canonical
+            plain = dev.extract_canonical_windows
+        else:
+            name, kernel = "K1w", extract.extract_canonical_wide
+            plain = dev.extract_canonical_windows_wide
+        got = kernel(codes, lengths, k)
+        check(f"{name} k={k}", got, plain(codes, lengths, k)[0])
+        time_it(name, f"k={k} {codes.shape[1]} bp",
+                lambda: kernel(codes, lengths, k))
+        if k in (31, 63):
+            check(f"{name} k={k} row", kernel(*row, k), plain(*row, k)[0])
+            time_it(name, f"k={k} (1, 2**20) row", lambda: kernel(*row, k))
+        if k == 31:
+            flat = got.reshape(-1)
+            table = table_of(flat, k)
+            acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
+            probe.probe_tally(flat, table, acc)
+            check("K2", acc, dev.small_table_tally(table, flat))
+            time_it("K2", f"k=31 M={table.shape[0]}",
+                    lambda: probe.probe_tally(flat, table, acc))
+        if k in (63, 201):
+            flat = got.flatten(0, 1)
+            uniq, weights = dev.dedup_windows_wide(flat)
+            table = table_of(flat, k)
+            ref = dev.small_table_tally_wide(table, flat)
+            for form, keys, w in (("K7", flat, None), ("K7 weighted", uniq,
+                                                       weights)):
+                acc = torch.zeros(table.shape[0], dtype=torch.int64,
+                                  device=cuda)
+                probe.probe_tally_wide(keys, table, acc, w)
+                check(f"{form} k={k}", acc, ref)
+                time_it(form, f"k={k} M={table.shape[0]}",
+                        lambda: probe.probe_tally_wide(keys, table, acc, w))
+    print(json.dumps({"timer_ab": args.tag, "rows": rows}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,9 +18,9 @@ The JAX script's Pallas kernels and what stands for each here:
 * the ``extract_mixed`` variants ``extract_v2p`` (:1169), ``extract_v3``
   (:1306) and the stage kernels of ``_make_extract_stage`` (:1449): K1.
   ``xextract`` and ``xextract3`` hold K1 against its plain version and
-  its bound; ``xmicro`` times K1 cut at each compile-time stage (0 load/
-  store, 1 forward roll, 2 reverse-complement roll, 3 canonical minimum,
-  4 N-in-window mask, 5 the full K1) and compares stage 5 only.
+  its bound; ``xmicro`` times K1 cut at each compile-time stage (0 load
+  and pack, 1 forward extract, 2 reverse complement, 3 canonical
+  minimum, 4 N-in-window mask, 5 the full K1) and compares stage 5 only.
 
 The script's other commands run no Pallas kernel and are not ported
 yet (ROADMAP, queue of experiment commands).
@@ -59,8 +59,8 @@ from kmer_denovo_filter_tpu_torch.ops.probe import (
 )
 
 COMMANDS = ("v5", "kernel", "xextract", "xextract3", "xmicro")
-STAGES = ("load/store", "+forward roll", "+rc roll", "+canonical min",
-          "+N-in-window mask", "+read length (= K1)")
+STAGES = ("load + pack", "+forward extract", "+reverse complement",
+          "+canonical min", "+N-in-window mask", "+read length (= K1)")
 
 
 class SegmentDedupCounter(eng.FilteredCounter):

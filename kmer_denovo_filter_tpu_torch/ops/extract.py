@@ -72,9 +72,9 @@ def extract_canonical(codes, lengths, k):
 
 
 def extract_canonical_stage(codes, lengths, k, stage):
-    """K1 cut at *stage* (0 load/store, 1 forward roll, 2 reverse-
-    complement roll, 3 canonical minimum, 4 N-in-window mask, 5 the full
-    K1): a timing probe, the counterpart of the stage kernels of
+    """K1 cut at *stage* (0 load and pack, 1 forward extract, 2 reverse
+    complement, 3 canonical minimum, 4 N-in-window mask, 5 the full K1):
+    a timing probe, the counterpart of the stage kernels of
     ``scripts/x_join_variants.py:_make_extract_stage`` (:1449).  Stage 5
     equals :func:`extract_canonical`; only it is compared with anything,
     so stages 0-4 have no plain version.  A CUDA tensor launches the

@@ -47,6 +47,89 @@ def test_extract_kernel_matches_plain(cuda, k):
     assert torch.equal(got, ref)
 
 
+def _extract_matches_plain(codes, lengths, k):
+    """K1 (k <= 31) or K1w on a CUDA batch equals its plain version, in
+    one launch; returns the keys."""
+    narrow = k <= keys64.NARROW_K
+    counter = "launches" if narrow else "wide_launches"
+    before = getattr(extract, counter)
+    if narrow:
+        got = extract.extract_canonical(codes, lengths, k)
+        ref = dev.extract_canonical_windows(codes, lengths, k)[0]
+    else:
+        got = extract.extract_canonical_wide(codes, lengths, k)
+        ref = dev.extract_canonical_windows_wide(codes, lengths, k)[0]
+    torch.cuda.synchronize()
+    assert getattr(extract, counter) == before + 1
+    assert torch.equal(got, ref)
+    return got
+
+
+def _ragged(seed, k, length, n=1024):
+    """Ragged reads with N bases, lengths of 0 and k - 1, all-N rows."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (n, length), dtype=np.uint8)
+    codes[rng.random((n, length)) < 0.01] = 4
+    lengths = rng.integers(0, length + 1, n).astype(np.int32)
+    lengths[::3] = length
+    lengths[1::17] = 0
+    lengths[2::17] = k - 1
+    codes[5::31] = 4
+    return torch.from_numpy(codes), torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("k,length", [
+    (k, length) for k in (3, 15, 31, 33, 63)
+    for length in (k, 32, 33, 63, 64, 65, 97) if length >= k])
+def test_extract_kernels_ragged_lengths(cuda, k, length):
+    """Read lengths around the 2-bit word and 16-byte chunk edges, L = k
+    (one window a read) included."""
+    codes, lengths = (t.to(cuda) for t in _ragged(k * 1000 + length, k,
+                                                  length))
+    _extract_matches_plain(codes, lengths, k)
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_extract_kernels_one_long_row(cuda, k):
+    """One (1, 2**20) row, as ``StreamCounter.feed_sequence`` feeds a
+    contig: tiles cut the row, not reads."""
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, (1, 1 << 20), dtype=np.uint8)
+    codes[0, rng.random(1 << 20) < 0.001] = 4
+    lengths = torch.tensor([1 << 20], dtype=torch.int32, device=cuda)
+    got = _extract_matches_plain(torch.from_numpy(codes).to(cuda), lengths,
+                                 k)
+    assert got.shape[1] == (1 << 20) - k + 1
+
+
+def test_extract_wide_kernel_window_sparse(cuda):
+    """k = 151 on 152 bp reads: two windows a read, ~27 a tile."""
+    codes, lengths = (t.to(cuda) for t in _batch(151, n=4096))
+    got = _extract_matches_plain(codes, lengths, 151)
+    assert got.shape == (4096, 2, 5)
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_extract_kernels_stacked_group(cuda, k):
+    """A group of batches of widths 152, 144, .., 96 stacked and padded
+    with code 4, as ``scan_reads_for_hits_many`` stacks them."""
+    parts = [_batch(k + i, n=512, length=152 - 8 * i) for i in range(8)]
+    codes = torch.full((512 * 8, 152), 4, dtype=torch.uint8)
+    for i, (c, _l) in enumerate(parts):
+        codes[512 * i:512 * (i + 1), :c.shape[1]] = c
+    lengths = torch.cat([l for _c, l in parts])
+    _extract_matches_plain(codes.to(cuda), lengths.to(cuda), k)
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_extract_kernels_unaligned_view(cuda, k):
+    """A contiguous view whose data starts 97 bytes into its storage:
+    the tiles' chunk frames are not the tensor's, the edges load by
+    bytes."""
+    codes, lengths = (t.to(cuda) for t in _batch(k + 1, n=1025, length=97))
+    _extract_matches_plain(codes[1:], lengths[1:], k)
+
+
 @pytest.mark.parametrize("m", [1, 777, 6144, 6145, 100_000])
 def test_probe_kernel_matches_plain(cuda, m):
     """Table sizes around the 48 KB shared-memory staging edge."""
