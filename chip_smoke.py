@@ -11,12 +11,21 @@ any failure exits non-zero before the result line:
 3. Kernels against their plain PyTorch versions on the same card,
    exact equality, on 32,768 random reads x 152 bp with N bases and
    ragged lengths: K1 (extract_canonical) at k in {15, 17, 21, 31}, and
-   on one (1, 2**20) row at k = 31 (a contig chunk of Module 0); at
-   k = 31 and M in {1, 4,096, 262,144, 2**24} table keys (half drawn
-   from the batch) K2 (probe_tally) on the flat windows, K3
-   (probe_tally_weighted) on their batch dedup, K4 (probe_member) on the
-   flat windows and on a stacked group of 8 x 4,096 reads.  Times by
-   CUDA events, beside ``torch.isin`` for K4.
+   on one (1, 2**20) row at k = 31 (a contig chunk of Module 0); K2
+   (probe_tally) at each k and M in {1, 4,096, 262,144} table keys (half
+   drawn from the batch), at k = 31 also 2**24; K3
+   (probe_tally_weighted) on the batch's dedup at k = 31 and M in
+   {1, 4,096, 262,144, 2**24}.  Times by CUDA events.
+3p. The prefix-directory probes at k = 31, on the random batch and on
+   one 40x-coverage batch (the 3s batch; its tables drawn from its own
+   keys, so K2's atomics repeat as on real reads), at M in {1, 6,207,
+   6,208, 10,367, 10,368} (the staged limits +- 1; checked only) and
+   {4,096, 262,144, 2**20, 2**24} (timed): the directory
+   (build_directory, kdf_build_directory) against its plain version and
+   timed apart, K2 through it, K4 through it on the flat windows and (on
+   the random batch) a stacked group of 8 x 4,096 reads; beside
+   ``torch.isin`` for K4 and ``torch.searchsorted(table, keys)``, a
+   search-only yardstick (not the same function) for both.
 4. Main path, VCF mode: ``kmer-denovo-torch`` (``cli.vcf_main``) on the
    GIAB mini trio in ``tests/data/giab``; the three VCF-mode outputs
    must equal ``tests/goldens`` byte for byte, and K1 and K2 must have
@@ -214,6 +223,17 @@ def synth_reads(rng, genome, n_reads, read_len):
     err = rng.random((n_reads, read_len)) < ERROR_RATE
     return np.where(err, (reads + rng.integers(
         1, 4, (n_reads, read_len))) % 4, reads).astype(np.uint8)
+
+
+def describe_directory(label, index):
+    """Prints the prefix directory *index* holds: bits, shift and the
+    largest bucket (none on the CPU device)."""
+    d = index.directory
+    if d is None:
+        return
+    largest = int((d.offsets[1:] - d.offsets[:-1]).max())
+    print(f"{label} directory of the {d.live}-row table: bits {d.bits}, "
+          f"shift {d.shift}, largest bucket {largest} rows", flush=True)
 
 
 def profile_loop(label, n_batches, run, wall_unprofiled, card):
@@ -416,20 +436,118 @@ def phase_3w(rng, cuda, check, times):
             del table, acc, acc_w, ref
 
 
-def phase_3s(flat_random, cuda, check, times):
+def batch_40x(cuda):
+    """The flat k = 31 window keys of one 40x-coverage batch of B reads
+    (its own generator, seed 4)."""
+    from kmer_denovo_filter_tpu_torch.ops import extract
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
+    return extract.extract_canonical(
+        torch.from_numpy(synth_reads(rng, genome, B, L)).to(cuda),
+        torch.full((B,), L, dtype=torch.int32, device=cuda), 31).reshape(-1)
+
+
+def staged_budget():
+    """Bytes of shared memory a block may use with two blocks an SM
+    (``kdf::dir_probe_launch``; 1 KB reserved a block)."""
+    props = torch.cuda.get_device_properties(0)
+    return min(props.shared_memory_per_multiprocessor // 2 - 1024,
+               props.shared_memory_per_block_optin)
+
+
+def phase_3p(batches, cuda, check, times):
+    """The directory, K2 and K4 through it at k = 31 against their plain
+    versions, at the staged limits +- 1 and, timed beside ``torch.isin``
+    and ``torch.searchsorted``, at 4,096, 262,144, 2**20 and 2**24 rows.
+    *batches*: {label: (flat keys, stacked-group keys or None)}."""
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import directory as tdir
+    from kmer_denovo_filter_tpu_torch.ops import member, probe
+    from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+    rng = np.random.default_rng(6)
+    budget = staged_budget()
+    for label, (flat, flat_g) in batches.items():
+        forms = [("batch", flat)] + ([("group", flat_g)] if flat_g is not None
+                                     else [])
+        for m in (1, 6207, 6208, 10367, 10368, 4096, 262144, SCAN_M, BIG_M):
+            timed = m in (4096, 262144, SCAN_M, BIG_M)
+            table = make_table(rng, flat, m, 31, SENTINEL, cuda)
+            max_key = int(table[-1])
+            d = tdir.build_directory(table, m, max_key)
+            check("build_directory", d.offsets,
+                  tdir.plain_directory(table, m, d.bits, d.shift),
+                  f"{label} batch, M={m}")
+            largest = int((d.offsets[1:] - d.offsets[:-1]).max())
+            s_bits = (m - 1).bit_length()
+            # K2 and K4 stage the rows (K2 also 8 B of counts a row) and a
+            # uint16 directory at ceil(log2(M)) bits when they fit
+            staged = {name: row_bytes * m + 2 * ((1 << s_bits) + 1) <= budget
+                      for name, row_bytes in (("K2", 16), ("K4", 8))}
+            acc = torch.zeros(m, dtype=torch.int64, device=cuda)
+            probe.probe_tally(flat, table, acc, d)
+            ref = dev.small_table_tally(table, flat)
+            check("probe_tally", acc, ref, f"{label} batch, M={m}")
+            for form, keys in forms:
+                got = member.probe_member(keys, table, d)
+                check("probe_member", got, dev.member(table, keys),
+                      f"{label} batch, M={m}, {form}")
+                if timed and not bool(got.any()):
+                    fail(f"probe_member found nothing at M={m}, {form}")
+            print(f"[3p] {label} batch M={m}: directory bits {d.bits}, shift "
+                  f"{d.shift}, largest bucket {largest} rows (staged: bits "
+                  f"{s_bits}; K2 {'staged' if staged['K2'] else 'global'}, "
+                  f"K4 {'staged' if staged['K4'] else 'global'}); "
+                  f"directory, K2 ({int(ref.sum())} hits in "
+                  f"{int((ref > 0).sum())} rows) and K4 equal to plain",
+                  flush=True)
+            if not timed:
+                continue
+            n_dir = (1 << d.bits) + 1
+            ms = device_ms(lambda: tdir.build_directory(table, m, max_key))
+            plain_ms = device_ms(lambda: tdir.plain_directory(
+                table, m, d.bits, d.shift))
+            # live rows read, entries written; an entry or row a thread
+            lim = bound(8 * m + 4 * n_dir, m + n_dir)
+            times[("build_directory", label, m)] = (ms, plain_ms, lim)
+            print(f"[3p]   build_directory: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {lim[0]:.4f} ms by {lim[1]}",
+                  flush=True)
+            ms = device_ms(lambda: probe.probe_tally(flat, table, acc, d))
+            plain_ms = device_ms(
+                lambda: acc.add_(dev.small_table_tally(table, flat)))
+            search_ms = device_ms(lambda: torch.searchsorted(table, flat))
+            # keys read; each row hit: key read, count read and written
+            lim = probe_bound(8, 24, flat, table, SENTINEL)
+            times[("probe_tally", label, m)] = (ms, plain_ms, search_ms, lim)
+            print(f"[3p]   K2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.searchsorted {search_ms:.4f} ms, bound "
+                  f"{lim[0]:.4f} ms by {lim[1]}", flush=True)
+            for form, keys in forms:
+                ms = device_ms(lambda: member.probe_member(keys, table, d))
+                plain_ms = device_ms(lambda: dev.member(table, keys))
+                isin_ms = device_ms(lambda: torch.isin(keys, table))
+                search_ms = device_ms(lambda: torch.searchsorted(table, keys))
+                # keys read, found bytes written; each row hit read
+                lim = probe_bound(9, 8, keys, table, SENTINEL)
+                times[("probe_member", form, label, m)] = (
+                    ms, plain_ms, isin_ms, search_ms, lim)
+                print(f"[3p]   K4 {form}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, torch.isin {isin_ms:.4f} ms, "
+                      f"torch.searchsorted {search_ms:.4f} ms, bound "
+                      f"{lim[0]:.4f} ms by {lim[1]}", flush=True)
+            del table, acc, ref, d
+
+
+def phase_3s(flat_random, flat_40x, cuda, check, times):
     """K9 and K9d against their plain versions, timed beside them and
     the PyTorch calls nearest to them, on the phase-3 random batch and
     on one 40x batch."""
     from kmer_denovo_filter_tpu_torch.experiments.x_fused import pair_order
     from kmer_denovo_filter_tpu_torch.ops import device as dev
-    from kmer_denovo_filter_tpu_torch.ops import extract, segsort
+    from kmer_denovo_filter_tpu_torch.ops import segsort
     from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
-    rng = np.random.default_rng(4)
-    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
-    flat_40x = extract.extract_canonical(
-        torch.from_numpy(synth_reads(rng, genome, B, L)).to(cuda),
-        torch.full((B,), L, dtype=torch.int32, device=cuda), 31).reshape(-1)
     for label, flat in (("random", flat_random), ("40x", flat_40x)):
         payload = torch.arange(flat.numel(), dtype=torch.int32, device=cuda)
         segs = segsort.segments(flat, SENTINEL)
@@ -783,6 +901,7 @@ def main():
         segsort,
     )
     from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import directory as tdir
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
 
@@ -792,6 +911,7 @@ def main():
                 "probe_tally": (probe, "launches"),
                 "probe_tally_weighted": (probe, "weighted_launches"),
                 "probe_member": (member, "launches"),
+                "build_directory": (tdir, "launches"),
                 "extract_canonical_wide": (extract, "wide_launches"),
                 "probe_tally_wide": (probe, "wide_launches"),
                 "probe_tally_wide_weighted": (probe,
@@ -863,11 +983,12 @@ def main():
         flat = got.reshape(-1)
         for m in TABLE_MS + ((BIG_M,) if k == 31 else ()):
             table = make_table(rng, flat, m, k, sentinel, cuda)
+            d = tdir.build_directory(table)
             acc = torch.zeros(m, dtype=torch.int64, device=cuda)
-            probe.probe_tally(flat, table, acc)
+            probe.probe_tally(flat, table, acc, d)
             ref = dev.small_table_tally(table, flat)
             check("probe_tally", acc, ref, f"k={k}, M={m}")
-            ms = device_ms(lambda: probe.probe_tally(flat, table, acc))
+            ms = device_ms(lambda: probe.probe_tally(flat, table, acc, d))
             plain_ms = device_ms(
                 lambda: acc.add_(dev.small_table_tally(table, flat)))
             # keys read; each row hit: key read, count read and written
@@ -879,8 +1000,9 @@ def main():
 
     extract_row(cuda, check, times, 31, "3")
 
-    # K3 and K4 at k = 31: the batch above, its dedup, and a stacked
-    # group of 8 x 4,096 reads of widths 152, 144, ..., 96
+    # K3 at k = 31: the batch above, its dedup; K2 and K4 through the
+    # directory (3p) also on a stacked group of 8 x 4,096 reads of widths
+    # 152, 144, ..., 96 and on a 40x batch
     k = 31
     flat = extract.extract_canonical(codes, lengths, k).reshape(-1)
     uniq, weights = dev.dedup_windows(flat)
@@ -890,9 +1012,11 @@ def main():
         for i in range(GROUP)])
     flat_g = extract.extract_canonical(
         *(torch.from_numpy(a).to(cuda) for a in group_np), k).reshape(-1)
+    flat_40x = batch_40x(cuda)
     print(f"[3] k=31 batch: {flat.numel()} windows, {uniq.numel()} distinct "
           f"after dedup; group of {GROUP} x {GROUP_B} reads: "
-          f"{flat_g.numel()} windows", flush=True)
+          f"{flat_g.numel()} windows; 40x batch: {flat_40x.numel()} windows, "
+          f"{torch.unique(flat_40x).numel()} distinct", flush=True)
     for m in TABLE_MS + (BIG_M,):
         table = make_table(rng, flat, m, k, sentinel, cuda)
         acc = torch.zeros(m, dtype=torch.int64, device=cuda)
@@ -911,25 +1035,13 @@ def main():
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms "
               f"by {lim[1]}; the dedup in front {dedup_ms:.4f} ms",
               flush=True)
-        for form, keys in (("batch", flat), ("group", flat_g)):
-            got = member.probe_member(keys, table)
-            check("probe_member", got, dev.member(table, keys),
-                  f"M={m}, {form}")
-            if not bool(got.any()):
-                fail(f"probe_member found nothing at M={m}, {form}")
-            ms = device_ms(lambda: member.probe_member(keys, table))
-            plain_ms = device_ms(lambda: dev.member(table, keys))
-            isin_ms = device_ms(lambda: torch.isin(keys, table))
-            # keys read, found bytes written; each row hit read
-            lim = probe_bound(9, 8, keys, table, sentinel)
-            times[("probe_member", form, m)] = (ms, plain_ms, isin_ms, lim)
-            print(f"[3] K4 M={m} {form}: equal ({int(got.sum())} found); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"torch.isin {isin_ms:.4f} ms, bound {lim[0]:.4f} ms by "
-                  f"{lim[1]}", flush=True)
+
+    # ── 3p. K2 and K4 through the prefix directory ─────────────────
+    phase_3p({"random": (flat, flat_g), "40x": (flat_40x, None)}, cuda,
+             check, times)
 
     # ── 3s. segment-local sort and dedup against their plain versions
-    phase_3s(flat, cuda, check, times)
+    phase_3s(flat, flat_40x, cuda, check, times)
 
     # ── 3w. wide kernels against their plain versions ──────────────
     phase_3w(rng, cuda, check, times)
@@ -968,7 +1080,7 @@ def main():
                     fail(f"{name} differs from tests/goldens")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    for name in ("extract_canonical", "probe_tally"):
+    for name in ("extract_canonical", "probe_tally", "build_directory"):
         if launches_vcf[name] <= 0:
             fail(f"kernel {name} was not launched on the VCF main path")
     print(f"[4] kmer-denovo-torch: 3 goldens byte-equal in {wall:.3f} s; "
@@ -1005,7 +1117,8 @@ def main():
             fail("the informative BAM was not written and indexed")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    for name in ("extract_canonical", "probe_tally_weighted", "probe_member"):
+    for name in ("extract_canonical", "probe_tally_weighted", "probe_member",
+                 "build_directory"):
         if launches_disc[name] <= 0:
             fail(f"kernel {name} was not launched on the discovery path")
     if sorted(os.listdir(giab)) != giab_files:
@@ -1062,6 +1175,7 @@ def main():
                               device=cuda)
         if not torch.equal(index.table, table):
             fail("KmerIndex table does not round-trip the int64 keys")
+        describe_directory("[5]", index)
         run_counter(eng.FilteredCounter(index))  # warm-up
         run_plain_path(index)
         p1, plain_a = run_plain_path(index)
@@ -1098,6 +1212,7 @@ def main():
         index = eng.KmerIndex(keys64.keys64_to_words(table, k), k,
                               device=cuda)
         del table
+        describe_directory("[5b]", index)
         for name in list(forms) + [seg_form]:  # warm-up
             run_feed(name, index)
         plain, plain_rate = run_plain_path(index)
@@ -1146,6 +1261,7 @@ def main():
     scan_table = make_table(rng, seen, SCAN_M, k, sentinel, cuda)
     scan_index = eng.KmerIndex(keys64.keys64_to_words(scan_table, k), k,
                                device=cuda)
+    describe_directory("[5b] scan", scan_index)
     small = [(c[i:i + GROUP_B], lens[i:i + GROUP_B])
              for c in batches for i in range(0, B, GROUP_B)]
     groups = [small[i:i + GROUP] for i in range(0, len(small), GROUP)]
@@ -1209,10 +1325,12 @@ def main():
 
     # ── the kernels' line: main-path launches, errors, times, bounds ─
     k1_ms, k1_plain, k1_lim = times[("extract_canonical", 31)]
-    k2_ms, k2_plain, k2_lim = times[("probe_tally", 31, BIG_M)]
+    k2_ms, k2_plain, _k2_search, k2_lim = times[("probe_tally", "random",
+                                                   BIG_M)]
     k3_ms, k3_plain, k3_lim = times[("probe_tally_weighted", BIG_M)]
-    k4_ms, k4_plain, k4_isin, k4_lim = times[("probe_member", "group",
-                                              BIG_M)]
+    k4_ms, k4_plain, k4_isin, _k4_search, k4_lim = times[(
+        "probe_member", "group", "random", BIG_M)]
+    dir_ms, dir_plain, dir_lim = times[("build_directory", "random", BIG_M)]
     launches = {name: launches_vcf[name] + launches_disc[name]
                 for name in counters}
     for name in ("extract_canonical_wide", "probe_tally_wide",
@@ -1269,6 +1387,13 @@ def main():
          "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_lim[0], "bound_by": k4_lim[1],
          "library_ms": k4_isin},
+        {"name": "build_directory", "route": "cuda",
+         "source": "kmer_denovo_filter_tpu_torch/csrc/directory.cu",
+         "replaces": "kmer_denovo_filter_tpu/ops/device.py:572",
+         "launches": launches["build_directory"],
+         "max_abs_err": err["build_directory"],
+         "ms": dir_ms, "plain_ms": dir_plain,
+         "bound_ms": dir_lim[0], "bound_by": dir_lim[1], "library_ms": None},
     ] + [
         {"name": name, "route": "cuda", "source": wide_source[name],
          "replaces": wide_replaces[name], "launches": launches[name],

@@ -1,18 +1,20 @@
-"""Command-line interface of the port: ``kmer-denovo-torch`` and
-``kmer-discovery-torch``.
+"""Command-line interface of the port: ``kmer-denovo-torch``,
+``kmer-discovery-torch`` and the legacy combined command
+(``python -m kmer_denovo_filter_tpu_torch``, :func:`main`).
 
 Flag-compatible with ``kmer-denovo`` / ``kmer-discovery``: the parsers
-below are copied from the JAX package.  Both pipelines run their device
+below are copied from the JAX package.  Every pipeline runs its device
 work on CUDA, chosen here; there is no CPU fallback.
 """
 
 import argparse
+import sys
 
 import torch
 
 
-# Copied from kmer_denovo_filter_tpu/cli.py:12–182 (_add_shared_args,
-# parse_vcf_args, _add_discovery_args, parse_discovery_args).
+# Copied from kmer_denovo_filter_tpu/cli.py:12–234 (_add_shared_args,
+# parse_vcf_args, _add_discovery_args, parse_discovery_args, parse_args).
 
 def _add_shared_args(parser):
     """Arguments common to both pipelines (reference cli.py:10–65)."""
@@ -187,6 +189,58 @@ def parse_discovery_args(argv=None):
     return parser.parse_args(argv)
 
 
+def parse_args(argv=None):
+    """Legacy combined parser (reference cli.py:233–387)."""
+    parser = argparse.ArgumentParser(
+        prog="kmer-denovo",
+        description="De novo variant curation using k-mer analysis")
+    _add_shared_args(parser)
+    parser.add_argument(
+        "--vcf", default=None,
+        help="Input VCF with candidate variants. When omitted, runs "
+             "VCF-free discovery mode (requires --out-prefix)")
+    parser.add_argument("--output", "-o", default=None,
+                        help="Output annotated VCF")
+    parser.add_argument(
+        "--out-prefix", default=None,
+        help="Output prefix for discovery mode files")
+    parser.add_argument("--metrics", default=None,
+                        help="Output summary metrics JSON file")
+    parser.add_argument(
+        "--summary", default=None,
+        help="Output human-readable summary of variant stats and "
+             "likely DNMs")
+    parser.add_argument(
+        "--informative-reads", default=None,
+        help="Output BAM with reads carrying informative k-mers")
+    parser.add_argument(
+        "--min-mapq", type=int, default=20,
+        help="Minimum mapping quality for child reads in VCF mode "
+             "(default: 20)")
+    parser.add_argument(
+        "--proband-id", default=None,
+        help="Sample ID of the proband in the VCF")
+    _add_discovery_args(parser)
+    parser.add_argument(
+        "--kraken2-db", default=None,
+        help="Path to a Kraken2 database for non-human content "
+             "classification (VCF mode)")
+    parser.add_argument(
+        "--kraken2-confidence", type=float, default=0.0,
+        help="Kraken2 confidence threshold (default: 0.0)")
+    parser.add_argument(
+        "--kraken2-memory-mapping", action="store_true", default=False,
+        help="Enable Kraken2 --memory-mapping")
+    parser.add_argument("--kraken2-read-detail", default=None,
+                        help="Per-read Kraken2 detail BED output path")
+    parser.add_argument("--kraken2-span-bed", default=None,
+                        help="Species-annotated span BED output path")
+    parser.add_argument(
+        "--no-expanded-bed", action="store_true", default=False,
+        help="Disable the expanded span BED output")
+    return parser.parse_args(argv)
+
+
 def vcf_main(argv=None):
     """Entry point for ``kmer-denovo-torch`` (VCF mode on CUDA)."""
     from kmer_denovo_filter_tpu_torch.vcf.pipeline import run_pipeline
@@ -199,3 +253,29 @@ def discovery_main(argv=None):
         run_discovery_pipeline,
     )
     run_discovery_pipeline(parse_discovery_args(argv), torch.device("cuda"))
+
+
+def main(argv=None):
+    """Legacy combined entry point dispatching by mode (reference
+    cli.py:318–337, on CUDA; multi-host joining is not ported)."""
+    args = parse_args(argv)
+    if args.vcf is not None:
+        if args.output is None:
+            print("error: --output is required when --vcf is provided",
+                  file=sys.stderr)
+            sys.exit(2)
+        from kmer_denovo_filter_tpu_torch.vcf.pipeline import run_pipeline
+        run_pipeline(args, torch.device("cuda"))
+    else:
+        if args.out_prefix is None:
+            print("error: either --vcf (with --output) or --out-prefix "
+                  "(for discovery mode) must be provided", file=sys.stderr)
+            sys.exit(2)
+        from kmer_denovo_filter_tpu_torch.discovery.pipeline import (
+            run_discovery_pipeline,
+        )
+        run_discovery_pipeline(args, torch.device("cuda"))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,31 +7,41 @@
 // and the unweighted tile join pallas_join.py:_tally_kernel (:273): each
 // counts, per table key, the windows equal to it.  The TPU compares every
 // window with every table key (O(N * M)) or route-sorts the windows into
-// hash partitions; here each live key does a lower-bound binary search,
-// O(N log M) (sorted_table.cuh).
+// hash partitions; here each live key searches its bucket of the table's
+// prefix directory (sorted_table.cuh), four keys a thread interleaved.
 //
 // K3 (kdf_probe_tally_weighted) replaces the weighted tile join
 // pallas_join.py:_tally_kernel_w (:679), the back half of the dedup-first
 // tally (join_tally_step_dedup :808, join_tally_superbatch_dedup :915):
 // its input is a batch's distinct keys with their multiplicities, and a
-// found key adds its weight instead of 1.
+// found key adds its weight instead of 1.  It keeps the whole-table
+// lower-bound search (find_row) and the 48 KB staging.
 //
 // In:  keys (N,) int64 (INT64_MAX = invalid window, skipped); weights
 //      (N,) int64 (K3 only); table (M,) int64 sorted ascending (unique
-//      apart from trailing INT64_MAX rows); acc (M,) int64, incremented
-//      in place with atomicAdd on the unsigned 64-bit view (two's
-//      complement: the same add).
+//      apart from trailing INT64_MAX rows), for K2 with its `live` rows
+//      and prefix directory; acc (M,) int64, incremented in place with
+//      atomicAdd on the unsigned 64-bit view (two's complement: the same
+//      add).
 //
 // Bound: by bytes, the key stream (8 bytes a window for K2, 16 bytes a
 // distinct key for K3) plus 24 bytes for each table row hit (the key read,
 // the count read and written) is ~10-40 us per 32,768 x 152 bp batch at
-// 3.35 TB/s; the search is ~log2(M) dependent shared or L2 loads per key, and it,
-// not the stream, sets the time (~0.09 ms at M = 4,096 and ~0.2 ms at
-// M = 262,144 for K2 on an H100 SXM at 700 W).  K2's further bound on
-// real data is atomic contention: coverage repeats a k-mer in ~40 reads
-// of a batch, and those adds serialise on one address.  K3 does one
-// search and at most one atomic per distinct key, so it trades that
-// contention for the sort of the batch in front of it.
+// 3.35 TB/s.  K2's whole-table search took ~log2(M) dependent loads a key
+// and ran 9-22x that bound; through the directory it takes 2-4.  Its
+// further cost on real data is atomic contention: coverage repeats a
+// k-mer in ~40 reads of a batch, and those adds serialise on one address.
+// Staged (live <= 6,207 on an H100: up to 115,712 bytes of opted-in
+// dynamic shared memory, two blocks an SM), K2 therefore counts into
+// block-private shared-memory counts beside the staged rows and directory
+// copy, and a block flushes each nonzero count with one global atomic: at
+// most one global add per block and row instead of one per hit.  The global form
+// keeps one global atomic per hit.  K3 does one search and at most one
+// atomic per distinct key, so it trades that contention for the sort of
+// the batch in front of it.
+
+#include <atomic>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -39,12 +49,65 @@
 
 namespace {
 
-template <bool kStaged, bool kWeighted>
-__global__ void probe_tally_kernel(const long long* __restrict__ keys,
-                                   const long long* __restrict__ weights,
-                                   long long n,
-                                   const long long* __restrict__ table, int m,
-                                   unsigned long long* __restrict__ acc) {
+using kdf::kKeys;
+
+template <bool kGlobal, typename Dir>
+__device__ __forceinline__ void tally_groups(
+    const long long* __restrict__ keys, long long n, bool vec,
+    const long long* t, const Dir* dir, int bits, int shift,
+    unsigned long long* counts) {
+  const long long groups = (n + kKeys - 1) / kKeys;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g < groups; g += stride) {
+    long long q[kKeys];
+    int row[kKeys];
+    kdf::load_keys(keys, n, g, vec, q);
+    kdf::find_rows_dir<kGlobal>(t, dir, shift, bits, q, row);
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      if (row[j] >= 0) atomicAdd(counts + row[j], 1ull);
+    }
+  }
+}
+
+// K2, staged form: rows, block-private counts and a uint16 directory in
+// shared memory; one global add per nonzero count at the end.
+__global__ void __launch_bounds__(kdf::kDirStagedThreads, 2)
+    probe_tally_staged(const long long* __restrict__ keys, long long n,
+                       bool vec, const long long* __restrict__ table, int live,
+                       const int* __restrict__ dir, int bits, int shift,
+                       unsigned long long* __restrict__ acc) {
+  extern __shared__ long long staged[];
+  auto* counts = reinterpret_cast<unsigned long long*>(staged + live);
+  auto* d = reinterpret_cast<unsigned short*>(counts + live);
+  for (int r = threadIdx.x; r < live; r += blockDim.x) counts[r] = 0;
+  kdf::stage_directory(table, live, dir, bits, staged, d);
+  tally_groups<false>(keys, n, vec, staged, d, bits, shift, counts);
+  __syncthreads();
+  for (int r = threadIdx.x; r < live; r += blockDim.x) {
+    const unsigned long long c = counts[r];
+    if (c != 0) atomicAdd(acc + r, c);
+  }
+}
+
+// K2, global form: one global atomic per hit.
+__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
+                                  kdf::kDirGlobalBlocksPerSm)
+    probe_tally_global(const long long* __restrict__ keys, long long n,
+                       bool vec, const long long* __restrict__ table,
+                       const int* __restrict__ dir, int bits, int shift,
+                       unsigned long long* __restrict__ acc) {
+  tally_groups<true>(keys, n, vec, table, dir, bits, shift, acc);
+}
+
+// K3: one whole-table search a distinct key, its weight added.
+template <bool kStaged>
+__global__ void probe_tally_weighted_kernel(
+    const long long* __restrict__ keys, const long long* __restrict__ weights,
+    long long n, const long long* __restrict__ table, int m,
+    unsigned long long* __restrict__ acc) {
   extern __shared__ long long staged[];
   const long long* t = kdf::stage_table<kStaged>(table, m, staged);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -53,15 +116,42 @@ __global__ void probe_tally_kernel(const long long* __restrict__ keys,
        i < n; i += stride) {
     const int row = kdf::find_row(t, m, keys[i]);
     if (row < 0) continue;
-    const unsigned long long add =
-        kWeighted ? static_cast<unsigned long long>(weights[i]) : 1ull;
-    atomicAdd(acc + row, add);
+    atomicAdd(acc + row, static_cast<unsigned long long>(weights[i]));
   }
 }
 
-template <bool kWeighted>
-int launch_tally(const void* keys, const void* weights, long long n,
-                 const void* table, int m, void* acc, void* stream) {
+std::atomic<uint64_t> staged_opted_in{0};
+
+}  // namespace
+
+extern "C" int kdf_probe_tally(const void* keys, long long n,
+                               const void* table, int live, const void* dir,
+                               int bits, int shift, void* acc, void* stream) {
+  kdf::DirLaunch launch;
+  cudaError_t err = kdf::dir_probe_launch(n, live, bits, true, &launch);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* k = static_cast<const long long*>(keys);
+  const auto* t = static_cast<const long long*>(table);
+  const auto* d = static_cast<const int*>(dir);
+  auto* a = static_cast<unsigned long long*>(acc);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  if (launch.staged) {
+    err = kdf::opt_in_smem(probe_tally_staged, launch.budget,
+                           staged_opted_in);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    probe_tally_staged<<<launch.blocks, launch.threads, launch.smem, s>>>(
+        k, n, vec, t, live, d, bits, shift, a);
+  } else {
+    probe_tally_global<<<launch.blocks, launch.threads, 0, s>>>(
+        k, n, vec, t, d, bits, shift, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int kdf_probe_tally_weighted(const void* keys, const void* weights,
+                                        long long n, const void* table, int m,
+                                        void* acc, void* stream) {
   kdf::ProbeLaunch launch;
   const cudaError_t err = kdf::probe_launch(n, m, &launch);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -71,25 +161,11 @@ int launch_tally(const void* keys, const void* weights, long long n,
   auto* a = static_cast<unsigned long long*>(acc);
   const auto s = static_cast<cudaStream_t>(stream);
   if (launch.staged) {
-    probe_tally_kernel<true, kWeighted>
+    probe_tally_weighted_kernel<true>
         <<<launch.blocks, launch.threads, launch.smem, s>>>(k, w, n, t, m, a);
   } else {
-    probe_tally_kernel<false, kWeighted>
+    probe_tally_weighted_kernel<false>
         <<<launch.blocks, launch.threads, 0, s>>>(k, w, n, t, m, a);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int kdf_probe_tally(const void* keys, long long n,
-                               const void* table, int m, void* acc,
-                               void* stream) {
-  return launch_tally<false>(keys, nullptr, n, table, m, acc, stream);
-}
-
-extern "C" int kdf_probe_tally_weighted(const void* keys, const void* weights,
-                                        long long n, const void* table, int m,
-                                        void* acc, void* stream) {
-  return launch_tally<true>(keys, weights, n, table, m, acc, stream);
 }

@@ -4,7 +4,8 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.engine`, single device:
 
 * :class:`KmerIndex` (:101) — the sorted canonical k-mer table, held on
   the device as one int64 key (or one row of int64 limbs) per k-mer
-  (:mod:`.ops.keys`), with :meth:`~KmerIndex.membership` /
+  (:mod:`.ops.keys`), with its prefix directory for k <= 31 on the card
+  (:mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
 * :class:`HostKmerIndex` (:238) and :class:`HostFilteredCounter` (:1201)
@@ -48,6 +49,7 @@ import torch
 
 from kmer_denovo_filter_tpu_torch.htsio import native
 from kmer_denovo_filter_tpu_torch.ops import device as dev
+from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.extract import (
@@ -107,30 +109,39 @@ def _key_tensor(keys_np, k):
     return keys64.words_to_limbs(keys_np, k)
 
 
-def _member(keys, table):
-    """K4, or K8 for a (M, Q) table: found bools."""
-    return (probe_member_wide if table.dim() == 2 else probe_member)(
-        keys, table)
+def _member(keys, index):
+    """K4 through the index's directory, or K8 for a (M, Q) table: found
+    bools."""
+    if index.table.dim() == 2:
+        return probe_member_wide(keys, index.table)
+    return probe_member(keys, index.table, index.directory)
 
 
-def _rows(keys, table):
-    """K4, or K8 for a (M, Q) table: table rows, -1 where absent."""
-    return (probe_rows_wide if table.dim() == 2 else probe_rows)(
-        keys, table)
+def _rows(keys, index):
+    """K4 through the index's directory, or K8 for a (M, Q) table: table
+    rows, -1 where absent."""
+    if index.table.dim() == 2:
+        return probe_rows_wide(keys, index.table)
+    return probe_rows(keys, index.table, index.directory)
 
 
-def _tally(keys, table, acc, weights=None):
+def _tally(keys, index, acc, weights=None):
     """``acc += `` the tally of *keys* (weighted when *weights* is
-    given): K2/K3, or K7 for a (M, Q) table."""
-    if table.dim() == 2:
-        return probe_tally_wide(keys, table, acc, weights)
+    given): K2 through the index's directory or K3, or K7 for a (M, Q)
+    table."""
+    if index.table.dim() == 2:
+        return probe_tally_wide(keys, index.table, acc, weights)
     if weights is None:
-        return probe_tally(keys, table, acc)
-    return probe_tally_weighted(keys, weights, table, acc)
+        return probe_tally(keys, index.table, acc, index.directory)
+    return probe_tally_weighted(keys, weights, index.table, acc)
 
 
 class KmerIndex:
-    """Sorted canonical k-mer table on *device*, with optional counts."""
+    """Sorted canonical k-mer table on *device*, with optional counts.
+
+    A narrow table (k <= 31) on a CUDA device also holds its prefix
+    directory (:mod:`.ops.directory`), built here once for every K2 and
+    K4 probe of the table; ``directory`` is None otherwise."""
 
     def __init__(self, keys_np, k, counts_np=None, *, device):
         """*keys_np*: (M, W) uint32 sorted unique canonical keys."""
@@ -142,7 +153,17 @@ class KmerIndex:
         self.counts_np = counts_np
         self.device = resolve_device(device)
         # (M,) int64 keys, or (M, Q) limb rows for k > 31
-        self.table = _key_tensor(keys_np, k).to(self.device)
+        host = _key_tensor(keys_np, k)
+        self.table = host.to(self.device)
+        self.directory = None
+        if self.device.type == "cuda" and host.dim() == 1:
+            # live rows (sentinel rows trail) and the last live key from
+            # the host copy: no sync
+            live = self.n
+            while live and int(host[live - 1]) == keys64.SENTINEL:
+                live -= 1
+            self.directory = tdir.build_directory(
+                self.table, live, int(host[live - 1]) if live else 0)
 
     @classmethod
     def from_strings(cls, kmers, k, *, device):
@@ -162,7 +183,7 @@ class KmerIndex:
         """bool array: which (N, W) query rows are in the table (K4, or
         K8 for k > 31); sentinel rows are never found."""
         q = _key_tensor(query_keys_np, self.k)
-        return _member(q.to(self.device), self.table).cpu().numpy()
+        return _member(q.to(self.device), self).cpu().numpy()
 
     def counts_of(self, query_keys_np):
         """int64 counts per query row (0 when absent): K4 (K8) finds each
@@ -172,7 +193,7 @@ class KmerIndex:
         q = _key_tensor(query_keys_np, self.k)
         if self.n == 0:
             return np.zeros(q.shape[0], dtype=np.int64)
-        rows = _rows(q.to(self.device), self.table).cpu().numpy()
+        rows = _rows(q.to(self.device), self).cpu().numpy()
         return np.where(rows >= 0, self.counts_np[np.maximum(rows, 0)], 0)
 
 
@@ -268,6 +289,13 @@ def _key_bytes(k):
     return 8 * keys64.limbs_per_kmer(k)
 
 
+def _table_bytes(n, k):
+    """Device bytes of an n-key table: its keys, and for k <= 31 its
+    prefix directory."""
+    directory = tdir.directory_bytes(n) if k <= keys64.NARROW_K else 0
+    return _key_bytes(k) * n + directory
+
+
 def make_membership_index(keys_np, k, counts_np=None, *, device):
     """:class:`KmerIndex` on *device*.  On the CPU device a table over
     ``KDF_DEVICE_TABLE_BYTES`` becomes a :class:`HostKmerIndex`; on a
@@ -275,7 +303,7 @@ def make_membership_index(keys_np, k, counts_np=None, *, device):
     device = resolve_device(device)
     n = keys_np.shape[0]
     if device.type == "cuda":
-        _check_card_holds(_key_bytes(k) * n, device, "reference")
+        _check_card_holds(_table_bytes(n, k), device, "reference")
     elif _host_resident(n, k, "reference"):
         return HostKmerIndex(keys_np, k, counts_np)
     return KmerIndex(keys_np, k, counts_np, device=device)
@@ -412,9 +440,9 @@ class FilteredCounter:
             dedup = (dev.dedup_windows_wide if flat.dim() == 2
                      else dev.dedup_windows)
             keys, weights = dedup(flat)
-            _tally(keys, self.index.table, self.acc, weights)
+            _tally(keys, self.index, self.acc, weights)
         else:
-            _tally(flat, self.index.table, self.acc)
+            _tally(flat, self.index, self.acc)
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""
@@ -476,7 +504,7 @@ def make_parent_filter_counter(keys_np, k, *, device):
     device = resolve_device(device)
     n = keys_np.shape[0]
     if device.type == "cuda":
-        _check_card_holds((_key_bytes(k) + 8) * n, device, "filter")
+        _check_card_holds(_table_bytes(n, k) + 8 * n, device, "filter")
     elif (k <= keys64.NARROW_K and _host_resident(n, k, "filter")
           and native.available()):
         return HostFilteredCounter(keys_np, k)
@@ -520,7 +548,7 @@ def scan_reads_for_hits_many(index, batches):
     win = _window_keys(codes, lengths, k, index.device)
     found = (np.zeros((codes.shape[0], lmax - k + 1), dtype=bool)
              if win is None else
-             _member(win.flatten(0, 1), index.table)
+             _member(win.flatten(0, 1), index)
              .reshape(win.shape[:2]).cpu().numpy())
     out, row = [], 0
     for b, s in shapes:

@@ -1,4 +1,5 @@
-"""K1, K1w, K2 and K7 of one checkout, each read three ways on the card:
+"""K1, K1w, K2, K3, K4 and K7 of one checkout, each read three ways on
+the card:
 
 * ``device``: ``ops.timing.timings``' first reading, the calls queued
   behind a spin, the timer of ``chip_smoke.py`` and the experiments;
@@ -8,11 +9,17 @@
 * ``profiler``: the device time of the calls' own kernels by
   ``torch.profiler``, which no host timing can bias.
 
-The shapes are those of ``chip_smoke.py`` phases 3 and 3w: 32,768
+The shapes are those of ``chip_smoke.py`` phases 3, 3p and 3w: 32,768
 random reads of 152 bp (256 at k = 201) with ~0.5 % N and 10 % ragged
 lengths, tables of 4,096 keys half drawn from the batch, and one
-(1, 2**20) row.  The timer is always the one beside this file, whatever
-checkout's kernels it times, so two checkouts compare under one timer::
+(1, 2**20) row; K2, K3 and K4 at k = 31 also at 262,144, 2**20 and
+2**24 keys, K4 also on a stacked group of 8 x 4,096 reads, K2 and K4
+also on one 40x-coverage batch (the 3s batch) with tables half drawn
+from its keys.  Where the checkout has the prefix directory
+(``ops/directory.py``), K2 and K4 get it built once per table, as the
+engine does.  The timer is
+always the one beside this file, whatever checkout's kernels it times,
+so two checkouts compare under one timer::
 
     python kmer_denovo_filter_tpu_torch/experiments/timer_ab.py \\
         [--root CHECKOUT] [--tag NAME]
@@ -33,6 +40,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 B, L, L_K201, ROW, M, REPS = 32768, 152, 256, 1 << 20, 4096, 20
+PROBE_MS = (4096, 262144, 1 << 20, 1 << 24)
+GROUP, GROUP_B = 8, 4096
 
 
 def load_timing():
@@ -60,6 +69,19 @@ def profiler_ms(fn, reps):
     return us / 1e3 / reps
 
 
+def synth_reads(rng, genome, n_reads, read_len, coverage=40,
+                error_rate=0.003):
+    """Position-local reads with 0.3 % error at 40x (``chip_smoke.py``'s
+    recipe, from bench.py)."""
+    span = max(n_reads * read_len // coverage, read_len * 4)
+    start0 = rng.integers(0, len(genome) - span - read_len)
+    starts = np.sort(rng.integers(start0, start0 + span, n_reads))
+    reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
+    err = rng.random((n_reads, read_len)) < error_rate
+    return np.where(err, (reads + rng.integers(
+        1, 4, (n_reads, read_len))) % 4, reads).astype(np.uint8)
+
+
 def random_batch(rng, length):
     codes = rng.integers(0, 4, (B, length), dtype=np.uint8)
     codes[rng.random((B, length)) < 0.005] = 4
@@ -78,8 +100,12 @@ def main(argv=None):
         sys.exit("timer_ab: needs a CUDA GPU")
     sys.path.insert(0, os.path.abspath(args.root))
     from kmer_denovo_filter_tpu_torch.ops import device as dev
-    from kmer_denovo_filter_tpu_torch.ops import extract, probe
+    from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    try:
+        from kmer_denovo_filter_tpu_torch.ops import directory as tdir
+    except ImportError:  # a checkout from before the prefix directory
+        tdir = None
     timing = load_timing()
     print(f"timer_ab {args.tag}: package {os.path.dirname(dev.__file__)}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -93,7 +119,7 @@ def main(argv=None):
         prof_ms = profiler_ms(fn, REPS)
         rows.append({"kernel": name, "shape": shape, "device_ms": device_ms,
                      "loop_ms": loop_ms, "profiler_ms": prof_ms})
-        print(f"{args.tag:8s} {name:12s} {shape:24s} device "
+        print(f"{args.tag:8s} {name:13s} {shape:24s} device "
               f"{device_ms:.4f} ms, loop {loop_ms:.4f} ms, profiler "
               f"{prof_ms:.4f} ms", flush=True)
 
@@ -102,23 +128,56 @@ def main(argv=None):
         if not torch.equal(got, ref):
             sys.exit(f"timer_ab: {what} differs from its plain version")
 
-    def table_of(flat, k):
-        """(M, Q) or (M,) sorted table: half live rows of *flat*, half
+    def table_of(flat, k, m=M):
+        """(~m, Q) or (~m,) sorted table: half live rows of *flat*, half
         random."""
         wide = flat.dim() == 2
         live = flat[flat[:, 0] != keys64.SENTINEL] if wide else (
             flat[flat != keys64.SENTINEL])
         live = dev.unique_rows(live)[0] if wide else torch.unique(live)
         pick = live[torch.randperm(live.shape[0], generator=gen,
-                                   device=cuda)[:M // 2]]
+                                   device=cuda)[:m // 2]]
         if wide:
-            rand = torch.stack([torch.randint(0, 4 ** nb, (M - M // 2,),
+            rand = torch.stack([torch.randint(0, 4 ** nb, (m - m // 2,),
                                               generator=gen, device=cuda)
                                 for nb in keys64.limb_bases(k)], 1)
             return dev.unique_rows(torch.cat([pick, rand]))[0]
-        rand = torch.randint(0, 4 ** k, (M - M // 2,), generator=gen,
+        rand = torch.randint(0, 4 ** k, (m - pick.numel(),), generator=gen,
                              device=cuda)
         return torch.unique(torch.cat([pick, rand]))
+
+    def directory_args(table):
+        """(directory,) for K2/K4 where the checkout has one, else ()."""
+        return () if tdir is None else (tdir.build_directory(table),)
+
+    def probes(label, flat, group):
+        """K2, K3 and K4 at k = 31 on *flat* (and K4 on *group*) at each
+        of PROBE_MS table keys."""
+        uniq, weights = dev.dedup_windows(flat)
+        for m in PROBE_MS:
+            table = table_of(flat, 31, m)
+            dargs = directory_args(table)
+            acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
+            probe.probe_tally(flat, table, acc, *dargs)
+            check(f"K2 {label} M={m}", acc, dev.small_table_tally(table, flat))
+            shape = f"k=31 M={m} {label}"
+            time_it("K2", shape,
+                    lambda: probe.probe_tally(flat, table, acc, *dargs))
+            for form, keys in (("batch", flat), ("group", group)):
+                if keys is None:
+                    continue
+                check(f"K4 {form} {label} M={m}",
+                      member.probe_member(keys, table, *dargs),
+                      dev.member(table, keys))
+                time_it(f"K4 {form}", shape,
+                        lambda: member.probe_member(keys, table, *dargs))
+            if group is not None:
+                acc = torch.zeros_like(acc)
+                probe.probe_tally_weighted(uniq, weights, table, acc)
+                check(f"K3 M={m}", acc, dev.small_table_tally(table, flat))
+                time_it("K3", shape, lambda: probe.probe_tally_weighted(
+                    uniq, weights, table, acc))
+            del table, acc, dargs
 
     rng = np.random.default_rng(0)
     batches = {}
@@ -147,13 +206,16 @@ def main(argv=None):
             check(f"{name} k={k} row", kernel(*row, k), plain(*row, k)[0])
             time_it(name, f"k={k} (1, 2**20) row", lambda: kernel(*row, k))
         if k == 31:
-            flat = got.reshape(-1)
-            table = table_of(flat, k)
-            acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
-            probe.probe_tally(flat, table, acc)
-            check("K2", acc, dev.small_table_tally(table, flat))
-            time_it("K2", f"k=31 M={table.shape[0]}",
-                    lambda: probe.probe_tally(flat, table, acc))
+            group_codes = torch.full((GROUP * GROUP_B, L), 4,
+                                     dtype=torch.uint8, device=cuda)
+            for i in range(GROUP):
+                part = slice(i * GROUP_B, (i + 1) * GROUP_B)
+                group_codes[part, :L - 8 * i] = codes[part, :L - 8 * i]
+            group_lengths = torch.cat([
+                lengths[i * GROUP_B:(i + 1) * GROUP_B].clamp(max=L - 8 * i)
+                for i in range(GROUP)])
+            group = kernel(group_codes, group_lengths, k).reshape(-1)
+            probes("random", got.reshape(-1), group)
         if k in (63, 201):
             flat = got.flatten(0, 1)
             uniq, weights = dev.dedup_windows_wide(flat)
@@ -167,6 +229,12 @@ def main(argv=None):
                 check(f"{form} k={k}", acc, ref)
                 time_it(form, f"k={k} M={table.shape[0]}",
                         lambda: probe.probe_tally_wide(keys, table, acc, w))
+    rng_40x = np.random.default_rng(4)
+    genome = rng_40x.integers(0, 4, 4 << 20, dtype=np.uint8)
+    codes = torch.from_numpy(synth_reads(rng_40x, genome, B, L)).to(cuda)
+    probes("40x", extract.extract_canonical(
+        codes, torch.full((B,), L, dtype=torch.int32, device=cuda),
+        31).reshape(-1), None)
     print(json.dumps({"timer_ab": args.tag, "rows": rows}), flush=True)
 
 

@@ -49,6 +49,7 @@ from kmer_denovo_filter_tpu_torch.experiments._common import (
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops import segsort
+from kmer_denovo_filter_tpu_torch.ops.directory import build_directory
 from kmer_denovo_filter_tpu_torch.ops.extract import (
     extract_canonical,
     extract_canonical_stage,
@@ -142,13 +143,14 @@ def run_kernel(args, device, rng, genome):
     """K1 -> K2 on raw windows against K1 -> sort -> K2 on sorted ones
     (the question of the sorted-route tally kernels v3 and v4)."""
     table = wgs_table(rng, genome, args.table_m, device)
+    directory = build_directory(table)  # once per table, as KmerIndex
     codes, lengths = read_batch(rng, genome, args.reads, device)
     flat = extract_canonical(codes, lengths, K).reshape(-1)
     srt = torch.sort(flat).values
     acc_raw = torch.zeros(table.shape[0], dtype=torch.int64, device=device)
     acc_sorted = torch.zeros_like(acc_raw)
-    probe_tally(flat, table, acc_raw)
-    probe_tally(srt, table, acc_sorted)
+    probe_tally(flat, table, acc_raw, directory)
+    probe_tally(srt, table, acc_sorted, directory)
     print(f"kernel: table M={table.shape[0]}, {flat.numel()} windows",
           flush=True)
     parity("sorted-query tally", torch.equal(acc_raw, acc_sorted))
@@ -156,10 +158,11 @@ def run_kernel(args, device, rng, genome):
         acc_raw, dev.small_table_tally(table, flat)))
     reps = args.reps
     raw_ms = timeit("K2 on raw windows",
-                    lambda: probe_tally(flat, table, acc_raw), device, reps)
+                    lambda: probe_tally(flat, table, acc_raw, directory),
+                    device, reps)
     sorted_ms = timeit("K2 on sorted windows",
-                       lambda: probe_tally(srt, table, acc_sorted), device,
-                       reps)
+                       lambda: probe_tally(srt, table, acc_sorted, directory),
+                       device, reps)
     timeit("K2 plain on sorted windows",
            lambda: dev.small_table_tally(table, srt), device, reps)
     # windows read; per table row hit its key read and its count read and
@@ -171,11 +174,11 @@ def run_kernel(args, device, rng, genome):
           f"of the raw, {lim[0] / sorted_ms:.3f} of the sorted time)",
           flush=True)
     timeit("step K1 -> K2", lambda: probe_tally(
-        extract_canonical(codes, lengths, K).reshape(-1), table, acc_raw),
-        device, reps)
+        extract_canonical(codes, lengths, K).reshape(-1), table, acc_raw,
+        directory), device, reps)
     timeit("step K1 -> sort -> K2", lambda: probe_tally(
         torch.sort(extract_canonical(codes, lengths, K).reshape(-1)).values,
-        table, acc_sorted), device, reps)
+        table, acc_sorted, directory), device, reps)
 
 
 def _extract_report(label, codes, lengths, device, reps):

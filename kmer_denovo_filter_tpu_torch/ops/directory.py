@@ -1,0 +1,123 @@
+"""The prefix directory of a narrow sorted table: kernels K2 and K4
+(:mod:`.probe`, :mod:`.member`) search through it on the card.
+
+The table's live rows (those before its trailing sentinel rows) fall
+into ``2**bits`` buckets by their top bits: bucket ``p`` holds the rows
+whose ``key >> shift == p``, with ``shift = max(0, bitlen(last live key)
+- bits)`` so the rule needs no k.  ``offsets[p]`` is the first live row
+whose ``key >> shift >= p`` and ``offsets[2**bits] = live``, so a query
+searches only the rows ``[offsets[p], offsets[p + 1])``
+(``csrc/sorted_table.cuh``).  Sizing (:func:`directory_bits`, measured
+on an H100, PERF.md): ``bits = ceil(log2(live))``, about one row a
+bucket and 2-4 B a row, while that takes at most :data:`FINE_BITS`
+(a 16 MB directory, a third of the L2); past it ``ceil(log2(live)) -
+2``, about 2-4 rows (one 32-byte sector) a bucket and 1 B a row.  The
+staged form of K2 and K4 copies this directory into shared memory.
+
+A directory belongs to a table: the engine builds it once per table
+(``KmerIndex``), never per batch.  :func:`build_directory` launches
+``kdf_build_directory`` (``csrc/directory.cu``) for a CUDA table and
+runs :func:`plain_directory` for a CPU one.  The reference's XLA
+counterpart is ``kmer_denovo_filter_tpu/ops/device.py``
+``build_bucket_offsets`` (:572), host-built for ``lookup_bucketed``.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from kmer_denovo_filter_tpu_torch.ops import _cuda
+from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+
+# CUDA kernel launches since import (or since a caller reset them to 0)
+launches = 0
+
+# the finest directory kept for a large table: 2**22 int32 entries, 16 MB
+FINE_BITS = 22
+
+
+class Directory(NamedTuple):
+    """A table's prefix directory: (2**bits + 1,) int32 *offsets* on the
+    table's device, its *bits* and *shift*, the table's *live* rows, and
+    the *table* it was built from (a probe refuses it for any other)."""
+    offsets: torch.Tensor
+    bits: int
+    shift: int
+    live: int
+    table: torch.Tensor
+
+
+def directory_bits(live):
+    """bits of the directory of a table with *live* rows: ceil(log2(live))
+    up to :data:`FINE_BITS`, past it no fewer than ceil(log2(live)) - 2."""
+    c = (max(live, 1) - 1).bit_length()
+    return max(c - 2, min(c, FINE_BITS))
+
+
+def directory_bytes(n_rows):
+    """Device bytes of the directory of an *n_rows*-row table."""
+    return 4 * ((1 << directory_bits(n_rows)) + 1)
+
+
+def plain_directory(table, live, bits, shift):
+    """The plain version of ``kdf_build_directory``: (2**bits + 1,)
+    int32, the first of the *live* rows of sorted *table* whose key >>
+    *shift* is at least p, for each p."""
+    prefixes = table[:live] >> shift
+    p = torch.arange((1 << bits) + 1, dtype=torch.int64,
+                     device=table.device)
+    return torch.searchsorted(prefixes, p).to(torch.int32)
+
+
+def build_directory(table, live=None, max_key=None):
+    """The :class:`Directory` of sorted (M,) int64 *table* (trailing
+    sentinel rows allowed).  *live* and *max_key* (its last live key) are
+    read from the table when not given, which on the card is a host sync;
+    a caller that knows them from the host passes them.  A CUDA table
+    launches ``kdf_build_directory``; a CPU one runs the plain version."""
+    global launches
+    if table.dim() != 1 or table.dtype != torch.int64:
+        raise ValueError(f"expected an (M,) int64 table, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {table.device}")
+    if table.shape[0] >= 1 << 31:
+        raise ValueError(f"table of {table.shape[0]} keys exceeds the "
+                         "kernels' int32 row index")
+    if live is None:
+        live = int((table != SENTINEL).sum())
+        max_key = int(table[live - 1]) if live else 0
+    bits = directory_bits(live)
+    shift = max(0, int(max_key).bit_length() - bits) if live else 0
+    if table.device.type == "cpu":
+        return Directory(plain_directory(table, live, bits, shift), bits,
+                         shift, live, table)
+    if not table.is_contiguous():
+        raise ValueError("the table must be contiguous")
+    offsets = torch.empty((1 << bits) + 1, dtype=torch.int32,
+                          device=table.device)
+    with torch.cuda.device(table.device):
+        err = _cuda.lib().kdf_build_directory(
+            table.data_ptr(), live, bits, shift, offsets.data_ptr(),
+            _cuda.stream_of(table))
+    _cuda.check(err, "build_directory")
+    launches += 1
+    return Directory(offsets, bits, shift, live, table)
+
+
+def directory_for(table, directory):
+    """*directory* checked against *table*, or a new one built from it
+    (on the card counted in :data:`launches`) when *directory* is None.
+    A directory built from another table is refused, even one of the
+    same size."""
+    if directory is None:
+        return build_directory(table)
+    offsets, own = directory.offsets, directory.table
+    if (own.data_ptr() != table.data_ptr() or own.shape != table.shape
+            or own.device != table.device
+            or offsets.device != table.device or offsets.dtype != torch.int32
+            or offsets.shape != ((1 << directory.bits) + 1,)
+            or not offsets.is_contiguous()
+            or not 0 <= directory.live <= table.shape[0]):
+        raise ValueError("the directory does not belong to this table")
+    return directory

@@ -8,7 +8,9 @@ one join, via ``join_member_superbatch_dedup`` :1386), and of the XLA
 ``ops/device.py:small_table_member`` (:313).  The engine's
 ``scan_reads_for_hits_many`` stacks a group into one call, the
 counterpart of the super-batch join.  The CUDA kernel is
-``csrc/probe_member.cu``.
+``csrc/probe_member.cu``; it searches through the table's prefix
+directory (:mod:`.directory`), which a caller builds once per table and
+passes in (``KmerIndex`` does); without one the wrapper builds it.
 
 Kernel K8 (``probe_member_wide``, ``probe_rows_wide``) is the wide
 counterpart: (N, Q) int64 limb rows (:mod:`.keys`) against a sorted
@@ -24,6 +26,7 @@ import torch
 
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
+from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops.probe import (
     check_probe_args,
     check_wide_probe_args,
@@ -34,28 +37,30 @@ launches = 0       # K4
 wide_launches = 0  # K8
 
 
-def probe_member(keys, table):
+def probe_member(keys, table, directory=None):
     """(N,) bool: ``keys[i]`` is in *table*; sentinel keys are never found.
 
     *keys*: (N,) int64.  *table*: (M,) int64 sorted ascending, unique
-    apart from trailing sentinel rows.  A CUDA tensor launches the
-    kernel; a CPU tensor runs the plain version.
+    apart from trailing sentinel rows.  *directory*: the table's
+    :class:`~.directory.Directory`, or None.  A CUDA tensor launches the
+    kernel (building the directory first when none is given); a CPU
+    tensor runs the plain version, which needs no directory.
     """
     if check_probe_args(keys, table, []) == "cpu":
         return dev.member(table, keys)
-    return _launch(keys, table, torch.bool)
+    return _launch(keys, table, directory, torch.bool)
 
 
-def probe_rows(keys, table):
+def probe_rows(keys, table, directory=None):
     """(N,) int64: the row of ``keys[i]`` in *table*, or -1 where it is
     absent or a sentinel; arguments as for :func:`probe_member`.  The
     same kernel K4, writing rows instead of found bytes."""
     if check_probe_args(keys, table, []) == "cpu":
         return dev.find_rows(table, keys)
-    return _launch(keys, table, torch.int64)
+    return _launch(keys, table, directory, torch.int64)
 
 
-def _launch(keys, table, dtype):
+def _launch(keys, table, directory, dtype):
     """K4 over checked CUDA tensors: found bytes (bool) or rows (int64)."""
     global launches
     n, m = keys.shape[0], table.shape[0]
@@ -65,11 +70,13 @@ def _launch(keys, table, dtype):
     out = torch.empty(n, dtype=dtype, device=keys.device)
     if n == 0:
         return out
+    d = tdir.directory_for(table, directory)
     found, rows = ((out.data_ptr(), None) if dtype == torch.bool
                    else (None, out.data_ptr()))
     with torch.cuda.device(keys.device):
         err = _cuda.lib().kdf_probe_member(
-            keys.data_ptr(), n, table.data_ptr(), m, found, rows,
+            keys.data_ptr(), n, table.data_ptr(), d.live,
+            d.offsets.data_ptr(), d.bits, d.shift, found, rows,
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_member")
     launches += 1

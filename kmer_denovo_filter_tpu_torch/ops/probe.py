@@ -14,7 +14,10 @@ join ``pallas_join._tally_kernel_w`` (:679, via ``join_tally_step_dedup``
 :808 and ``join_tally_superbatch_dedup`` :915): the tally of a batch's
 compacted (key, weight) stream.
 
-Both kernels are in ``csrc/probe_tally.cu``.
+Both kernels are in ``csrc/probe_tally.cu``.  K2 searches through the
+table's prefix directory (:mod:`.directory`), which a caller builds once
+per table and passes in (``KmerIndex`` does); without one the wrapper
+builds it.  K3 searches the whole table.
 
 K7 (``probe_tally_wide``) is the counterpart of the wide tile join
 ``pallas_join._tally_kernel_wide`` (:1905) in both its forms: unweighted
@@ -29,6 +32,7 @@ import torch
 
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
+from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops.keys import MAX_K, limbs_per_kmer
 
 # CUDA kernel launches since import (or since a caller reset them to 0)
@@ -72,13 +76,15 @@ def _check_tensors(keys, table, others):
     return keys.device.type
 
 
-def probe_tally(keys, table, acc):
+def probe_tally(keys, table, acc, directory=None):
     """``acc[j] += #{i : keys[i] == table[j]}``, in place; returns *acc*.
 
     *keys*: (N,) int64, sentinel entries skipped.  *table*: (M,) int64
     sorted ascending, unique apart from trailing sentinel rows (which
-    count 0).  *acc*: (M,) int64.  A CUDA tensor launches the kernel; a
-    CPU tensor runs the plain version.
+    count 0).  *acc*: (M,) int64.  *directory*: the table's
+    :class:`~.directory.Directory`, or None.  A CUDA tensor launches the
+    kernel (building the directory first when none is given); a CPU
+    tensor runs the plain version, which needs no directory.
     """
     global launches
     if check_probe_args(keys, table, [("acc", acc, table.shape)]) == "cpu":
@@ -87,9 +93,11 @@ def probe_tally(keys, table, acc):
     n, m = keys.shape[0], table.shape[0]
     if n == 0 or m == 0:
         return acc
+    d = tdir.directory_for(table, directory)
     with torch.cuda.device(keys.device):
         err = _cuda.lib().kdf_probe_tally(
-            keys.data_ptr(), n, table.data_ptr(), m, acc.data_ptr(),
+            keys.data_ptr(), n, table.data_ptr(), d.live,
+            d.offsets.data_ptr(), d.bits, d.shift, acc.data_ptr(),
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally")
     launches += 1

@@ -35,7 +35,7 @@ CHANGED = {
         "reads torch.cuda.memory_stats instead of jax.local_devices()"),
 }
 CLI_COPIED = ["_add_shared_args", "parse_vcf_args", "_add_discovery_args",
-              "parse_discovery_args"]
+              "parse_discovery_args", "parse_args"]
 
 
 def _read(root, rel):

@@ -11,6 +11,7 @@ from kmer_denovo_filter_tpu import engine as jeng
 from kmer_denovo_filter_tpu import kmer as K
 from kmer_denovo_filter_tpu.ops import encode as jenc
 from kmer_denovo_filter_tpu_torch import engine as teng
+from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import encode as tenc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from tests.test_engine import pack_reads
@@ -314,6 +315,27 @@ def test_card_table_that_does_not_fit_raises(monkeypatch):
         teng.make_membership_index(words, k, device="cuda")
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device: (16 * n - 9, 1 << 40))
+    with pytest.raises(RuntimeError, match="sharded engine"):
+        teng.make_parent_filter_counter(words, k, device="cuda")
+
+
+def test_card_check_counts_the_prefix_directory(monkeypatch):
+    """A narrow table on the card needs its keys and its prefix
+    directory: short of the directory's bytes by one, both gates raise."""
+    k = 31
+    words = _words(_filter_set(_reads(67, 20, k, with_n=False), k), k)
+    n = words.shape[0]
+    need = 8 * n + tdir.directory_bytes(n)
+    assert tdir.directory_bytes(n) == 4 * ((1 << tdir.directory_bits(n)) + 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: (need - 1, 1 << 40))
+    with pytest.raises(RuntimeError, match="sharded engine"):
+        teng.make_membership_index(words, k, device="cuda")
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: (need + 8 * n - 1, 1 << 40))
     with pytest.raises(RuntimeError, match="sharded engine"):
         teng.make_parent_filter_counter(words, k, device="cuda")
 

@@ -14,8 +14,10 @@ import torch
 from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.experiments.x_fused import pair_order
 from kmer_denovo_filter_tpu_torch.ops import device as dev
+from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import extract, member, probe, segsort
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+from tests.test_torch_directory import TABLES, make_table, queries
 
 pytestmark = pytest.mark.gpu
 
@@ -252,6 +254,136 @@ def test_cuda_tables_stay_on_the_card(cuda, monkeypatch):
     cpu_idx = eng.KmerIndex(words, 31, counts, device="cpu")
     got = idx.counts_of(queries)
     assert np.array_equal(got, cpu_idx.counts_of(queries)) and got.any()
+
+
+# ── the prefix directory: kdf_build_directory, K2 and K4 through it ───
+
+
+def _directory_table(kind, k, cuda):
+    """A table of the CPU model's kinds (tests/test_torch_directory.py),
+    or "2**20": 2**20 random 31-mer keys."""
+    if kind == "2**20":
+        gen = torch.Generator(device="cpu").manual_seed(k)
+        keys = torch.unique(torch.randint(0, 4 ** k, (1 << 20,),
+                                          generator=gen))
+        return keys.to(cuda)
+    return torch.from_numpy(make_table(kind, k)).to(cuda)
+
+
+@pytest.mark.parametrize("k", [15, 31])
+@pytest.mark.parametrize("kind", TABLES + ("2**20",))
+def test_directory_kernel_matches_plain(cuda, kind, k):
+    table = _directory_table(kind, k, cuda)
+    before = tdir.launches
+    got = tdir.build_directory(table)
+    ref = tdir.build_directory(table.cpu())
+    torch.cuda.synchronize()
+    assert tdir.launches == before + 1
+    assert (got.bits, got.shift, got.live) == (ref.bits, ref.shift, ref.live)
+    assert got.offsets.is_cuda and got.offsets.dtype == torch.int32
+    assert torch.equal(got.offsets.cpu(), ref.offsets)
+
+
+@pytest.mark.parametrize("kind", TABLES + ("2**20",))
+def test_directory_probes_match_plain(cuda, kind):
+    """K4 (found, rows) and K2, with a prebuilt directory and without
+    one (the wrapper builds it), on the model's tables (the staged limits
+    6,207 / 10,367 +- 1 among them), on queries that repeat keys and on
+    an unaligned view of them."""
+    k = 31
+    table = _directory_table(kind, k, cuda)
+    table_np = table.cpu().numpy()
+    live_np = table_np[table_np != keys64.SENTINEL]
+    q_np = np.concatenate([queries(table_np, k),
+                           np.repeat(live_np[:100], 40)])  # coverage
+    q = torch.from_numpy(q_np).to(cuda)
+    ref_found, ref_rows = dev.member(table, q), dev.find_rows(table, q)
+    ref_tally = dev.small_table_tally(table, q)
+    counts = (tdir.launches, member.launches, probe.launches)
+    d = tdir.build_directory(table)
+    found = member.probe_member(q, table, d)
+    rows = member.probe_rows(q, table, d)
+    found_own = member.probe_member(q, table)
+    acc = torch.full((table.numel(),), 5, dtype=torch.int64, device=cuda)
+    probe.probe_tally(q, table, acc, d)
+    acc_own = torch.full_like(acc, 3)
+    probe.probe_tally(q, table, acc_own)
+    view = q[1:]
+    found_view = member.probe_member(view, table, d)
+    acc_view = torch.zeros_like(acc)
+    probe.probe_tally(view, table, acc_view, d)
+    torch.cuda.synchronize()
+    assert (tdir.launches, member.launches, probe.launches) == (
+        counts[0] + 3, counts[1] + 4, counts[2] + 3)
+    assert torch.equal(found, ref_found) and torch.equal(found_own, ref_found)
+    assert torch.equal(rows, ref_rows)
+    assert torch.equal(acc, ref_tally + 5) and torch.equal(acc_own,
+                                                           ref_tally + 3)
+    assert torch.equal(found_view, dev.member(table, view))
+    assert torch.equal(acc_view, dev.small_table_tally(table, view))
+    if d.live:
+        assert bool(ref_found.any()) and int(ref_tally.max()) > 40
+
+
+def test_probes_refuse_another_tables_directory(cuda):
+    """K2 and K4 given the directory of another table of the same size
+    raise before any launch."""
+    table = _directory_table("4096", 31, cuda)
+    other = torch.from_numpy(make_table("4096", 21)).to(cuda)
+    d = tdir.build_directory(other)
+    q = table[:100].clone()
+    counts = (member.launches, probe.launches)
+    for call in (lambda: member.probe_member(q, table, d),
+                 lambda: member.probe_rows(q, table, d),
+                 lambda: probe.probe_tally(q, table, torch.zeros_like(table),
+                                           d)):
+        with pytest.raises(ValueError, match="does not belong"):
+            call()
+    assert (member.launches, probe.launches) == counts
+
+
+@pytest.mark.parametrize("m", [4096, 10367, 10368, 262_144])
+def test_member_kernel_stacked_group(cuda, m):
+    """K4 over a stacked group of 8 batches of widths 152, 144, .., 96
+    padded with code 4, through the directory ``KmerIndex`` builds."""
+    parts = [_batch(m + i, n=512, length=152 - 8 * i) for i in range(8)]
+    codes = torch.full((512 * 8, 152), 4, dtype=torch.uint8)
+    for i, (c, _l) in enumerate(parts):
+        codes[512 * i:512 * (i + 1), :c.shape[1]] = c
+    lengths = torch.cat([l for _c, l in parts])
+    win = extract.extract_canonical(codes.to(cuda), lengths.to(cuda),
+                                    31).reshape(-1)
+    table = _table_for(win, m, cuda)
+    index = eng.KmerIndex(keys64.keys64_to_words(table.cpu(), 31), 31,
+                          device=cuda)
+    assert index.directory is not None and index.directory.live == m
+    before = tdir.launches
+    got = member.probe_member(win, index.table, index.directory)
+    torch.cuda.synchronize()
+    assert tdir.launches == before
+    assert torch.equal(got, dev.member(table, win))
+    assert bool(got.any()) and not bool(got.all())
+
+
+def test_cuda_probes_use_no_library_search(cuda, monkeypatch):
+    """On the card the directory, K2 and K4 run no ``torch.searchsorted``,
+    ``torch.isin`` or plain version."""
+    table = _directory_table("4096", 31, cuda)
+    big = _directory_table("2**20", 31, cuda)
+    q = torch.from_numpy(queries(table.cpu().numpy(), 31)).to(cuda)
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a library search ran on the CUDA path")
+    for mod, name in ((torch, "searchsorted"), (torch, "isin"),
+                      (dev, "member"), (dev, "find_rows"),
+                      (dev, "small_table_tally"),
+                      (tdir, "plain_directory")):
+        monkeypatch.setattr(mod, name, refuse)
+    for t in (table, big):
+        member.probe_member(q, t)
+        member.probe_rows(q, t)
+        probe.probe_tally(q, t, torch.zeros_like(t))
+    torch.cuda.synchronize()
 
 
 # ── wide keys: K1w, K7 (both forms), K8 ────────────────────────────────
