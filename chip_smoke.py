@@ -55,16 +55,20 @@ any failure exits non-zero before the result line:
    32,768 random reads of 152 bp (256 bp at k = 201), with N bases and
    ragged lengths, and on one (1, 2**20) row at k = 63; at k = 63 and M
    in {4,096, 262,144, 2**24}, and at k = 201 and M in {4,096, 2**22},
-   K7 (probe_tally_wide) unweighted on
-   the flat windows and weighted on their dedup, K8 (probe_member_wide)
-   found bytes and rows; the batch dedup both ways (Q stable sorts, the
-   port's form, and ``torch.unique(dim=0)``).  Exact; CUDA events.
+   the prefix directory over limb 0 (build_directory of the (M, Q)
+   table, built once per table as ``KmerIndex`` builds it) against its
+   plain version and timed, and through it K7 (probe_tally_wide)
+   unweighted on the flat windows and weighted on their dedup, K8
+   (probe_member_wide) found bytes and rows; the batch dedup both ways
+   (Q stable sorts, the port's form, and ``torch.unique(dim=0)``).
+   Exact; CUDA events.
 4c. Main path, wide: ``kmer-denovo-torch`` and ``kmer-discovery-torch``
    with ``--kmer-size 63`` on the GIAB trio, each on a copy of
    ``mini_ref.fa`` (Module 0 counts the FASTA at k > 31 and caches it
    beside it); the same pipelines on ``device="cpu"`` (the plain
-   versions) must give byte-equal outputs (3 + 6), and K1w, K7 in both
-   forms and K8 must have been launched during the card runs.
+   versions) must give byte-equal outputs (3 + 6), and K1w, the
+   directory builder, K7 in both forms and K8 must have been launched
+   during the card runs.
 5c. Wide scale, phase-5 recipe: the parent filter at k = 63, M = 2**24
    (every distinct key of the 16 batches plus random fill) and at
    k = 201, M = 2**22 on 3 batches of 256 bp reads, both forms, each
@@ -86,8 +90,8 @@ any failure exits non-zero before the result line:
    timed repetitions; a false parity line fails the run.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches in phases 4 and 4b (phase 4c for the wide kernels; phases 5d
-and 7 for K9 and K9d), its
+launches in phases 4 and 4b (phase 4c for the wide kernels, and the
+directory builder in 4, 4b and 4c; phases 5d and 7 for K9 and K9d), its
 largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
 move over 3.35 TB/s and its operations over 67 T/s) and the time of a
@@ -341,8 +345,11 @@ def wide_probe_bound(key_bytes, row_bytes, keys, rows_hit, m):
 
 
 def phase_3w(rng, cuda, check, times):
-    """Wide kernels against their plain versions, timed beside them."""
+    """Wide kernels against their plain versions, timed beside them; K7
+    and K8 through the directory over limb 0, built once per table as
+    ``KmerIndex`` builds it."""
     from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import directory as tdir
     from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
     for k in KS_WIDE:
@@ -389,39 +396,63 @@ def phase_3w(rng, cuda, check, times):
               f"torch.unique(dim=0) {unique_ms:.4f} ms", flush=True)
         for m in WIDE_TABLE_MS[k]:
             table = make_table_wide(rng, flat, m, k, cuda)
+            # as KmerIndex: live rows and the last live limb 0 are known
+            # on the host (these tables hold no sentinel row)
+            max_key = int(table[-1, 0])
+            d = tdir.build_directory(table, m, max_key)
+            check("build_directory", d.offsets,
+                  tdir.plain_directory(table, m, d.bits, d.shift),
+                  f"k={k}, M={m}, over limb 0")
             reps = 3 if m > 262144 else 20
             ref = dev.small_table_tally_wide(table, flat)
             acc = torch.zeros(m, dtype=torch.int64, device=cuda)
-            probe.probe_tally_wide(flat, table, acc)
+            probe.probe_tally_wide(flat, table, acc, directory=d)
             check("probe_tally_wide", acc, ref, f"k={k}, M={m}")
             acc_w = torch.zeros_like(acc)
-            probe.probe_tally_wide(uniq, table, acc_w, weights)
+            probe.probe_tally_wide(uniq, table, acc_w, weights, d)
             check("probe_tally_wide_weighted", acc_w, ref, f"k={k}, M={m}")
-            found = member.probe_member_wide(flat, table)
+            found = member.probe_member_wide(flat, table, d)
             check("probe_member_wide", found, dev.member_wide(table, flat),
                   f"k={k}, M={m}")
-            check("probe_member_wide", member.probe_rows_wide(flat, table),
+            check("probe_member_wide", member.probe_rows_wide(flat, table, d),
                   dev.find_rows_wide(table, flat), f"k={k}, M={m}, rows")
             if not bool(found.any()):
                 fail(f"probe_member_wide found nothing at k={k}, M={m}")
+            largest = int((d.offsets[1:] - d.offsets[:-1]).max())
+            print(f"[3w] k={k} M={m}: directory over limb 0 bits {d.bits}, "
+                  f"shift {d.shift}, largest bucket {largest} rows; "
+                  "directory, K7 both forms and K8 equal to plain",
+                  flush=True)
+            n_dir = (1 << d.bits) + 1
+            ms = device_ms(lambda: tdir.build_directory(table, m, max_key))
+            plain_ms = device_ms(lambda: tdir.plain_directory(
+                table, m, d.bits, d.shift))
+            # limb 0 of each live row read, entries written; an entry or
+            # row a thread
+            lim = bound(8 * m + 4 * n_dir, m + n_dir)
+            times[("build_directory", "wide", k, m)] = (ms, plain_ms, lim)
+            print(f"[3w]   build_directory over limb 0: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms by "
+                  f"{lim[1]}", flush=True)
             rows_hit = int((ref > 0).sum())
             # keys (and weights) read; per row hit its limbs read and its
             # count read and written (K7), or found bytes written (K8)
             runs = {
                 "probe_tally_wide": (
-                    lambda: probe.probe_tally_wide(flat, table, acc),
+                    lambda: probe.probe_tally_wide(flat, table, acc,
+                                                   directory=d),
                     lambda: acc.add_(dev.small_table_tally_wide(table,
                                                                 flat)),
                     wide_probe_bound(8 * q, 8 * q + 16, flat, rows_hit, m)),
                 "probe_tally_wide_weighted": (
                     lambda: probe.probe_tally_wide(uniq, table, acc_w,
-                                                   weights),
+                                                   weights, d),
                     lambda: dev.weighted_tally_wide(table, uniq, weights,
                                                     acc_w),
                     wide_probe_bound(8 * q + 8, 8 * q + 16, uniq, rows_hit,
                                      m)),
                 "probe_member_wide": (
-                    lambda: member.probe_member_wide(flat, table),
+                    lambda: member.probe_member_wide(flat, table, d),
                     lambda: dev.member_wide(table, flat),
                     wide_probe_bound(8 * q + 1, 8 * q, flat, rows_hit, m)),
             }
@@ -433,7 +464,7 @@ def phase_3w(rng, cuda, check, times):
                       f"hit, {int(ref.sum())} hits); kernel {ms:.4f} ms, "
                       f"plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms by "
                       f"{lim[1]}", flush=True)
-            del table, acc, acc_w, ref
+            del table, acc, acc_w, ref, d
 
 
 def batch_40x(cuda):
@@ -722,8 +753,10 @@ def phase_4c(cuda, reset_counts, read_counts):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for name, launches in (("extract_canonical_wide", launches_vcf),
+                           ("build_directory", launches_vcf),
                            ("probe_tally_wide", launches_vcf),
                            ("extract_canonical_wide", launches_disc),
+                           ("build_directory", launches_disc),
                            ("probe_tally_wide_weighted", launches_disc),
                            ("probe_member_wide", launches_disc)):
         if launches[name] <= 0:
@@ -947,7 +980,8 @@ def main():
           flush=True)
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as fh:
         for line in fh:
-            if "ptxas info" in line and ("Used" in line or "entry" in line):
+            if ("ptxas info" in line and ("Used" in line or "entry" in line)
+                    or "spill" in line):
                 print("    " + line.strip())
 
     # ── 3. kernels against their plain versions ────────────────────
@@ -1336,6 +1370,9 @@ def main():
     for name in ("extract_canonical_wide", "probe_tally_wide",
                  "probe_tally_wide_weighted", "probe_member_wide"):
         launches[name] = sum(run[name] for run in launches_wide)
+    # the directory: narrow tables in 4 and 4b, wide ones in 4c
+    launches["build_directory"] += sum(run["build_directory"]
+                                       for run in launches_wide)
     for name in ("seg_sort", "seg_dedup"):
         launches[name] = launches_5d[name] + launches_7[name]
     wide = {name: times[(name, 63, BIG_M)]

@@ -15,7 +15,9 @@
 //
 // K2 and K4 therefore search through a prefix directory (below): one
 // directory load, then a bounded search of one bucket of ~1-4 rows, two
-// to four round trips a key whatever M.  K3 keeps the whole-table search
+// to four round trips a key whatever M.  K7 and K8 search wide rows
+// through the same directory built over their limb 0 (sorted_rows.cuh),
+// with the global form's launch shape.  K3 keeps the whole-table search
 // (find_row, the 48 KB staging of probe_launch).
 //
 // Keys are right-aligned 2-bit k-mer values in [0, 2^62); INT64_MAX marks
@@ -101,7 +103,7 @@ inline cudaError_t probe_launch(long long n, int m, ProbeLaunch* out) {
   return cudaSuccess;
 }
 
-// ── The prefix directory (K2, K4) ─────────────────────────────────────
+// ── The prefix directory (K2, K4; K7, K8 by limb 0) ───────────────────
 //
 // The table's live rows fall into 2^bits buckets by their top bits:
 // bucket p holds the rows whose key >> shift == p, where shift =
@@ -128,7 +130,8 @@ inline cudaError_t probe_launch(long long n, int m, ProbeLaunch* out) {
 // the shared memory that lets two blocks share an SM: (228 KB - 2 x 1 KB
 // reserved) / 2 = 115,712 bytes on an H100, i.e. live <= 10,367 for K4
 // and <= 6,207 for K2 (at bits 14 and 13); the kernels opt in to that
-// much dynamic shared memory.
+// much dynamic shared memory.  K7 and K8 take the global form only
+// (probe_wide.cu).
 //
 // A thread takes kKeys consecutive keys (16-byte loads) and runs their
 // searches interleaved, so their dependent loads overlap.  The two bounds
@@ -152,21 +155,25 @@ __device__ __forceinline__ T load_ro(const T* p) {
 }
 
 // Writes dir[p] for every p in [0, 2^bits] from the sorted live rows
-// t[0, live): row i fills the prefixes after its predecessor's up to its
-// own, and the items past the last row fill the tail with `live`.  Items
+// of t, whose keys (limb 0 of a wide table's rows) lie row_stride int64
+// apart: row i fills the prefixes after its predecessor's up to its own,
+// and the items past the last row fill the tail with `live`.  Items
 // i in [0, live + 2^bits + 1) go to the callers' threads by (first,
-// stride); the ones past the tail do nothing.
-__device__ __forceinline__ void fill_directory(const long long* t, int live,
+// step); the ones past the tail do nothing.
+__device__ __forceinline__ void fill_directory(const long long* t,
+                                               long long row_stride, int live,
                                                int shift, int bits, int* dir,
                                                long long first,
-                                               long long stride) {
+                                               long long step) {
   const long long n_dir = (1LL << bits) + 1;
-  const long long tail_start = live > 0 ? (t[live - 1] >> shift) + 1 : 0;
+  const long long tail_start =
+      live > 0 ? (t[(live - 1) * row_stride] >> shift) + 1 : 0;
   const long long items = live + n_dir - tail_start;
-  for (long long i = first; i < items; i += stride) {
+  for (long long i = first; i < items; i += step) {
     if (i < live) {
-      const long long own = t[i] >> shift;
-      for (long long p = i > 0 ? (t[i - 1] >> shift) + 1 : 0; p <= own; ++p) {
+      const long long own = t[i * row_stride] >> shift;
+      for (long long p = i > 0 ? (t[(i - 1) * row_stride] >> shift) + 1 : 0;
+           p <= own; ++p) {
         dir[p] = static_cast<int>(i);
       }
     } else {

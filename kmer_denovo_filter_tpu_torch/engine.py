@@ -4,8 +4,8 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.engine`, single device:
 
 * :class:`KmerIndex` (:101) — the sorted canonical k-mer table, held on
   the device as one int64 key (or one row of int64 limbs) per k-mer
-  (:mod:`.ops.keys`), with its prefix directory for k <= 31 on the card
-  (:mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
+  (:mod:`.ops.keys`), with its prefix directory on the card (over limb
+  0 for k > 31; :mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
 * :class:`HostKmerIndex` (:238) and :class:`HostFilteredCounter` (:1201)
@@ -110,27 +110,28 @@ def _key_tensor(keys_np, k):
 
 
 def _member(keys, index):
-    """K4 through the index's directory, or K8 for a (M, Q) table: found
+    """K4, or K8 for a (M, Q) table, through the index's directory: found
     bools."""
     if index.table.dim() == 2:
-        return probe_member_wide(keys, index.table)
+        return probe_member_wide(keys, index.table, index.directory)
     return probe_member(keys, index.table, index.directory)
 
 
 def _rows(keys, index):
-    """K4 through the index's directory, or K8 for a (M, Q) table: table
+    """K4, or K8 for a (M, Q) table, through the index's directory: table
     rows, -1 where absent."""
     if index.table.dim() == 2:
-        return probe_rows_wide(keys, index.table)
+        return probe_rows_wide(keys, index.table, index.directory)
     return probe_rows(keys, index.table, index.directory)
 
 
 def _tally(keys, index, acc, weights=None):
     """``acc += `` the tally of *keys* (weighted when *weights* is
-    given): K2 through the index's directory or K3, or K7 for a (M, Q)
-    table."""
+    given): K2 through the index's directory or K3, or K7 (both forms)
+    through it for a (M, Q) table."""
     if index.table.dim() == 2:
-        return probe_tally_wide(keys, index.table, acc, weights)
+        return probe_tally_wide(keys, index.table, acc, weights,
+                                index.directory)
     if weights is None:
         return probe_tally(keys, index.table, acc, index.directory)
     return probe_tally_weighted(keys, weights, index.table, acc)
@@ -139,9 +140,10 @@ def _tally(keys, index, acc, weights=None):
 class KmerIndex:
     """Sorted canonical k-mer table on *device*, with optional counts.
 
-    A narrow table (k <= 31) on a CUDA device also holds its prefix
-    directory (:mod:`.ops.directory`), built here once for every K2 and
-    K4 probe of the table; ``directory`` is None otherwise."""
+    A table on a CUDA device also holds its prefix directory
+    (:mod:`.ops.directory`; over limb 0 for k > 31), built here once for
+    every K2 and K4 (K7 and K8) probe of the table; ``directory`` is None
+    on the CPU."""
 
     def __init__(self, keys_np, k, counts_np=None, *, device):
         """*keys_np*: (M, W) uint32 sorted unique canonical keys."""
@@ -156,14 +158,15 @@ class KmerIndex:
         host = _key_tensor(keys_np, k)
         self.table = host.to(self.device)
         self.directory = None
-        if self.device.type == "cuda" and host.dim() == 1:
-            # live rows (sentinel rows trail) and the last live key from
-            # the host copy: no sync
+        if self.device.type == "cuda":
+            # live rows (sentinel rows trail) and the last live key (limb
+            # 0 of the last live row) from the host copy: no sync
+            first = host if host.dim() == 1 else host[:, 0]
             live = self.n
-            while live and int(host[live - 1]) == keys64.SENTINEL:
+            while live and int(first[live - 1]) == keys64.SENTINEL:
                 live -= 1
             self.directory = tdir.build_directory(
-                self.table, live, int(host[live - 1]) if live else 0)
+                self.table, live, int(first[live - 1]) if live else 0)
 
     @classmethod
     def from_strings(cls, kmers, k, *, device):
@@ -290,10 +293,9 @@ def _key_bytes(k):
 
 
 def _table_bytes(n, k):
-    """Device bytes of an n-key table: its keys, and for k <= 31 its
-    prefix directory."""
-    directory = tdir.directory_bytes(n) if k <= keys64.NARROW_K else 0
-    return _key_bytes(k) * n + directory
+    """Device bytes of an n-key table: its keys (a row of limbs for
+    k > 31) and its prefix directory."""
+    return _key_bytes(k) * n + tdir.directory_bytes(n)
 
 
 def make_membership_index(keys_np, k, counts_np=None, *, device):

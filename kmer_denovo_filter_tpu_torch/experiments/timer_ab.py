@@ -1,5 +1,5 @@
-"""K1, K1w, K2, K3, K4 and K7 of one checkout, each read three ways on
-the card:
+"""K1, K1w, K2, K3, K4, K7 and K8 of one checkout, each read three ways
+on the card:
 
 * ``device``: ``ops.timing.timings``' first reading, the calls queued
   behind a spin, the timer of ``chip_smoke.py`` and the experiments;
@@ -15,9 +15,15 @@ lengths, tables of 4,096 keys half drawn from the batch, and one
 (1, 2**20) row; K2, K3 and K4 at k = 31 also at 262,144, 2**20 and
 2**24 keys, K4 also on a stacked group of 8 x 4,096 reads, K2 and K4
 also on one 40x-coverage batch (the 3s batch) with tables half drawn
-from its keys.  Where the checkout has the prefix directory
+from its keys; K7 (unweighted, and weighted on the batch dedup) and K8
+(found bytes, rows) at k = 63 on 2,048, 4,096, 262,144 and 2**24 rows
+and at k = 201 on 1,024, 4,096 and 2**22, half drawn from the batch
+(2,048 and 1,024 rows are tables that a form staging them in shared
+memory would hold).  Where the checkout has the prefix directory
 (``ops/directory.py``), K2 and K4 get it built once per table, as the
-engine does.  The timer is
+engine does, and so do K7 and K8 where its wide wrappers take a
+directory (its build timed as ``dir wide``).
+The timer is
 always the one beside this file, whatever checkout's kernels it times,
 so two checkouts compare under one timer::
 
@@ -31,6 +37,7 @@ then one JSON line."""
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -41,6 +48,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 B, L, L_K201, ROW, M, REPS = 32768, 152, 256, 1 << 20, 4096, 20
 PROBE_MS = (4096, 262144, 1 << 20, 1 << 24)
+WIDE_MS = {63: (2048, 4096, 262144, 1 << 24), 201: (1024, 4096, 1 << 22)}
 GROUP, GROUP_B = 8, 4096
 
 
@@ -146,6 +154,69 @@ def main(argv=None):
                              device=cuda)
         return torch.unique(torch.cat([pick, rand]))
 
+    def wide_table(flat, k, m):
+        """(m, Q) sorted unique limb rows: half the distinct live rows of
+        *flat*, half random rows (``chip_smoke.make_table_wide``'s
+        recipe)."""
+        live = dev.unique_rows(flat[flat[:, 0] != keys64.SENTINEL])[0]
+        pick = live[torch.randperm(live.shape[0], generator=gen,
+                                   device=cuda)[:m // 2]]
+        rand = torch.stack([torch.randint(0, 4 ** nb, (2 * m + 16,),
+                                          generator=gen, device=cuda)
+                            for nb in keys64.limb_bases(k)], 1)
+        rand = dev.unique_rows(
+            rand[~dev.member_wide(dev.unique_rows(pick)[0], rand)])[0]
+        rand = rand[torch.randperm(rand.shape[0], generator=gen,
+                                   device=cuda)[:m - pick.shape[0]]]
+        table = dev.unique_rows(torch.cat([pick, rand]))[0]
+        if table.shape[0] != m:
+            sys.exit(f"timer_ab: wide table of {table.shape[0]} rows, "
+                     f"wanted {m}")
+        return table
+
+    # a checkout from before the wide directory: K7/K8 take none
+    wide_dir = "directory" in inspect.signature(
+        probe.probe_tally_wide).parameters
+
+    def wide_directory_args(table):
+        """(directory,) where the checkout's wide wrappers take one, else
+        ()."""
+        return (tdir.build_directory(table),) if wide_dir else ()
+
+    def wide_probes(k, flat):
+        """K7 (unweighted on *flat*, weighted on its dedup) and K8 (found
+        bytes, rows) at each of WIDE_MS[k] table rows, through the
+        table's directory where the checkout has one."""
+        uniq, weights = dev.dedup_windows_wide(flat)
+        for m in WIDE_MS[k]:
+            table = wide_table(flat, k, m)
+            ref = dev.small_table_tally_wide(table, flat)
+            ref_found = dev.member_wide(table, flat)
+            ref_rows = dev.find_rows_wide(table, flat)
+            acc = torch.zeros(m, dtype=torch.int64, device=cuda)
+            dargs = wide_directory_args(table)
+            shape = f"k={k} M={m}"
+            if dargs:
+                live, max_key = m, int(table[-1, 0])
+                time_it("dir wide", shape, lambda: tdir.build_directory(
+                    table, live, max_key))
+            for form, keys, w in (("K7", flat, None),
+                                  ("K7 weighted", uniq, weights)):
+                acc.zero_()
+                probe.probe_tally_wide(keys, table, acc, w, *dargs)
+                check(f"{form} {shape}", acc, ref)
+                time_it(form, shape, lambda: probe.probe_tally_wide(
+                    keys, table, acc, w, *dargs))
+            check(f"K8 {shape}", member.probe_member_wide(flat, table, *dargs),
+                  ref_found)
+            check(f"K8 rows {shape}",
+                  member.probe_rows_wide(flat, table, *dargs), ref_rows)
+            time_it("K8", shape, lambda: member.probe_member_wide(
+                flat, table, *dargs))
+            time_it("K8 rows", shape, lambda: member.probe_rows_wide(
+                flat, table, *dargs))
+            del table, acc, ref, ref_found, ref_rows, dargs
+
     def directory_args(table):
         """(directory,) for K2/K4 where the checkout has one, else ()."""
         return () if tdir is None else (tdir.build_directory(table),)
@@ -216,19 +287,8 @@ def main(argv=None):
                 for i in range(GROUP)])
             group = kernel(group_codes, group_lengths, k).reshape(-1)
             probes("random", got.reshape(-1), group)
-        if k in (63, 201):
-            flat = got.flatten(0, 1)
-            uniq, weights = dev.dedup_windows_wide(flat)
-            table = table_of(flat, k)
-            ref = dev.small_table_tally_wide(table, flat)
-            for form, keys, w in (("K7", flat, None), ("K7 weighted", uniq,
-                                                       weights)):
-                acc = torch.zeros(table.shape[0], dtype=torch.int64,
-                                  device=cuda)
-                probe.probe_tally_wide(keys, table, acc, w)
-                check(f"{form} k={k}", acc, ref)
-                time_it(form, f"k={k} M={table.shape[0]}",
-                        lambda: probe.probe_tally_wide(keys, table, acc, w))
+        if k in WIDE_MS:
+            wide_probes(k, got.flatten(0, 1))
     rng_40x = np.random.default_rng(4)
     genome = rng_40x.integers(0, 4, 4 << 20, dtype=np.uint8)
     codes = torch.from_numpy(synth_reads(rng_40x, genome, B, L)).to(cuda)

@@ -1,18 +1,23 @@
-"""The prefix directory of a narrow sorted table: kernels K2 and K4
-(:mod:`.probe`, :mod:`.member`) search through it on the card.
+"""The prefix directory of a sorted table: kernels K2 and K4
+(:mod:`.probe`, :mod:`.member`) search a narrow (M,) table through it on
+the card, K7 and K8 a wide (M, Q) one.
 
 The table's live rows (those before its trailing sentinel rows) fall
 into ``2**bits`` buckets by their top bits: bucket ``p`` holds the rows
 whose ``key >> shift == p``, with ``shift = max(0, bitlen(last live key)
-- bits)`` so the rule needs no k.  ``offsets[p]`` is the first live row
-whose ``key >> shift >= p`` and ``offsets[2**bits] = live``, so a query
-searches only the rows ``[offsets[p], offsets[p + 1])``
-(``csrc/sorted_table.cuh``).  Sizing (:func:`directory_bits`, measured
-on an H100, PERF.md): ``bits = ceil(log2(live))``, about one row a
-bucket and 2-4 B a row, while that takes at most :data:`FINE_BITS`
-(a 16 MB directory, a third of the L2); past it ``ceil(log2(live)) -
-2``, about 2-4 rows (one 32-byte sector) a bucket and 1 B a row.  The
-staged form of K2 and K4 copies this directory into shared memory.
+- bits)`` so the rule needs no k.  The key of a wide row is its limb 0
+(bases 0..30, right-aligned below 2**62; :mod:`.keys`): rows sorted
+lexicographically have a non-decreasing limb 0, so it buckets them as a
+narrow key is bucketed, and rows that share their first 31 bases share a
+bucket.  ``offsets[p]`` is the first live row whose ``key >> shift >=
+p`` and ``offsets[2**bits] = live``, so a query searches only the rows
+``[offsets[p], offsets[p + 1])`` (``csrc/sorted_table.cuh``,
+``csrc/sorted_rows.cuh``).  Sizing (:func:`directory_bits`, measured on
+an H100, PERF.md): ``bits = ceil(log2(live))``, about one row a bucket
+and 2-4 B a row, while that takes at most :data:`FINE_BITS` (a 16 MB
+directory, a third of the L2); past it ``ceil(log2(live)) - 2``, about
+2-4 rows (one 32-byte sector) a bucket and 1 B a row.  The staged form
+of K2 and K4 copies this directory into shared memory.
 
 A directory belongs to a table: the engine builds it once per table
 (``KmerIndex``), never per batch.  :func:`build_directory` launches
@@ -59,25 +64,34 @@ def directory_bytes(n_rows):
     return 4 * ((1 << directory_bits(n_rows)) + 1)
 
 
+def _keys(table):
+    """The bucketed key of each row: the (M,) table, or limb 0 of an
+    (M, Q) one."""
+    return table if table.dim() == 1 else table[:, 0]
+
+
 def plain_directory(table, live, bits, shift):
     """The plain version of ``kdf_build_directory``: (2**bits + 1,)
-    int32, the first of the *live* rows of sorted *table* whose key >>
-    *shift* is at least p, for each p."""
-    prefixes = table[:live] >> shift
+    int32, the first of the *live* rows of sorted *table* ((M,) keys or
+    (M, Q) limb rows, by limb 0) whose key >> *shift* is at least p, for
+    each p."""
+    prefixes = _keys(table)[:live] >> shift
     p = torch.arange((1 << bits) + 1, dtype=torch.int64,
                      device=table.device)
-    return torch.searchsorted(prefixes, p).to(torch.int32)
+    return torch.searchsorted(prefixes.contiguous(), p).to(torch.int32)
 
 
 def build_directory(table, live=None, max_key=None):
-    """The :class:`Directory` of sorted (M,) int64 *table* (trailing
-    sentinel rows allowed).  *live* and *max_key* (its last live key) are
-    read from the table when not given, which on the card is a host sync;
-    a caller that knows them from the host passes them.  A CUDA table
-    launches ``kdf_build_directory``; a CPU one runs the plain version."""
+    """The :class:`Directory` of sorted (M,) int64 *table*, or of an
+    (M, Q) int64 table of limb rows by limb 0 (trailing sentinel rows
+    allowed).  *live* and *max_key* (the last live key, or limb 0 of the
+    last live row) are read from the table when not given, which on the
+    card is a host sync; a caller that knows them from the host passes
+    them.  A CUDA table launches ``kdf_build_directory``; a CPU one runs
+    the plain version."""
     global launches
-    if table.dim() != 1 or table.dtype != torch.int64:
-        raise ValueError(f"expected an (M,) int64 table, got "
+    if table.dim() not in (1, 2) or table.dtype != torch.int64:
+        raise ValueError(f"expected an (M,) or (M, Q) int64 table, got "
                          f"{tuple(table.shape)} {table.dtype}")
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {table.device}")
@@ -85,8 +99,8 @@ def build_directory(table, live=None, max_key=None):
         raise ValueError(f"table of {table.shape[0]} keys exceeds the "
                          "kernels' int32 row index")
     if live is None:
-        live = int((table != SENTINEL).sum())
-        max_key = int(table[live - 1]) if live else 0
+        live = int((_keys(table) != SENTINEL).sum())
+        max_key = int(_keys(table)[live - 1]) if live else 0
     bits = directory_bits(live)
     shift = max(0, int(max_key).bit_length() - bits) if live else 0
     if table.device.type == "cpu":
@@ -98,8 +112,8 @@ def build_directory(table, live=None, max_key=None):
                           device=table.device)
     with torch.cuda.device(table.device):
         err = _cuda.lib().kdf_build_directory(
-            table.data_ptr(), live, bits, shift, offsets.data_ptr(),
-            _cuda.stream_of(table))
+            table.data_ptr(), 1 if table.dim() == 1 else table.shape[1],
+            live, bits, shift, offsets.data_ptr(), _cuda.stream_of(table))
     _cuda.check(err, "build_directory")
     launches += 1
     return Directory(offsets, bits, shift, live, table)

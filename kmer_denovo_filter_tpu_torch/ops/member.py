@@ -16,7 +16,8 @@ Kernel K8 (``probe_member_wide``, ``probe_rows_wide``) is the wide
 counterpart: (N, Q) int64 limb rows (:mod:`.keys`) against a sorted
 (M, Q) table, replacing ``pallas_join._member_kernel_wide`` (:1997, via
 ``join_member_step_wide`` :2216).  Its CUDA kernel is in
-``csrc/probe_wide.cu``.
+``csrc/probe_wide.cu``; it searches through the table's prefix
+directory over limb 0, passed in or built as for K4.
 
 CPU tensors take the plain PyTorch versions in :mod:`.device`
 (``member``/``find_rows``, ``member_wide``/``find_rows_wide``).
@@ -83,29 +84,32 @@ def _launch(keys, table, directory, dtype):
     return out
 
 
-def probe_member_wide(keys, table):
+def probe_member_wide(keys, table, directory=None):
     """(N,) bool: row ``keys[i]`` is in *table*; sentinel rows are never
     found.
 
     *keys*: (N, Q) int64 limb rows.  *table*: (M, Q) int64 rows
-    ascending, unique apart from trailing sentinel rows.  A CUDA tensor
-    launches kernel K8; a CPU tensor runs the plain version.
+    ascending, unique apart from trailing sentinel rows.  *directory*:
+    the table's :class:`~.directory.Directory` (over limb 0), or None.
+    A CUDA tensor launches kernel K8 (building the directory first when
+    none is given); a CPU tensor runs the plain version, which needs no
+    directory.
     """
     if check_wide_probe_args(keys, table, []) == "cpu":
         return dev.member_wide(table, keys)
-    return _launch_wide(keys, table, torch.bool)
+    return _launch_wide(keys, table, directory, torch.bool)
 
 
-def probe_rows_wide(keys, table):
+def probe_rows_wide(keys, table, directory=None):
     """(N,) int64: the table row of ``keys[i]``, or -1 where it is absent
     or a sentinel; arguments as for :func:`probe_member_wide`.  The same
     kernel K8, writing rows instead of found bytes."""
     if check_wide_probe_args(keys, table, []) == "cpu":
         return dev.find_rows_wide(table, keys)
-    return _launch_wide(keys, table, torch.int64)
+    return _launch_wide(keys, table, directory, torch.int64)
 
 
-def _launch_wide(keys, table, dtype):
+def _launch_wide(keys, table, directory, dtype):
     """K8 over checked CUDA tensors: found bytes (bool) or rows (int64)."""
     global wide_launches
     n, m = keys.shape[0], table.shape[0]
@@ -115,12 +119,14 @@ def _launch_wide(keys, table, dtype):
     out = torch.empty(n, dtype=dtype, device=keys.device)
     if n == 0:
         return out
+    d = tdir.directory_for(table, directory)
     found, rows = ((out.data_ptr(), None) if dtype == torch.bool
                    else (None, out.data_ptr()))
     with torch.cuda.device(keys.device):
         err = _cuda.lib().kdf_probe_member_wide(
-            keys.data_ptr(), n, table.data_ptr(), m, table.shape[1], found,
-            rows, _cuda.stream_of(keys))
+            keys.data_ptr(), n, table.data_ptr(), d.offsets.data_ptr(),
+            d.bits, d.shift, table.shape[1], found, rows,
+            _cuda.stream_of(keys))
     _cuda.check(err, "probe_member_wide")
     wide_launches += 1
     return out

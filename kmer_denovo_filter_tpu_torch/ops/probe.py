@@ -23,7 +23,9 @@ K7 (``probe_tally_wide``) is the counterpart of the wide tile join
 ``pallas_join._tally_kernel_wide`` (:1905) in both its forms: unweighted
 via ``join_tally_flat_wide`` (:2180) and weighted via
 ``join_tally_flat_wide_dedup`` (:1564).  Keys are (N, Q) int64 limb rows
-(:mod:`.keys`); its CUDA kernel is in ``csrc/probe_wide.cu``.
+(:mod:`.keys`); its CUDA kernel is in ``csrc/probe_wide.cu`` and
+searches through the table's prefix directory over limb 0, passed in or
+built as for K2.
 
 CPU tensors take the plain PyTorch versions in :mod:`.device`.
 """
@@ -143,7 +145,7 @@ def check_wide_probe_args(keys, table, others):
     return _check_tensors(keys, table, others)
 
 
-def probe_tally_wide(keys, table, acc, weights=None):
+def probe_tally_wide(keys, table, acc, weights=None, directory=None):
     """``acc[j] += #{i : keys[i] == table[j]}``, or the sum of
     ``weights[i]`` over those i when *weights* is given, in place;
     returns *acc*.
@@ -152,8 +154,11 @@ def probe_tally_wide(keys, table, acc, weights=None):
     (M, Q) int64 rows ascending, unique apart from trailing sentinel
     rows (which count 0).  *acc*: (M,) int64.  *weights*: (N,) int64,
     normally the multiplicities of a batch's distinct keys
-    (:func:`.device.dedup_windows_wide`).  A CUDA tensor launches kernel
-    K7; a CPU tensor runs the plain version.
+    (:func:`.device.dedup_windows_wide`).  *directory*: the table's
+    :class:`~.directory.Directory` (over limb 0), or None.  A CUDA
+    tensor launches kernel K7 (building the directory first when none
+    is given); a CPU tensor runs the plain version, which needs no
+    directory.
     """
     global wide_launches, wide_weighted_launches
     others = [("acc", acc, table.shape[:1])]
@@ -167,11 +172,12 @@ def probe_tally_wide(keys, table, acc, weights=None):
     n, m = keys.shape[0], table.shape[0]
     if n == 0 or m == 0:
         return acc
+    d = tdir.directory_for(table, directory)
     with torch.cuda.device(keys.device):
         err = _cuda.lib().kdf_probe_tally_wide(
             keys.data_ptr(), None if weights is None else weights.data_ptr(),
-            n, table.data_ptr(), m, table.shape[1], acc.data_ptr(),
-            _cuda.stream_of(keys))
+            n, table.data_ptr(), d.offsets.data_ptr(), d.bits, d.shift,
+            table.shape[1], acc.data_ptr(), _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally_wide")
     if weights is None:
         wide_launches += 1

@@ -340,6 +340,28 @@ def test_card_check_counts_the_prefix_directory(monkeypatch):
         teng.make_parent_filter_counter(words, k, device="cuda")
 
 
+def test_card_check_counts_the_wide_directory(monkeypatch):
+    """A wide (k = 63) table on the card needs its limb rows and its
+    prefix directory over limb 0: short of the directory's bytes by one,
+    both gates raise."""
+    k = 63
+    words = _words(_filter_set(_reads(68, 20, k, with_n=False), k), k)
+    n = words.shape[0]
+    need = 8 * keys64.limbs_per_kmer(k) * n + tdir.directory_bytes(n)
+    assert need == teng._table_bytes(n, k) and tdir.directory_bytes(n) > 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: (need - 1, 1 << 40))
+    with pytest.raises(RuntimeError, match="sharded engine"):
+        teng.make_membership_index(words, k, device="cuda")
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: (need + 8 * n - 1, 1 << 40))
+    with pytest.raises(RuntimeError, match="sharded engine"):
+        teng.make_parent_filter_counter(words, k, device="cuda")
+
+
 def test_dedup_first_counter_over_several_feeds():
     """The discovery parent filter (K1 → dedup → K3) equals the plain
     K1 → K2 counter and the JAX FilteredCounter, with duplicated reads

@@ -18,6 +18,11 @@ from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import extract, member, probe, segsort
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from tests.test_torch_directory import TABLES, make_table, queries
+from tests.test_torch_directory_wide import (
+    BITS_EDGE,
+    make_table_wide,
+    queries_wide,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -418,8 +423,9 @@ def test_extract_wide_kernel_matches_plain(cuda, k):
                                  (63, 100_000), (201, 877), (201, 878),
                                  (201, 50_000)])
 def test_wide_probe_kernels_match_plain(cuda, k, m):
-    """K7 unweighted and weighted, K8 found and rows, around the 48 KB
-    shared-memory staging edge (6,144 / Q rows)."""
+    """K7 unweighted and weighted, K8 found and rows, each wrapper given
+    no directory (it builds one), around 6,144 / Q rows (the 48 KB a
+    whole-table search staged) and past them."""
     codes, lengths = (t.to(cuda) for t in _batch(m, length=k + 40))
     codes = torch.cat([codes, codes[:700]])
     lengths = torch.cat([lengths, lengths[:700]])
@@ -444,6 +450,150 @@ def test_wide_probe_kernels_match_plain(cuda, k, m):
     assert torch.equal(found, dev.member_wide(table, flat))
     assert torch.equal(rows, dev.find_rows_wide(table, flat))
     assert bool(found.any()) and not bool(found.all())
+
+
+# ── K7 and K8 through the prefix directory over limb 0 ────────────────
+
+
+def _wide_dir_cases():
+    """(kind, k) at Q = 2, 3 and 7: the CPU model's small tables, its
+    limb-0-tie table and the directory's bits edge."""
+    return [(kind, k) for k in (33, 63, 201)
+            for kind in ("1", "2", "all-sentinel", "trailing-sentinels",
+                         "limb-0-tie") + tuple(str(m) for m in BITS_EDGE)]
+
+
+WIDE_DIR_CASES = _wide_dir_cases()
+
+
+@pytest.mark.parametrize("kind,k", WIDE_DIR_CASES)
+def test_wide_directory_kernel_matches_plain(cuda, kind, k):
+    """``kdf_build_directory`` over limb 0 of an (M, Q) table (row stride
+    Q) equals the plain version."""
+    table = torch.from_numpy(make_table_wide(kind, k)).to(cuda)
+    before = tdir.launches
+    got = tdir.build_directory(table)
+    ref = tdir.build_directory(table.cpu())
+    torch.cuda.synchronize()
+    assert tdir.launches == before + 1
+    assert (got.bits, got.shift, got.live) == (ref.bits, ref.shift, ref.live)
+    assert torch.equal(got.offsets.cpu(), ref.offsets)
+
+
+@pytest.mark.parametrize("kind,k", WIDE_DIR_CASES)
+def test_wide_directory_probes_match_plain(cuda, kind, k):
+    """K7 unweighted and weighted and K8 (found, rows) through the
+    directory, prebuilt and built by the wrapper, on the model's queries
+    with repeated rows and on an unaligned view of them, equal their
+    plain versions at Q = 2, 3, 7."""
+    table_np = make_table_wide(kind, k)
+    table = torch.from_numpy(table_np).to(cuda)
+    live_np = table_np[table_np[:, 0] != keys64.SENTINEL]
+    q_np = np.concatenate([queries_wide(table_np, k),
+                           np.repeat(live_np[:100], 40, axis=0)])
+    q = torch.from_numpy(q_np).to(cuda)
+    uniq, weights = dev.dedup_windows_wide(q)
+    ref_found = dev.member_wide(table, q)
+    ref_rows = dev.find_rows_wide(table, q)
+    ref_tally = dev.small_table_tally_wide(table, q)
+    counts = (tdir.launches, member.wide_launches, probe.wide_launches,
+              probe.wide_weighted_launches)
+    d = tdir.build_directory(table)
+    found = member.probe_member_wide(q, table, d)
+    rows = member.probe_rows_wide(q, table, d)
+    found_own = member.probe_member_wide(q, table)
+    acc = torch.full((table.shape[0],), 5, dtype=torch.int64, device=cuda)
+    probe.probe_tally_wide(q, table, acc, directory=d)
+    acc_own = torch.full_like(acc, 3)
+    probe.probe_tally_wide(q, table, acc_own)
+    acc_w = torch.zeros_like(acc)
+    probe.probe_tally_wide(uniq, table, acc_w, weights, d)
+    view = q[1:]
+    found_view = member.probe_member_wide(view, table, d)
+    rows_view = member.probe_rows_wide(view, table, d)
+    acc_view = torch.zeros_like(acc)
+    probe.probe_tally_wide(view, table, acc_view, directory=d)
+    torch.cuda.synchronize()
+    assert (tdir.launches, member.wide_launches, probe.wide_launches,
+            probe.wide_weighted_launches) == (
+        counts[0] + 3, counts[1] + 5, counts[2] + 3, counts[3] + 1)
+    assert torch.equal(found, ref_found) and torch.equal(found_own, ref_found)
+    assert torch.equal(rows, ref_rows)
+    assert torch.equal(acc, ref_tally + 5) and torch.equal(acc_own,
+                                                           ref_tally + 3)
+    assert torch.equal(acc_w, ref_tally)
+    assert torch.equal(found_view, dev.member_wide(table, view))
+    assert torch.equal(rows_view, dev.find_rows_wide(table, view))
+    assert torch.equal(acc_view, dev.small_table_tally_wide(table, view))
+    if d.live:
+        assert bool(ref_found.any()) and int(ref_tally.max()) > 40
+
+
+def test_wide_probes_refuse_another_tables_directory(cuda):
+    """K7 and K8 given the directory of another (M, Q) table of the same
+    shape, or of the table's own limb-0 column, raise before any
+    launch."""
+    table = torch.from_numpy(make_table_wide("4096", 63)).to(cuda)
+    q = table[:100].clone()
+    for foreign in (torch.from_numpy(make_table_wide("4096", 93)).to(cuda),
+                    table[:, 0].contiguous()):
+        d = tdir.build_directory(foreign)
+        counts = (member.wide_launches, probe.wide_launches,
+                  probe.wide_weighted_launches)
+        acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
+        for call in (lambda: member.probe_member_wide(q, table, d),
+                     lambda: member.probe_rows_wide(q, table, d),
+                     lambda: probe.probe_tally_wide(q, table, acc,
+                                                    directory=d),
+                     lambda: probe.probe_tally_wide(
+                         q, table, acc, torch.ones(100, dtype=torch.int64,
+                                                   device=cuda), d)):
+            with pytest.raises(ValueError, match="does not belong"):
+                call()
+        assert (member.wide_launches, probe.wide_launches,
+                probe.wide_weighted_launches) == counts
+
+
+def test_wide_index_builds_its_directory_once(cuda):
+    """``KmerIndex`` at k = 63 on the card builds the directory over limb 0
+    once, from its host copy, and its probes launch no other build."""
+    k = 63
+    table_np = make_table_wide("trailing-sentinels", k)
+    index = eng.KmerIndex(keys64.limbs_to_words(torch.from_numpy(table_np),
+                                                k), k, device=cuda)
+    d = index.directory
+    assert d is not None and d.table is index.table and d.live == 3000
+    ref = tdir.build_directory(index.table.cpu())
+    assert torch.equal(d.offsets.cpu(), ref.offsets)
+    q = torch.from_numpy(queries_wide(table_np, k)).to(cuda)
+    before = tdir.launches
+    found = eng._member(q, index)
+    acc = torch.zeros(index.n, dtype=torch.int64, device=cuda)
+    eng._tally(q, index, acc)
+    torch.cuda.synchronize()
+    assert tdir.launches == before
+    assert torch.equal(found, dev.member_wide(index.table, q))
+    assert torch.equal(acc, dev.small_table_tally_wide(index.table, q))
+
+
+def test_cuda_wide_probes_use_no_library_search(cuda, monkeypatch):
+    """On the card the wide directory, K7 and K8 run no plain version."""
+    table = torch.from_numpy(make_table_wide("4096", 63)).to(cuda)
+    q = torch.from_numpy(queries_wide(table.cpu().numpy(), 63)).to(cuda)
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+    for name in ("member_wide", "find_rows_wide", "small_table_tally_wide",
+                 "weighted_tally_wide", "unique_rows"):
+        monkeypatch.setattr(dev, name, refuse)
+    monkeypatch.setattr(tdir, "plain_directory", refuse)
+    monkeypatch.setattr(torch, "searchsorted", refuse)
+    member.probe_member_wide(q, table)
+    member.probe_rows_wide(q, table)
+    probe.probe_tally_wide(q, table, torch.zeros(table.shape[0],
+                                                 dtype=torch.int64,
+                                                 device=cuda))
+    torch.cuda.synchronize()
 
 
 def test_wide_engine_cuda_matches_cpu(cuda):
