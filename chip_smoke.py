@@ -14,8 +14,12 @@ any failure exits non-zero before the result line:
    on one (1, 2**20) row at k = 31 (a contig chunk of Module 0); K2
    (probe_tally) at each k and M in {1, 4,096, 262,144} table keys (half
    drawn from the batch), at k = 31 also 2**24; K3
-   (probe_tally_weighted) on the batch's dedup at k = 31 and M in
-   {1, 4,096, 262,144, 2**24}.  Times by CUDA events.
+   (probe_tally_weighted) through the table's directory at k = 31 and M
+   in {1, 4,096, 262,144, 2**20, 2**24}, on the random batch and on one
+   40x-coverage batch (the 3s batch), in both its forms: on the batch's
+   whole dedup (``dedup_windows``) and on K9d's slots as they stand; the
+   step K9d -> K3 once more with CUDA sync debugging set to raise (no
+   host sync).  Times by CUDA events.
 3p. The prefix-directory probes at k = 31, on the random batch and on
    one 40x-coverage batch (the 3s batch; its tables drawn from its own
    keys, so K2's atomics repeat as on real reads), at M in {1, 6,207,
@@ -33,17 +37,18 @@ any failure exits non-zero before the result line:
 4b. Main path, discovery: ``kmer-discovery-torch``
    (``cli.discovery_main``) on the same trio with the golden fixture's
    flags; the six text outputs must equal ``tests/goldens/giab_discovery.*``
-   byte for byte, K1, K3 and K4 must have been launched during that
-   run, and nothing may be written into ``tests/data/giab``.
+   byte for byte, K1, K9d, K3 and K4 must have been launched during
+   that run, and nothing may be written into ``tests/data/giab``.
 5. Scale: ``FilteredCounter`` on cuda over 16 batches x 32,768 reads x
    152 bp (synthetic 40x-coverage reads, 0.3 % error, seed 0) against
    4,096- and 262,144-key tables; counts must equal the plain path on
    the same card.  Reads/s for both.
 5b. Discovery scale, same batches: the parent filter at M = 2**24,
    2**27 and 2**28 (all the batches' distinct keys, filled with random
-   keys) in both forms, K1 -> K2 and K1 -> dedup -> K3, each equal to
-   the plain path; the anchoring scan (``scan_reads_for_hits_many``) over groups
-   of 8 x 4,096 reads at M = 2**20, equal to the plain path.  Reads/s.
+   keys) in both engine forms, K1 -> K2 and K1 -> K9d -> K3 (the dedup
+   form), each equal to the plain path; the anchoring scan
+   (``scan_reads_for_hits_many``) over groups of 8 x 4,096 reads at
+   M = 2**20, equal to the plain path.  Reads/s.
 3s. Segment-local sort and dedup: K9 (seg_sort) and K9d (seg_dedup)
    against their plain versions (``torch.sort(dim=1)`` with the payload
    gathered; a per-segment run-length count) on the phase-3 random batch
@@ -74,11 +79,12 @@ any failure exits non-zero before the result line:
    k = 201, M = 2**22 on 3 batches of 256 bp reads, both forms, each
    equal to the plain path; the anchoring scan at k = 63, M = 2**20,
    in groups of 8 x 4,096.  Reads/s.
-5d. The parent filter of 5b in a third form, the segment form of the
-   v5 prototype (``experiments.x_join_variants.SegmentDedupCounter``:
-   K1 -> K9d -> sort -> K3), interleaved with the two engine forms on
-   the same batches at each M, all three equal to the plain path.
-   Reads/s.  K9d's launches are counted over the 5b/5d filter loops.
+5d. The parent filter of 5b in a third form, with a whole-batch dedup
+   (``experiments.x_join_variants.BatchDedupCounter``: K1 ->
+   ``dedup_windows``, a ``torch.unique`` -> K3 on the flat stream),
+   interleaved with the two engine forms on the same batches at each M,
+   all three equal to the plain path.  Reads/s.  K9d's launches are
+   counted over the 5b/5d filter loops.
 6. Profile: the phase-5, 5b, 5d and 5c loops once more under
    ``torch.profiler``; device busy time (union of kernel and copy
    spans), each device op's ms per batch, and the device's idle share
@@ -91,7 +97,7 @@ any failure exits non-zero before the result line:
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches in phases 4 and 4b (phase 4c for the wide kernels, and the
-directory builder in 4, 4b and 4c; phases 5d and 7 for K9 and K9d), its
+directory builder in 4, 4b and 4c; phases 5d and 7 for K9), its
 largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
 move over 3.35 TB/s and its operations over 67 T/s) and the time of a
@@ -118,6 +124,7 @@ B, L = 32768, 152
 KS = (15, 17, 21, 31)
 TABLE_MS = (1, 4096, 262144)
 BIG_M = 1 << 24
+K3_MS = (1, 4096, 262144, 1 << 20, BIG_M)
 FILTER_MS = (BIG_M, 1 << 27, 1 << 28)  # 128 MB, 1 GB and 2 GB tables
 GROUP, GROUP_B = 8, 4096
 SCAN_M = 1 << 20
@@ -162,13 +169,15 @@ def bound(n_bytes, n_ops):
                                                            "operations")
 
 
-def probe_bound(key_bytes, row_bytes, keys, table, sentinel):
+def probe_bound(key_bytes, row_bytes, keys, table, sentinel, extra_bytes=0):
     """Bound of a probe of *keys* into *table*: *key_bytes* per key
     (inputs and per-key outputs) plus *row_bytes* per distinct table row
-    the keys hit, and ceil(log2(M + 1)) + 1 compares per live key."""
+    the keys hit plus *extra_bytes*, and ceil(log2(M + 1)) + 1 compares
+    per live key."""
     rows_hit = int(torch.isin(table, keys).sum())
     n_ops = int((keys != sentinel).sum()) * (table.numel().bit_length() + 1)
-    return bound(key_bytes * keys.numel() + row_bytes * rows_hit, n_ops)
+    return bound(key_bytes * keys.numel() + row_bytes * rows_hit
+                 + extra_bytes, n_ops)
 
 
 def random_batch(rng, length=L):
@@ -593,7 +602,8 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
         raw = segsort.seg_dedup(flat)
         ref = dev.segment_runs(segs)
         check("seg_dedup", raw[2], ref[2], f"{label} batch, counts")
-        for got, want in zip(segsort.compact(*raw), segsort.compact(*ref)):
+        for got, want in zip(dev.segment_compact(*raw),
+                             dev.segment_compact(*ref)):
             check("seg_dedup", got, want, f"{label} batch, rows")
         rows = int(raw[2].sum())
         whole = dev.dedup_windows(flat)[0].numel()
@@ -616,7 +626,6 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
         dedup_ms = device_ms(lambda: segsort.seg_dedup(flat))
         dedup_plain = device_ms(lambda: dev.segment_runs(segs), reps=5)
         dedup_lib = device_ms(lambda: dev.dedup_windows(flat))
-        dense_ms = device_ms(lambda: segsort.dedup_segments(flat))
         times[("seg_sort", label)] = (sort_ms, sort_plain, sort_lib,
                                       sort_lim)
         times[("seg_dedup", label)] = (dedup_ms, dedup_plain, dedup_lib,
@@ -630,8 +639,7 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
               f"{whole} distinct keys in the whole batch); kernel "
               f"{dedup_ms:.4f} ms, plain {dedup_plain:.4f} ms, "
               f"dedup_windows (whole batch) {dedup_lib:.4f} ms, bound "
-              f"{dedup_lim[0]:.4f} ms by {dedup_lim[1]}; dedup_segments "
-              f"(K9d, gather, global sort) {dense_ms:.4f} ms", flush=True)
+              f"{dedup_lim[0]:.4f} ms by {dedup_lim[1]}", flush=True)
 
 
 def phase_7(reset_counts, read_counts):
@@ -924,7 +932,7 @@ def main():
         fail("torch.cuda.is_available() is False: this needs a CUDA GPU")
     from kmer_denovo_filter_tpu_torch import cli, engine as eng
     from kmer_denovo_filter_tpu_torch.experiments.x_join_variants import (
-        SegmentDedupCounter,
+        BatchDedupCounter,
     )
     from kmer_denovo_filter_tpu_torch.ops import (
         _cuda,
@@ -1051,24 +1059,71 @@ def main():
           f"after dedup; group of {GROUP} x {GROUP_B} reads: "
           f"{flat_g.numel()} windows; 40x batch: {flat_40x.numel()} windows, "
           f"{torch.unique(flat_40x).numel()} distinct", flush=True)
-    for m in TABLE_MS + (BIG_M,):
-        table = make_table(rng, flat, m, k, sentinel, cuda)
-        acc = torch.zeros(m, dtype=torch.int64, device=cuda)
-        probe.probe_tally_weighted(uniq, weights, table, acc)
-        ref = dev.small_table_tally(table, flat)
-        check("probe_tally_weighted", acc, ref, f"M={m}")
-        ms = device_ms(lambda: probe.probe_tally_weighted(uniq, weights,
-                                                          table, acc))
-        plain_ms = device_ms(lambda: dev.weighted_tally(table, uniq, weights,
-                                                        acc))
-        dedup_ms = device_ms(lambda: dev.dedup_windows(flat))
-        # keys and weights read; each row hit as for K2
-        lim = probe_bound(16, 24, uniq, table, sentinel)
-        times[("probe_tally_weighted", m)] = (ms, plain_ms, lim)
-        print(f"[3] K3 M={m}: equal ({int(ref.sum())} hits); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms "
-              f"by {lim[1]}; the dedup in front {dedup_ms:.4f} ms",
-              flush=True)
+    # K3 through the directory, flat (the whole-batch dedup) and on K9d's
+    # slots, on the random and the 40x batch; K9d -> K3 must make no host
+    # sync (CUDA sync debugging set to raise around it)
+    k3_batches = {"random": (flat, uniq, weights),
+                  "40x": (flat_40x, *dev.dedup_windows(flat_40x))}
+    for label, (keys_b, uniq_b, weights_b) in k3_batches.items():
+        slots = segsort.seg_dedup(keys_b)
+        live_slots = dev.segment_compact(*slots)[0]
+        n_segs = slots[0].shape[0]
+        for m in K3_MS:
+            table = make_table(rng, keys_b, m, k, sentinel, cuda)
+            d = tdir.build_directory(table)
+            ref = dev.small_table_tally(table, keys_b)
+            acc = torch.zeros(m, dtype=torch.int64, device=cuda)
+            probe.probe_tally_weighted(uniq_b, weights_b, table, acc, d)
+            check("probe_tally_weighted", acc, ref, f"{label} batch, M={m}, "
+                  "flat")
+            acc.zero_()
+            probe.probe_tally_weighted(slots[0], slots[1], table, acc, d,
+                                       slots[2])
+            check("probe_tally_weighted", acc, ref, f"{label} batch, M={m}, "
+                  "slots")
+            if m == BIG_M:
+                acc.zero_()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = segsort.seg_dedup(keys_b)
+                    probe.probe_tally_weighted(got[0], got[1], table, acc, d,
+                                               got[2])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                check("probe_tally_weighted", acc, ref, f"{label} batch, "
+                      f"M={m}, K9d -> K3 with sync debugging on")
+            ms = device_ms(lambda: probe.probe_tally_weighted(
+                uniq_b, weights_b, table, acc, d))
+            slots_ms = device_ms(lambda: probe.probe_tally_weighted(
+                slots[0], slots[1], table, acc, d, slots[2]))
+            plain_ms = device_ms(lambda: dev.weighted_tally(
+                table, uniq_b, weights_b, acc))
+            plain_slots_ms = device_ms(lambda: dev.weighted_tally(
+                table, *dev.segment_compact(*slots), acc))
+            # keys read, the weight of each key found, each row hit as
+            # for K2; the slots form also reads the counts
+            lim = probe_bound(8, 24, uniq_b, table, sentinel,
+                              8 * int(torch.isin(uniq_b, table).sum()))
+            slots_lim = probe_bound(
+                8, 24, live_slots, table, sentinel,
+                8 * int(torch.isin(live_slots, table).sum()) + 4 * n_segs)
+            times[("probe_tally_weighted", label, m)] = (
+                ms, plain_ms, lim, slots_ms, plain_slots_ms, slots_lim)
+            print(f"[3] K3 {label} batch M={m}: flat and slots equal "
+                  f"({int(ref.sum())} hits; {uniq_b.numel()} flat keys, "
+                  f"{live_slots.numel()} live slots); kernel flat "
+                  f"{ms:.4f} ms, slots {slots_ms:.4f} ms; plain flat "
+                  f"{plain_ms:.4f} ms, slots (compaction + tally) "
+                  f"{plain_slots_ms:.4f} ms; bound flat {lim[0]:.4f} ms by "
+                  f"{lim[1]}, slots {slots_lim[0]:.4f} ms by {slots_lim[1]}",
+                  flush=True)
+            del table, d, ref, acc
+        dedup_ms = device_ms(lambda: dev.dedup_windows(keys_b))
+        k9d_ms = device_ms(lambda: segsort.seg_dedup(keys_b))
+        print(f"[3] {label} batch: the dedups in front of K3: "
+              f"dedup_windows {dedup_ms:.4f} ms, K9d {k9d_ms:.4f} ms; K9d -> "
+              "K3 made no host sync", flush=True)
 
     # ── 3p. K2 and K4 through the prefix directory ─────────────────
     phase_3p({"random": (flat, flat_g), "40x": (flat_40x, None)}, cuda,
@@ -1151,8 +1206,8 @@ def main():
             fail("the informative BAM was not written and indexed")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    for name in ("extract_canonical", "probe_tally_weighted", "probe_member",
-                 "build_directory"):
+    for name in ("extract_canonical", "seg_dedup", "probe_tally_weighted",
+                 "probe_member", "build_directory"):
         if launches_disc[name] <= 0:
             fail(f"kernel {name} was not launched on the discovery path")
     if sorted(os.listdir(giab)) != giab_files:
@@ -1228,15 +1283,18 @@ def main():
                      n_reads / max(kern_a, kern_b), card)
 
     # ── 5b, 5d. discovery scale: the parent filter in three forms ──
-    forms = {"K1->K2": False, "K1->dedup->K3": True}
-    seg_form = "K1->K9d->sort->K3"
+    forms = {"K1->K2": False, "K1->K9d->K3": True}
+    batch_form = "K1->dedup->K3"
+
+    def counter(name, index):
+        return (BatchDedupCounter(index) if name == batch_form
+                else eng.FilteredCounter(index, dedup=forms[name]))
 
     def run_feed(name, index):
         """(the form's accumulator on the card, reads/s of its feeds)."""
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fc = feed_all(SegmentDedupCounter(index) if name == seg_form
-                      else eng.FilteredCounter(index, dedup=forms[name]))
+        fc = feed_all(counter(name, index))
         return fc.acc, n_reads / (time.perf_counter() - t)
 
     reset_counts()
@@ -1247,12 +1305,12 @@ def main():
                               device=cuda)
         del table
         describe_directory("[5b]", index)
-        for name in list(forms) + [seg_form]:  # warm-up
+        for name in list(forms) + [batch_form]:  # warm-up
             run_feed(name, index)
         plain, plain_rate = run_plain_path(index)
-        rates = {name: [] for name in list(forms) + [seg_form]}
-        for name in ("K1->K2", "K1->dedup->K3", seg_form, seg_form,
-                     "K1->dedup->K3", "K1->K2"):
+        rates = {name: [] for name in list(forms) + [batch_form]}
+        for name in ("K1->K2", "K1->K9d->K3", batch_form, batch_form,
+                     "K1->K9d->K3", "K1->K2"):
             acc, rate = run_feed(name, index)
             rates[name].append(rate)
             if not torch.equal(acc, plain):
@@ -1266,24 +1324,21 @@ def main():
         print(f"[5b] parent filter M={m} ({seen.numel()} batch keys): "
               f"{n_reads} reads, {int(plain.sum())} hits, both forms equal "
               f"to plain; feed reads/s K1->K2 {rates['K1->K2'][0]:.1f} / "
-              f"{rates['K1->K2'][1]:.1f}, K1->dedup->K3 "
-              f"{rates['K1->dedup->K3'][0]:.1f} / "
-              f"{rates['K1->dedup->K3'][1]:.1f}, plain {plain_rate:.1f}; "
+              f"{rates['K1->K2'][1]:.1f}, K1->K9d->K3 "
+              f"{rates['K1->K9d->K3'][0]:.1f} / "
+              f"{rates['K1->K9d->K3'][1]:.1f}, plain {plain_rate:.1f}; "
               f"result() of the {8 * m >> 20} MB accumulator "
               f"{result_ms:.3f} ms ({card})", flush=True)
-        print(f"[5d] parent filter M={m}: the segment form {seg_form} "
-              f"equal to plain; feed reads/s {rates[seg_form][0]:.1f} / "
-              f"{rates[seg_form][1]:.1f}, interleaved with K1->K2 and "
-              f"K1->dedup->K3 above ({card})", flush=True)
+        print(f"[5d] parent filter M={m}: the whole-batch form {batch_form} "
+              f"equal to plain; feed reads/s {rates[batch_form][0]:.1f} / "
+              f"{rates[batch_form][1]:.1f}, interleaved with K1->K2 and "
+              f"K1->K9d->K3 above ({card})", flush=True)
         del plain, fc
         if m in (BIG_M, FILTER_MS[-1]):
-            for name in list(forms) + [seg_form]:
+            for name in list(forms) + [batch_form]:
                 profile_loop(
                     f"parent filter M={m} {name} (feed)", SCALE_BATCHES,
-                    lambda: feed_all(
-                        SegmentDedupCounter(index) if name == seg_form
-                        else eng.FilteredCounter(index,
-                                                 dedup=forms[name])),
+                    lambda: feed_all(counter(name, index)),
                     n_reads / max(rates[name]), card)
         del index
     launches_5d = read_counts()
@@ -1361,7 +1416,9 @@ def main():
     k1_ms, k1_plain, k1_lim = times[("extract_canonical", 31)]
     k2_ms, k2_plain, _k2_search, k2_lim = times[("probe_tally", "random",
                                                    BIG_M)]
-    k3_ms, k3_plain, k3_lim = times[("probe_tally_weighted", BIG_M)]
+    # K3 on K9d's slots of the 40x batch: the main path's form and data
+    _ms, _plain, _lim, k3_ms, k3_plain, k3_lim = times[(
+        "probe_tally_weighted", "40x", BIG_M)]
     k4_ms, k4_plain, k4_isin, _k4_search, k4_lim = times[(
         "probe_member", "group", "random", BIG_M)]
     dir_ms, dir_plain, dir_lim = times[("build_directory", "random", BIG_M)]
@@ -1373,8 +1430,8 @@ def main():
     # the directory: narrow tables in 4 and 4b, wide ones in 4c
     launches["build_directory"] += sum(run["build_directory"]
                                        for run in launches_wide)
-    for name in ("seg_sort", "seg_dedup"):
-        launches[name] = launches_5d[name] + launches_7[name]
+    # K9 is on no main path: its launches in 5d and 7
+    launches["seg_sort"] = launches_5d["seg_sort"] + launches_7["seg_sort"]
     wide = {name: times[(name, 63, BIG_M)]
             for name in ("probe_tally_wide", "probe_tally_wide_weighted",
                          "probe_member_wide")}

@@ -14,20 +14,32 @@
 // pallas_join.py:_tally_kernel_w (:679), the back half of the dedup-first
 // tally (join_tally_step_dedup :808, join_tally_superbatch_dedup :915):
 // its input is a batch's distinct keys with their multiplicities, and a
-// found key adds its weight instead of 1.  It keeps the whole-table
-// lower-bound search (find_row) and the 48 KB staging.
+// found key adds its weight instead of 1.  It searches through the same
+// directory as K2, four keys a thread, in one form, global (the table
+// and directory through the read-only path).  It takes its keys in two
+// layouts: flat, (N,) keys and weights (the whole-batch dedup); or the
+// slots of K9d (seg_sort.cu), (S, 8,192) keys and weights of which the
+// first counts[s] of row s are live: a block takes a row at a time and
+// its threads only the row's live groups of four, and rows past the count
+// are never read, so K1 -> K9d -> K3 needs no compaction between them.
+// Groups never straddle a row (8,192 is a multiple of four).  The
+// whole-table search it replaces took ~log2(M) dependent loads a key
+// (3.9x its bound at M = 2^24, PERF.md).  The slots carry no order across
+// rows, so neighbouring threads probe distant rows: on 40x reads at 2^24
+// the slots take ~1.2x the flat form's time for ~1.1x its keys, and
+// about half of either is global atomics (PERF.md).
 //
-// In:  keys (N,) int64 (INT64_MAX = invalid window, skipped); weights
-//      (N,) int64 (K3 only); table (M,) int64 sorted ascending (unique
-//      apart from trailing INT64_MAX rows), for K2 with its `live` rows
-//      and prefix directory; acc (M,) int64, incremented in place with
-//      atomicAdd on the unsigned 64-bit view (two's complement: the same
-//      add).
+// In:  keys (N,) or (S, 8192) int64 (INT64_MAX = invalid window,
+//      skipped); weights of the keys' shape, int64 (K3 only); counts (S,)
+//      int32 (K3's slots only); table (M,) int64 sorted ascending (unique
+//      apart from trailing INT64_MAX rows) with its `live` rows and prefix
+//      directory; acc (M,) int64, incremented in place with atomicAdd on
+//      the unsigned 64-bit view (two's complement: the same add).
 //
-// Bound: by bytes, the key stream (8 bytes a window for K2, 16 bytes a
-// distinct key for K3) plus 24 bytes for each table row hit (the key read,
-// the count read and written) is ~10-40 us per 32,768 x 152 bp batch at
-// 3.35 TB/s.  K2's whole-table search took ~log2(M) dependent loads a key
+// Bound: by bytes, the key stream (8 bytes a window for K2, a distinct
+// key for K3, plus K3's 8-byte weight of each key found) plus 24 bytes for
+// each table row hit (the key read, the count read and written) is ~2-40
+// us per 32,768 x 152 bp batch at 3.35 TB/s.  K2's whole-table search took ~log2(M) dependent loads a key
 // and ran 9-22x that bound; through the directory it takes 2-4.  Its
 // further cost on real data is atomic contention: coverage repeats a
 // k-mer in ~40 reads of a batch, and those adds serialise on one address.
@@ -37,8 +49,9 @@
 // copy, and a block flushes each nonzero count with one global atomic: at
 // most one global add per block and row instead of one per hit.  The global form
 // keeps one global atomic per hit.  K3 does one search and at most one
-// atomic per distinct key, so it trades that contention for the sort of
-// the batch in front of it.
+// atomic per distinct key of a segment (~1,090 of a 40x segment's 8,192
+// windows), so it trades that contention for the dedup in front of it;
+// a key repeated across segments adds once per segment.
 
 #include <atomic>
 #include <cstdint>
@@ -102,21 +115,69 @@ __global__ void __launch_bounds__(kdf::kDirGlobalThreads,
   tally_groups<true>(keys, n, vec, table, dir, bits, shift, acc);
 }
 
-// K3: one whole-table search a distinct key, its weight added.
-template <bool kStaged>
-__global__ void probe_tally_weighted_kernel(
+// K3's group g: keys [4 g, 4 g + 4) of those below `end` (sentinel
+// after: never read), each searched through the directory, a found key's
+// weight added.
+__device__ __forceinline__ void tally_weighted_group(
     const long long* __restrict__ keys, const long long* __restrict__ weights,
-    long long n, const long long* __restrict__ table, int m,
+    long long end, long long g, bool vec, const long long* __restrict__ table,
+    const int* __restrict__ dir, int bits, int shift,
     unsigned long long* __restrict__ acc) {
-  extern __shared__ long long staged[];
-  const long long* t = kdf::stage_table<kStaged>(table, m, staged);
+  long long q[kKeys];
+  int found[kKeys];
+  kdf::load_keys(keys, end, g, vec, q);
+  kdf::find_rows_dir<true>(table, dir, shift, bits, q, found);
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) {
+    if (found[j] >= 0) {
+      atomicAdd(acc + found[j], static_cast<unsigned long long>(
+                                    __ldg(weights + g * kKeys + j)));
+    }
+  }
+}
+
+// K3, flat: n keys, grid-stride over groups of four.
+__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
+                                  kdf::kDirGlobalBlocksPerSm)
+    probe_tally_weighted_flat(const long long* __restrict__ keys,
+                              const long long* __restrict__ weights,
+                              long long n, bool vec,
+                              const long long* __restrict__ table,
+                              const int* __restrict__ dir, int bits, int shift,
+                              unsigned long long* __restrict__ acc) {
+  const long long groups = (n + kKeys - 1) / kKeys;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       i < n; i += stride) {
-    const int row = kdf::find_row(t, m, keys[i]);
-    if (row < 0) continue;
-    atomicAdd(acc + row, static_cast<unsigned long long>(weights[i]));
+       g < groups; g += stride) {
+    tally_weighted_group(keys, weights, n, g, vec, table, dir, bits, shift,
+                         acc);
+  }
+}
+
+// K3 on K9d's slots: `rows` rows of 8,192, the first counts[s] of row s
+// live.  A block takes a row at a time (grid-stride over rows) and its
+// threads the row's live groups only, so no thread visits a dead slot.
+__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
+                                  kdf::kDirGlobalBlocksPerSm)
+    probe_tally_weighted_slots(const long long* __restrict__ keys,
+                               const long long* __restrict__ weights,
+                               const int* __restrict__ counts, long long rows,
+                               bool vec, const long long* __restrict__ table,
+                               const int* __restrict__ dir, int bits,
+                               int shift,
+                               unsigned long long* __restrict__ acc) {
+  constexpr int kRowBits = 13;  // 8,192 slots a row: whole groups of four
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long first = row << kRowBits;
+    // a count outside [0, 8,192] reads no slot of another row
+    const int live = min(max(__ldg(counts + row), 0), 1 << kRowBits);
+    const long long end = first + live;
+    for (long long g = first / kKeys + threadIdx.x; g * kKeys < end;
+         g += blockDim.x) {
+      tally_weighted_group(keys, weights, end, g, vec, table, dir, bits,
+                           shift, acc);
+    }
   }
 }
 
@@ -149,23 +210,37 @@ extern "C" int kdf_probe_tally(const void* keys, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 over n keys (flat: keys and weights (n,); slots, counts not null:
+// (n / 8,192, 8,192) with counts (n / 8,192,) int32) through the
+// table's directory.
 extern "C" int kdf_probe_tally_weighted(const void* keys, const void* weights,
-                                        long long n, const void* table, int m,
-                                        void* acc, void* stream) {
-  kdf::ProbeLaunch launch;
-  const cudaError_t err = kdf::probe_launch(n, m, &launch);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                                        const void* counts, long long n,
+                                        const void* table, const void* dir,
+                                        int bits, int shift, void* acc,
+                                        void* stream) {
   const auto* k = static_cast<const long long*>(keys);
   const auto* w = static_cast<const long long*>(weights);
+  const auto* c = static_cast<const int*>(counts);
   const auto* t = static_cast<const long long*>(table);
+  const auto* d = static_cast<const int*>(dir);
   auto* a = static_cast<unsigned long long*>(acc);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (launch.staged) {
-    probe_tally_weighted_kernel<true>
-        <<<launch.blocks, launch.threads, launch.smem, s>>>(k, w, n, t, m, a);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  unsigned blocks = 0;
+  if (c != nullptr) {
+    // a block a row, at most the global form's blocks
+    const long long rows = n / 8192;
+    const cudaError_t err =
+        kdf::global_probe_blocks(rows * kdf::kDirGlobalThreads, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    probe_tally_weighted_slots<<<blocks, kdf::kDirGlobalThreads, 0, s>>>(
+        k, w, c, rows, vec, t, d, bits, shift, a);
   } else {
-    probe_tally_weighted_kernel<false>
-        <<<launch.blocks, launch.threads, 0, s>>>(k, w, n, t, m, a);
+    const cudaError_t err =
+        kdf::global_probe_blocks((n + kKeys - 1) / kKeys, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    probe_tally_weighted_flat<<<blocks, kdf::kDirGlobalThreads, 0, s>>>(
+        k, w, n, vec, t, d, bits, shift, a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -166,23 +166,10 @@ __device__ __forceinline__ void find_rows_dir_wide(
 }
 
 // Launch shape of K7 and K8 over n query rows, row_keys<Q>() a thread
-// (grid-stride over groups): blocks of kDirGlobalThreads, at most
-// kDirGlobalBlocksPerSm an SM, as the global form of K2 and K4.
+// (grid-stride over groups): global_probe_blocks (sorted_table.cuh).
 template <int Q>
 inline cudaError_t wide_probe_blocks(long long n, unsigned* blocks) {
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
-  if (err != cudaSuccess) return err;
-  const long long groups = (n + row_keys<Q>() - 1) / row_keys<Q>();
-  const long long need = (groups + kDirGlobalThreads - 1) / kDirGlobalThreads;
-  const long long cap = static_cast<long long>(sms) * kDirGlobalBlocksPerSm;
-  *blocks = static_cast<unsigned>(need < cap ? need : cap);
-  return cudaSuccess;
+  return global_probe_blocks((n + row_keys<Q>() - 1) / row_keys<Q>(), blocks);
 }
 
 }  // namespace kdf

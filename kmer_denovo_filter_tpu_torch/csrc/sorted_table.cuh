@@ -13,12 +13,11 @@
 // HBM round trip, and the key stream behind them is a tenth of the time
 // (K2 ran 9-22x its bound on that search, PERF.md).
 //
-// K2 and K4 therefore search through a prefix directory (below): one
+// K2, K3 and K4 therefore search through a prefix directory (below): one
 // directory load, then a bounded search of one bucket of ~1-4 rows, two
 // to four round trips a key whatever M.  K7 and K8 search wide rows
 // through the same directory built over their limb 0 (sorted_rows.cuh),
-// with the global form's launch shape.  K3 keeps the whole-table search
-// (find_row, the 48 KB staging of probe_launch).
+// with the global form's launch shape (global_probe_blocks), as K3 does.
 //
 // Keys are right-aligned 2-bit k-mer values in [0, 2^62); INT64_MAX marks
 // an invalid window and is never found.  Tables are ascending and unique
@@ -34,76 +33,8 @@
 namespace kdf {
 
 constexpr long long kSentinel = 0x7FFFFFFFFFFFFFFFLL;
-constexpr int kSmemTableBytes = 48 * 1024;
-constexpr int kStagedThreads = 1024;
-constexpr int kStagedBlocksPerSm = 2;
-constexpr int kGlobalThreads = 256;
-constexpr int kGlobalBlocksPerSm = 8;
 
-// First row of t[0, m) not less than q (m when every row is less).
-__device__ __forceinline__ int lower_bound(const long long* t, int m,
-                                           long long q) {
-  int lo = 0;
-  int hi = m;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (t[mid] < q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// Row of live key q in t[0, m), or -1.
-__device__ __forceinline__ int find_row(const long long* t, int m,
-                                        long long q) {
-  if (q == kSentinel) return -1;
-  const int lo = lower_bound(t, m, q);
-  return lo < m && t[lo] == q ? lo : -1;
-}
-
-// Copies the table into the block's dynamic shared memory when kStaged;
-// returns the pointer the block searches.
-template <bool kStaged>
-__device__ __forceinline__ const long long* stage_table(
-    const long long* __restrict__ table, int m, long long* staged) {
-  if (!kStaged) return table;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) staged[j] = table[j];
-  __syncthreads();
-  return staged;
-}
-
-// Launch shape of K3's grid-stride probe over n queries: staged blocks
-// of 1,024 threads (2 per SM, so the staging is paid ~2 times per SM) or
-// global-memory blocks of 256 (8 per SM).
-struct ProbeLaunch {
-  bool staged;
-  unsigned blocks;
-  int threads;
-  size_t smem;
-};
-
-inline cudaError_t probe_launch(long long n, int m, ProbeLaunch* out) {
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const long long table_bytes = static_cast<long long>(m) * 8;
-  out->staged = table_bytes <= kSmemTableBytes;
-  out->threads = out->staged ? kStagedThreads : kGlobalThreads;
-  out->smem = out->staged ? static_cast<size_t>(table_bytes) : 0;
-  const long long need = (n + out->threads - 1) / out->threads;
-  const long long cap = static_cast<long long>(sms) *
-                        (out->staged ? kStagedBlocksPerSm : kGlobalBlocksPerSm);
-  out->blocks = static_cast<unsigned>(need < cap ? need : cap);
-  return cudaSuccess;
-}
-
-// ── The prefix directory (K2, K4; K7, K8 by limb 0) ───────────────────
+// ── The prefix directory (K2, K3, K4; K7, K8 by limb 0) ────────────────
 //
 // The table's live rows fall into 2^bits buckets by their top bits:
 // bucket p holds the rows whose key >> shift == p, where shift =
@@ -130,8 +61,8 @@ inline cudaError_t probe_launch(long long n, int m, ProbeLaunch* out) {
 // the shared memory that lets two blocks share an SM: (228 KB - 2 x 1 KB
 // reserved) / 2 = 115,712 bytes on an H100, i.e. live <= 10,367 for K4
 // and <= 6,207 for K2 (at bits 14 and 13); the kernels opt in to that
-// much dynamic shared memory.  K7 and K8 take the global form only
-// (probe_wide.cu).
+// much dynamic shared memory.  K3, K7 and K8 take the global form only
+// (probe_tally.cu, probe_wide.cu).
 //
 // A thread takes kKeys consecutive keys (16-byte loads) and runs their
 // searches interleaved, so their dependent loads overlap.  The two bounds
@@ -322,6 +253,24 @@ inline cudaError_t dir_probe_launch(long long n, int live, int bits,
   const long long cap =
       static_cast<long long>(sms) * (out->staged ? 2 : kDirGlobalBlocksPerSm);
   out->blocks = static_cast<unsigned>(need < cap ? need : cap);
+  return cudaSuccess;
+}
+
+// Blocks of kDirGlobalThreads for a grid-stride over *groups* (of kKeys
+// narrow keys, or of a wide probe's rows): at most kDirGlobalBlocksPerSm
+// an SM, the global form of K2 and K4, K3's only form.
+inline cudaError_t global_probe_blocks(long long groups, unsigned* blocks) {
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return err;
+  const long long need = (groups + kDirGlobalThreads - 1) / kDirGlobalThreads;
+  const long long cap = static_cast<long long>(sms) * kDirGlobalBlocksPerSm;
+  *blocks = static_cast<unsigned>(need < cap ? need : cap);
   return cudaSuccess;
 }
 

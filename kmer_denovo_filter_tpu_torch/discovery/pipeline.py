@@ -10,7 +10,8 @@ device work runs through the port's engine on an explicit
   the FASTA (K1 → device sort-count), into a device or host index;
 * Module 1 counts the child (K1 → device sort-count → host merge) and
   subtracts the reference (K4 membership);
-* Module 2 filters by the parents: K1 → batch dedup → K3 weighted tally;
+* Module 2 filters by the parents: K1 → K9d segment dedup → K3 weighted
+  tally on K9d's slots (k > 31: K1w → batch dedup → K7 weighted);
 * Modules 3–4 anchor the proband-unique k-mers in the child reads:
   groups of ``NB_JOIN_MEMBER`` batches, K1 → K4 in one pass per group.
 

@@ -17,7 +17,8 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.engine`, single device:
   a device sort-count per batch, host merge of the per-batch uniques;
 * :class:`FilteredCounter` (:473) — ``jellyfish count -C --if``: a
   per-table-row tally, K1 → K2 (VCF mode, :func:`make_filtered_counter`)
-  or K1 → batch dedup → K3 (discovery, :func:`make_parent_filter_counter`);
+  or K1 → K9d segment dedup → K3 (discovery,
+  :func:`make_parent_filter_counter`);
 * :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
   (:1065, :1242) — the anchoring scan, K1 → K4.
 
@@ -67,6 +68,7 @@ from kmer_denovo_filter_tpu_torch.ops.probe import (
     probe_tally_wide,
     probe_tally_weighted,
 )
+from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup
 
 logger = logging.getLogger(__name__)
 
@@ -125,16 +127,18 @@ def _rows(keys, index):
     return probe_rows(keys, index.table, index.directory)
 
 
-def _tally(keys, index, acc, weights=None):
+def _tally(keys, index, acc, weights=None, counts=None):
     """``acc += `` the tally of *keys* (weighted when *weights* is
-    given): K2 through the index's directory or K3, or K7 (both forms)
-    through it for a (M, Q) table."""
+    given, on K9d's slots when *counts* is): K2 or K3 through the
+    index's directory, or K7 (both forms) through it for a (M, Q)
+    table."""
     if index.table.dim() == 2:
         return probe_tally_wide(keys, index.table, acc, weights,
                                 index.directory)
     if weights is None:
         return probe_tally(keys, index.table, acc, index.directory)
-    return probe_tally_weighted(keys, weights, index.table, acc)
+    return probe_tally_weighted(keys, weights, index.table, acc,
+                                index.directory, counts)
 
 
 class KmerIndex:
@@ -414,10 +418,14 @@ class FilteredCounter:
     PLACE (the JAX counter rebinds a new array each step):
 
     * plain (``dedup=False``): K1 window keys → K2, one probe per window;
-    * dedup-first (``dedup=True``): K1 → :func:`~.ops.device.dedup_windows`
-      (sort + run-length count of the batch) → K3, one probe and one
-      weighted add per distinct key — the reference's large-table branch
-      with dedup on (engine.py:484–504, ``join_tally_step_dedup``).
+    * dedup-first (``dedup=True``): K1 → K9d
+      (:func:`~.ops.segsort.seg_dedup`: each 8,192-window segment's
+      distinct keys and multiplicities, left in its slot) → K3 on those
+      slots, one probe and one weighted add per distinct key of a
+      segment, with no host sync between them — the reference's
+      large-table branch with dedup on (engine.py:484–504,
+      ``join_tally_step_dedup``: ``_dedup_compact`` over 8,192-row local
+      chunks, then the weighted tally).
 
     For k > 31 the same forms run K1w → K7 unweighted (the reference's
     ``join_tally_flat_wide``) and K1w →
@@ -438,13 +446,14 @@ class FilteredCounter:
         if win is None:
             return
         flat = win.flatten(0, 1)
-        if self.dedup:
-            dedup = (dev.dedup_windows_wide if flat.dim() == 2
-                     else dev.dedup_windows)
-            keys, weights = dedup(flat)
+        if not self.dedup:
+            _tally(flat, self.index, self.acc)
+        elif flat.dim() == 2:
+            keys, weights = dev.dedup_windows_wide(flat)
             _tally(keys, self.index, self.acc, weights)
         else:
-            _tally(flat, self.index, self.acc)
+            keys, weights, counts = seg_dedup(flat)
+            _tally(keys, self.index, self.acc, weights, counts)
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""

@@ -1,5 +1,5 @@
-"""K1, K1w, K2, K3, K4, K7 and K8 of one checkout, each read three ways
-on the card:
+"""K1, K1w, K2, K3, K4, K7, K8 and K9d of one checkout, each read three
+ways on the card:
 
 * ``device``: ``ops.timing.timings``' first reading, the calls queued
   behind a spin, the timer of ``chip_smoke.py`` and the experiments;
@@ -13,9 +13,15 @@ The shapes are those of ``chip_smoke.py`` phases 3, 3p and 3w: 32,768
 random reads of 152 bp (256 at k = 201) with ~0.5 % N and 10 % ragged
 lengths, tables of 4,096 keys half drawn from the batch, and one
 (1, 2**20) row; K2, K3 and K4 at k = 31 also at 262,144, 2**20 and
-2**24 keys, K4 also on a stacked group of 8 x 4,096 reads, K2 and K4
-also on one 40x-coverage batch (the 3s batch) with tables half drawn
-from its keys; K7 (unweighted, and weighted on the batch dedup) and K8
+2**24 keys, K4 also on a stacked group of 8 x 4,096 reads, K2, K3 and
+K4 also on one 40x-coverage batch (the 3s batch) with tables half drawn
+from its keys.  K3 is read on the batch's whole dedup (``flat``) and,
+where the checkout's K3 takes them, on K9d's slots (``slots``); K9d on
+both batches; and the step from K1's keys to the tally at
+2**24 keys in every form the checkout has: K1 -> K2, K1 -> whole-batch
+dedup -> K3, K1 -> K9d -> K3 on the slots, or the older K1 -> K9d ->
+compaction -> global sort -> K3 (``dedup_segments``).  K7 (unweighted,
+and weighted on the batch dedup) and K8
 (found bytes, rows) at k = 63 on 2,048, 4,096, 262,144 and 2**24 rows
 and at k = 201 on 1,024, 4,096 and 2**22, half drawn from the batch
 (2,048 and 1,024 rows are tables that a form staging them in shared
@@ -28,7 +34,10 @@ always the one beside this file, whatever checkout's kernels it times,
 so two checkouts compare under one timer::
 
     python kmer_denovo_filter_tpu_torch/experiments/timer_ab.py \\
-        [--root CHECKOUT] [--tag NAME]
+        [--root CHECKOUT] [--tag NAME] [--kernels K1,K3,...]
+
+``--kernels`` keeps only the named groups (K1, K1w, K2, K3, K4, K7, K8,
+K9d, step, dir; default all).
 
 Run it as a file: *CHECKOUT* (default: the one that holds this file) goes
 first on ``sys.path`` and its package is imported.  Every output is
@@ -50,6 +59,8 @@ B, L, L_K201, ROW, M, REPS = 32768, 152, 256, 1 << 20, 4096, 20
 PROBE_MS = (4096, 262144, 1 << 20, 1 << 24)
 WIDE_MS = {63: (2048, 4096, 262144, 1 << 24), 201: (1024, 4096, 1 << 22)}
 GROUP, GROUP_B = 8, 4096
+GROUPS = ("K1", "K1w", "K2", "K3", "K4", "K7", "K8", "K9d", "step", "dir")
+STEP_M = 1 << 24
 
 
 def load_timing():
@@ -99,17 +110,31 @@ def random_batch(rng, length):
     return codes, lengths
 
 
+def compact(keys, weights, counts):
+    """The first counts[s] of each row of K9d's (S, 8192) slots, as one
+    stream of keys and one of weights (a checkout may predate
+    ``device.segment_compact``)."""
+    live = (torch.arange(keys.shape[1], device=keys.device)[None, :]
+            < counts[:, None])
+    return keys[live], weights[live]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="timer_ab")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--kernels", default=",".join(GROUPS))
     args = ap.parse_args(argv)
+    wanted = set(args.kernels.split(","))
+    if not wanted <= set(GROUPS):
+        sys.exit(f"timer_ab: --kernels takes {','.join(GROUPS)}")
     if not torch.cuda.is_available():
         sys.exit("timer_ab: needs a CUDA GPU")
     sys.path.insert(0, os.path.abspath(args.root))
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    from kmer_denovo_filter_tpu_torch.ops import segsort
     try:
         from kmer_denovo_filter_tpu_torch.ops import directory as tdir
     except ImportError:  # a checkout from before the prefix directory
@@ -123,6 +148,8 @@ def main(argv=None):
     rows = []
 
     def time_it(name, shape, fn):
+        if name.split()[0] not in wanted:
+            return
         device_ms, loop_ms = timing.timings(fn, REPS)
         prof_ms = profiler_ms(fn, REPS)
         rows.append({"kernel": name, "shape": shape, "device_ms": device_ms,
@@ -221,34 +248,103 @@ def main(argv=None):
         """(directory,) for K2/K4 where the checkout has one, else ()."""
         return () if tdir is None else (tdir.build_directory(table),)
 
-    def probes(label, flat, group):
-        """K2, K3 and K4 at k = 31 on *flat* (and K4 on *group*) at each
-        of PROBE_MS table keys."""
+    # what the checkout's K3 takes (older checkouts: K3 searches the
+    # whole table, flat keys only)
+    k3_params = inspect.signature(probe.probe_tally_weighted).parameters
+    k3_dir, k3_slots = "directory" in k3_params, "counts" in k3_params
+
+    def k3_args(d, counts=None):
+        """The trailing arguments of the checkout's K3."""
+        return ((d,) if k3_dir else ()) + (() if counts is None
+                                           else (counts,))
+
+    def k9d(label, flat):
+        """K9d on *flat*, checked against its plain version."""
+        ref = dev.segment_runs(segsort.segments(flat, keys64.SENTINEL))
+        got = segsort.seg_dedup(flat)
+        check(f"K9d {label} counts", got[2], ref[2])
+        for g, w in zip(compact(*got), compact(*ref)):
+            check(f"K9d {label} rows", g, w)
+        time_it("K9d", f"k=31 {label}", lambda: segsort.seg_dedup(flat))
+
+    def probes(label, codes, lengths, flat, group):
+        """K2, K3 (flat and slots) and K4 at k = 31 on *flat* (and K4 on
+        *group*) at each of PROBE_MS table keys; K9d on *flat*; the step
+        from *codes* to the tally at STEP_M keys."""
         uniq, weights = dev.dedup_windows(flat)
-        for m in PROBE_MS:
+        slots = segsort.seg_dedup(flat) if k3_slots else None
+        for m in PROBE_MS if wanted & {"K2", "K3", "K4", "step"} else ():
+            if m != STEP_M and not wanted & {"K2", "K3", "K4"}:
+                continue
             table = table_of(flat, 31, m)
             dargs = directory_args(table)
             acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
+            ref = dev.small_table_tally(table, flat)
             probe.probe_tally(flat, table, acc, *dargs)
-            check(f"K2 {label} M={m}", acc, dev.small_table_tally(table, flat))
+            check(f"K2 {label} M={m}", acc, ref)
             shape = f"k=31 M={m} {label}"
             time_it("K2", shape,
                     lambda: probe.probe_tally(flat, table, acc, *dargs))
             for form, keys in (("batch", flat), ("group", group)):
-                if keys is None:
+                if keys is None or "K4" not in wanted:
                     continue
                 check(f"K4 {form} {label} M={m}",
                       member.probe_member(keys, table, *dargs),
                       dev.member(table, keys))
                 time_it(f"K4 {form}", shape,
                         lambda: member.probe_member(keys, table, *dargs))
-            if group is not None:
-                acc = torch.zeros_like(acc)
-                probe.probe_tally_weighted(uniq, weights, table, acc)
-                check(f"K3 M={m}", acc, dev.small_table_tally(table, flat))
-                time_it("K3", shape, lambda: probe.probe_tally_weighted(
-                    uniq, weights, table, acc))
-            del table, acc, dargs
+            d = dargs[0] if dargs else None
+            acc = torch.zeros_like(acc)
+            probe.probe_tally_weighted(uniq, weights, table, acc,
+                                       *k3_args(d))
+            check(f"K3 flat {label} M={m}", acc, ref)
+            time_it("K3 flat", shape, lambda: probe.probe_tally_weighted(
+                uniq, weights, table, acc, *k3_args(d)))
+            if slots is not None:
+                acc.zero_()
+                probe.probe_tally_weighted(slots[0], slots[1], table, acc,
+                                           *k3_args(d, slots[2]))
+                check(f"K3 slots {label} M={m}", acc, ref)
+                time_it("K3 slots", shape, lambda: probe.probe_tally_weighted(
+                    slots[0], slots[1], table, acc, *k3_args(d, slots[2])))
+            if m == STEP_M and "step" in wanted:
+                steps(label, codes, lengths, table, dargs, ref)
+            del table, acc, dargs, ref, d
+        if "K9d" in wanted:
+            k9d(label, flat)
+
+    def steps(label, codes, lengths, table, dargs, ref):
+        """K1's keys to the tally in each form the checkout has, checked
+        against *ref*."""
+        d = dargs[0] if dargs else None
+
+        def keys():
+            return extract.extract_canonical(codes, lengths, 31).reshape(-1)
+
+        forms = {
+            "K1->K2": lambda acc: probe.probe_tally(keys(), table, acc,
+                                                    *dargs),
+            "K1->dedup->K3": lambda acc: probe.probe_tally_weighted(
+                *dev.dedup_windows(keys()), table, acc, *k3_args(d)),
+        }
+
+        def slots_step(acc):
+            s_keys, s_weights, s_counts = segsort.seg_dedup(keys())
+            return probe.probe_tally_weighted(s_keys, s_weights, table, acc,
+                                              *k3_args(d, s_counts))
+
+        if k3_slots:
+            forms["K1->K9d->K3"] = slots_step
+        elif hasattr(segsort, "dedup_segments"):
+            forms["K1->K9d->sort->K3"] = lambda acc: (
+                probe.probe_tally_weighted(*segsort.dedup_segments(keys()),
+                                           table, acc, *k3_args(d)))
+        for name, step in forms.items():
+            acc = torch.zeros_like(ref)
+            step(acc)
+            check(f"step {name} {label}", acc, ref)
+            time_it("step", f"{name} M={table.shape[0]} {label}",
+                    lambda: step(acc))
 
     rng = np.random.default_rng(0)
     batches = {}
@@ -261,7 +357,11 @@ def main(argv=None):
     row = (torch.from_numpy(row_np).to(cuda),
            torch.tensor([ROW], dtype=torch.int32, device=cuda))
 
+    narrow = {"K1", "K2", "K3", "K4", "K9d", "step"}
+    wide = {"K1w", "K7", "K8", "dir"}
     for k in (31, 33, 63, 127, 151, 201):
+        if not wanted & (narrow if k <= 31 else wide):
+            continue
         codes, lengths = batches[L_K201 if k == 201 else L]
         if k <= 31:
             name, kernel = "K1", extract.extract_canonical
@@ -286,15 +386,17 @@ def main(argv=None):
                 lengths[i * GROUP_B:(i + 1) * GROUP_B].clamp(max=L - 8 * i)
                 for i in range(GROUP)])
             group = kernel(group_codes, group_lengths, k).reshape(-1)
-            probes("random", got.reshape(-1), group)
+            probes("random", codes, lengths, got.reshape(-1), group)
         if k in WIDE_MS:
             wide_probes(k, got.flatten(0, 1))
     rng_40x = np.random.default_rng(4)
     genome = rng_40x.integers(0, 4, 4 << 20, dtype=np.uint8)
     codes = torch.from_numpy(synth_reads(rng_40x, genome, B, L)).to(cuda)
-    probes("40x", extract.extract_canonical(
-        codes, torch.full((B,), L, dtype=torch.int32, device=cuda),
-        31).reshape(-1), None)
+    lengths = torch.full((B,), L, dtype=torch.int32, device=cuda)
+    if wanted & narrow:
+        probes("40x", codes, lengths,
+               extract.extract_canonical(codes, lengths, 31).reshape(-1),
+               None)
     print(json.dumps({"timer_ab": args.tag, "rows": rows}), flush=True)
 
 

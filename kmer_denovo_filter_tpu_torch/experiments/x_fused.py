@@ -5,7 +5,9 @@ port's kernels.
         <command> [--device cuda|cpu] [--reps N]
 
 The JAX script asks whether a segment-local dedup in front of the
-global sort and the join pays; these commands ask it on the card:
+global sort and the join pays; these commands ask it on the card, where
+the port's join (K3) reads the segment dedup's slots with no global
+sort:
 
 * ``sort``: K9 (``csrc/seg_sort.cu``, the counterpart of the Pallas
   ``_sort_kernel`` :133) against ``torch.sort(dim=1)`` with the payload
@@ -13,8 +15,8 @@ global sort and the join pays; these commands ask it on the card:
   Parity as in ``run_sort`` :183: keys equal, and each segment's
   multiset of (key, payload) pairs equal.
 * ``prof``: the cumulative-prefix profile of ``run_prof`` :291 on the
-  port's segment-form step: K1 / +K9 / +compaction (K9d in place of K9)
-  / +global sort / +K3, on the WGS-scale table.
+  port's segment-form step: K1 / +K9 / +K9d (in place of K9) / +K3 on
+  K9d's slots, on the WGS-scale table.
 * ``transposed`` and ``unroll2``: the Pallas ``_tally_kernel_wT`` :480
   and ``_tally_kernel_w2`` :389 are two more TPU layouts of the v5
   prototype's weighted tally, so both run the ``x_join_variants v5``
@@ -41,6 +43,7 @@ from kmer_denovo_filter_tpu_torch.experiments._common import (
 )
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import segsort
+from kmer_denovo_filter_tpu_torch.ops.directory import build_directory
 from kmer_denovo_filter_tpu_torch.ops.extract import extract_canonical
 from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
 from kmer_denovo_filter_tpu_torch.ops.probe import (
@@ -50,8 +53,7 @@ from kmer_denovo_filter_tpu_torch.ops.probe import (
 
 COMMANDS = ("sort", "prof", "transposed", "unroll2")
 V5_LAYOUTS = ("transposed", "unroll2")  # the commands that run v5
-PREFIXES = ("K1", "+K9 seg sort", "+compaction (K9d for K9)",
-            "+global sort", "+K3 (full)")
+PREFIXES = ("K1", "+K9 seg sort", "+K9d (for K9)", "+K3 on the slots")
 
 
 def pair_order(keys, payload):
@@ -92,29 +94,28 @@ def run_prof(args, device, rng, genome):
     """Cumulative prefixes of the segment-form step on one batch; only
     differences inside one run attribute cost."""
     table = wgs_table(rng, genome, args.table_m, device)
+    directory = build_directory(table)  # once per table, as KmerIndex
     acc = torch.zeros(table.shape[0], dtype=torch.int64, device=device)
     codes, lengths = read_batch(rng, genome, args.reads, device)
     print(f"prof: table M={table.shape[0]}, {args.reads} reads", flush=True)
 
     def step(stage, acc):
-        """The step cut after prefix *stage* (4: the whole step)."""
+        """The step cut after prefix *stage* (3: the whole step)."""
         flat = extract_canonical(codes, lengths, K).reshape(-1)
         if stage == 1:
             segsort.seg_sort(flat)
         if stage < 2:
             return
-        raw = segsort.seg_dedup(flat)
-        if stage == 2:
-            return
-        keys, weights = segsort.compact(*raw)
-        keys, order = torch.sort(keys)
-        if stage == 4:
-            probe_tally_weighted(keys, weights[order], table, acc)
+        keys, weights, counts = segsort.seg_dedup(flat)
+        if stage == 3:
+            probe_tally_weighted(keys, weights, table, acc, directory,
+                                 counts)
 
     got = torch.zeros_like(acc)
-    step(4, got)
+    step(3, got)
     ref = torch.zeros_like(acc)
-    probe_tally(extract_canonical(codes, lengths, K).reshape(-1), table, ref)
+    probe_tally(extract_canonical(codes, lengths, K).reshape(-1), table, ref,
+                directory)
     parity("segment-form step vs K1 -> K2", torch.equal(got, ref))
     del got, ref
     prev = None

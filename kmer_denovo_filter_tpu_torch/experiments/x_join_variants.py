@@ -12,9 +12,10 @@ The JAX script's Pallas kernels and what stands for each here:
   on the card: K1 -> K2 on the raw windows against K1 -> ``torch.sort``
   -> K2 on the sorted windows, at the WGS table size.
 * ``_tally_kernel_w`` (:782, the v5 prototype of the weighted tally):
-  ``v5`` runs :class:`SegmentDedupCounter`, K1 -> K9d -> sort -> K3,
-  interleaved with the engine's two parent-filter forms on the same
-  batches, all three exact against each other.
+  ``v5`` runs :class:`SegmentDedupCounter`, K1 -> K9d -> K3 on K9d's
+  slots, interleaved with K1 -> K2 and :class:`BatchDedupCounter`
+  (K1 -> a whole-batch ``torch.unique`` -> K3) on the same batches, all
+  three exact against each other.
 * the ``extract_mixed`` variants ``extract_v2p`` (:1169), ``extract_v3``
   (:1306) and the stage kernels of ``_make_extract_stage`` (:1449): K1.
   ``xextract`` and ``xextract3`` hold K1 against its plain version and
@@ -48,7 +49,6 @@ from kmer_denovo_filter_tpu_torch.experiments._common import (
 )
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
-from kmer_denovo_filter_tpu_torch.ops import segsort
 from kmer_denovo_filter_tpu_torch.ops.directory import build_directory
 from kmer_denovo_filter_tpu_torch.ops.extract import (
     extract_canonical,
@@ -67,10 +67,10 @@ STAGES = ("load + pack", "+forward extract", "+reverse complement",
 class SegmentDedupCounter(eng.FilteredCounter):
     """The parent filter in the segment form of the v5 prototype
     (``scripts/x_join_variants.py:join_tally_step_v5`` :946): K1 window
-    keys -> K9d (segment-local sort and run-length compaction) -> one
-    dense stream sorted by ``torch.sort`` -> K3.  The same int64
-    accumulator as :class:`~kmer_denovo_filter_tpu_torch.engine.
-    FilteredCounter`; k <= 31 only."""
+    keys -> K9d (each 8,192-window segment's distinct keys and their
+    multiplicities, left in its slot) -> K3 on the slots, through the
+    index's directory: the engine's dedup form at k <= 31, which it
+    runs."""
 
     def __init__(self, index):
         if index.k > keys64.NARROW_K:
@@ -78,13 +78,20 @@ class SegmentDedupCounter(eng.FilteredCounter):
                              f"{keys64.NARROW_K}, got k={index.k}")
         super().__init__(index, dedup=True)
 
+
+class BatchDedupCounter(SegmentDedupCounter):
+    """The parent filter with a whole-batch dedup: K1 -> ``torch.unique``
+    (:func:`~kmer_denovo_filter_tpu_torch.ops.device.dedup_windows`, a
+    host sync) -> K3 on the flat (key, weight) stream; k <= 31 only."""
+
     def feed(self, codes, lengths):
         win = eng._window_keys(codes, lengths, self.index.k,
                                self.index.device)
         if win is None:
             return
-        keys, weights = segsort.dedup_segments(win.reshape(-1))
-        probe_tally_weighted(keys, weights, self.index.table, self.acc)
+        keys, weights = dev.dedup_windows(win.reshape(-1))
+        probe_tally_weighted(keys, weights, self.index.table, self.acc,
+                             self.index.directory)
 
 
 def _sync(device):
@@ -104,8 +111,8 @@ def run_v5(args, device, rng, genome):
     n_reads = args.reads * len(batches)
     forms = {
         "K1->K2": lambda: eng.FilteredCounter(index),
-        "K1->dedup->K3": lambda: eng.FilteredCounter(index, dedup=True),
-        "K1->K9d->sort->K3": lambda: SegmentDedupCounter(index),
+        "K1->dedup->K3": lambda: BatchDedupCounter(index),
+        "K1->K9d->K3": lambda: SegmentDedupCounter(index),
     }
     print(f"v5: table M={index.n}, {len(batches)} batches x {args.reads} "
           f"reads x {READ_LEN} bp", flush=True)

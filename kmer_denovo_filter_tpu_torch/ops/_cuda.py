@@ -113,7 +113,7 @@ def lib():
             so.kdf_extract_canonical.restype = i32
             so.kdf_seg_sort.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
             so.kdf_seg_sort.restype = i32
-            so.kdf_seg_dedup.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
+            so.kdf_seg_dedup.argtypes = [ptr, i64, ptr, ptr, ptr, ptr]
             so.kdf_seg_dedup.restype = i32
             so.kdf_build_directory.argtypes = [ptr, i32, i32, i32, i32, ptr,
                                                ptr]
@@ -121,8 +121,8 @@ def lib():
             so.kdf_probe_tally.argtypes = [ptr, i64, ptr, i32, ptr, i32, i32,
                                            ptr, ptr]
             so.kdf_probe_tally.restype = i32
-            so.kdf_probe_tally_weighted.argtypes = [ptr, ptr, i64, ptr, i32,
-                                                    ptr, ptr]
+            so.kdf_probe_tally_weighted.argtypes = [ptr, ptr, ptr, i64, ptr,
+                                                    ptr, i32, i32, ptr, ptr]
             so.kdf_probe_tally_weighted.restype = i32
             so.kdf_probe_member.argtypes = [ptr, i64, ptr, i32, ptr, i32, i32,
                                             ptr, ptr, ptr]

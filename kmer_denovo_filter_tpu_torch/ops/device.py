@@ -92,12 +92,13 @@ def sort_count(flat):
 
 
 def dedup_windows(flat):
-    """The batch dedup in front of the weighted tally: distinct keys of
-    a flat (N,) int64 window stream, ascending (a sentinel row, if any,
-    last), with int64 multiplicities as weights.  The int64 counterpart
-    of the JAX dedup-first front half (``pallas_join._dedup_compact``),
-    over the whole batch instead of 8,192-row local chunks (kernel K9d,
-    ``segsort.seg_dedup``, is the segment-local form)."""
+    """A whole-batch dedup in front of the weighted tally: distinct keys
+    of a flat (N,) int64 window stream, ascending (a sentinel row, if
+    any, last), with int64 multiplicities as weights.  The int64
+    counterpart of the JAX dedup-first front half
+    (``pallas_join._dedup_compact``), over the whole batch instead of
+    8,192-row local chunks (kernel K9d, ``segsort.seg_dedup``, is the
+    segment-local form the engine runs at k <= 31)."""
     return torch.unique(flat, sorted=True, return_counts=True)
 
 
@@ -132,6 +133,17 @@ def segment_runs(keys):
     return out_keys, out_weights, counts.to(torch.int32)
 
 
+def segment_compact(keys, weights, counts):
+    """The first counts[s] rows of each row s of (S, 8192) *keys* and
+    *weights* (kernel K9d's slots), as one (U,) stream of keys and one
+    of weights, in row order.  On the card the boolean gather reads the
+    total back to the host (a sync); kernel K3 reads the slots in place
+    and needs none of it."""
+    live = (torch.arange(keys.shape[1], device=keys.device)[None, :]
+            < counts[:, None])
+    return keys[live], weights[live]
+
+
 def _locate(table, keys):
     """Lower-bound row of each key in the sorted *table* (clamped) and
     whether the key is a live key found there."""
@@ -143,7 +155,8 @@ def weighted_tally(table, keys, weights, acc):
     """``acc[j] += sum(weights[i] : keys[i] == table[j])``, in place;
     returns *acc*.  *table*: (M,) int64 sorted (trailing sentinel rows
     allowed; they stay 0); *keys*, *weights*: (N,) int64; *acc*: (M,)
-    int64.  The plain version of kernel K3."""
+    int64.  The plain version of kernel K3 (of its slots form after
+    :func:`segment_compact`)."""
     if table.shape[0] == 0 or keys.numel() == 0:
         return acc
     idx, hit = _locate(table, keys)

@@ -12,12 +12,13 @@ on its global-memory branch it computes what that kernel computes.
 K3 (``probe_tally_weighted``) is the counterpart of the weighted tile
 join ``pallas_join._tally_kernel_w`` (:679, via ``join_tally_step_dedup``
 :808 and ``join_tally_superbatch_dedup`` :915): the tally of a batch's
-compacted (key, weight) stream.
+deduplicated (key, weight) stream, flat or as kernel K9d's per-segment
+slots (``segsort.seg_dedup``) read in place.
 
-Both kernels are in ``csrc/probe_tally.cu``.  K2 searches through the
+Both kernels are in ``csrc/probe_tally.cu``.  Both search through the
 table's prefix directory (:mod:`.directory`), which a caller builds once
 per table and passes in (``KmerIndex`` does); without one the wrapper
-builds it.  K3 searches the whole table.
+builds it.
 
 K7 (``probe_tally_wide``) is the counterpart of the wide tile join
 ``pallas_join._tally_kernel_wide`` (:1905) in both its forms: unweighted
@@ -36,6 +37,7 @@ from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops.keys import MAX_K, limbs_per_kmer
+from kmer_denovo_filter_tpu_torch.ops.segsort import SEGMENT
 
 # CUDA kernel launches since import (or since a caller reset them to 0)
 launches = 0                # K2
@@ -106,25 +108,53 @@ def probe_tally(keys, table, acc, directory=None):
     return acc
 
 
-def probe_tally_weighted(keys, weights, table, acc):
+def probe_tally_weighted(keys, weights, table, acc, directory=None,
+                         counts=None):
     """``acc[j] += sum(weights[i] : keys[i] == table[j])``, in place;
     returns *acc*.
 
-    *keys*, *weights*: (N,) int64, normally the distinct keys of a batch
-    and their multiplicities (:func:`.device.dedup_windows`); sentinel
-    keys are skipped.  *table*, *acc* as for :func:`probe_tally`.  A
-    CUDA tensor launches kernel K3; a CPU tensor runs the plain version.
+    *keys*, *weights*: (N,) int64, a batch's distinct keys and their
+    multiplicities (:func:`.device.dedup_windows`); or, with *counts*,
+    kernel K9d's (S, 8192) slots and (S,) int32 counts
+    (:func:`.segsort.seg_dedup`), of which only the first counts[s] of
+    row s are read.  Sentinel keys are skipped.  *table*, *acc* and
+    *directory* as for :func:`probe_tally`.  A CUDA tensor launches
+    kernel K3 (building the directory first when none is given); a CPU
+    tensor runs the plain version, which needs no directory.
     """
     global weighted_launches
-    if check_probe_args(keys, table, [("weights", weights, keys.shape),
-                                      ("acc", acc, table.shape)]) == "cpu":
+    flat_keys, flat_weights = keys, weights
+    if counts is not None:
+        if (keys.dim() != 2 or keys.shape[1] != SEGMENT
+                or counts.shape != keys.shape[:1]
+                or counts.dtype != torch.int32
+                or counts.device != keys.device):
+            raise ValueError(
+                f"expected (S, {SEGMENT}) slots and (S,) int32 counts on "
+                f"their device, got {tuple(keys.shape)} and "
+                f"{tuple(counts.shape)} {counts.dtype}")
+        if weights.shape != keys.shape:
+            raise ValueError(f"expected weights of shape {tuple(keys.shape)},"
+                             f" got {tuple(weights.shape)}")
+        flat_keys, flat_weights = keys.reshape(-1), weights.reshape(-1)
+    kind = check_probe_args(flat_keys, table,
+                            [("weights", flat_weights, flat_keys.shape),
+                             ("acc", acc, table.shape)])
+    if kind == "cuda" and counts is not None and not counts.is_contiguous():
+        raise ValueError("probe tensors must be contiguous")
+    if kind == "cpu":
+        if counts is not None:
+            keys, weights = dev.segment_compact(keys, weights, counts)
         return dev.weighted_tally(table, keys, weights, acc)
-    n, m = keys.shape[0], table.shape[0]
+    n, m = flat_keys.shape[0], table.shape[0]
     if n == 0 or m == 0:
         return acc
+    d = tdir.directory_for(table, directory)
     with torch.cuda.device(keys.device):
         err = _cuda.lib().kdf_probe_tally_weighted(
-            keys.data_ptr(), weights.data_ptr(), n, table.data_ptr(), m,
+            flat_keys.data_ptr(), flat_weights.data_ptr(),
+            None if counts is None else counts.data_ptr(), n,
+            table.data_ptr(), d.offsets.data_ptr(), d.bits, d.shift,
             acc.data_ptr(), _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally_weighted")
     weighted_launches += 1

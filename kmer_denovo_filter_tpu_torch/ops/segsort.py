@@ -6,16 +6,18 @@ K9 (``seg_sort``) is the counterpart of the Pallas kernel
 an in-VMEM bitonic sort of each 8,192-row segment with one payload
 riding along.  K9d (``seg_dedup``) is the counterpart of
 ``kmer_denovo_filter_tpu/ops/pallas_join.py:_dedup_compact`` (:600), the
-XLA front half of the dedup-first tally: that sort, then each segment's
-distinct keys with their run lengths.  :func:`dedup_segments` gathers
-K9d's rows into one stream and sorts it, the input of kernel K3
-(``probe.probe_tally_weighted``).  Both CUDA kernels are in
+XLA front half of the dedup-first tally: each segment's distinct keys
+with their multiplicities, left in the segment's slot.  Kernel K3
+(``probe.probe_tally_weighted``) reads those slots as they stand, so
+the engine's dedup form at k <= 31 is K1 -> K9d -> K3 with no
+compaction and no host sync between them.  Both CUDA kernels are in
 ``csrc/seg_sort.cu``.
 
-The stream is cut into segments of :data:`SEGMENT` rows after padding
-it with :data:`~.keys.SENTINEL` keys, as the JAX dedup pads its stream
-with the all-ones word (pallas_join.py:823).  CPU tensors take the
-plain versions in :mod:`.device` (``segment_sort``, ``segment_runs``).
+The stream is cut into segments of :data:`SEGMENT` rows, its tail padded
+with :data:`~.keys.SENTINEL` keys, as the JAX dedup pads its stream with
+the all-ones word (pallas_join.py:823); K9d reads the tail's padding as
+sentinels without a padded copy.  CPU tensors take the plain versions in
+:mod:`.device` (``segment_sort``, ``segment_runs``).
 """
 
 import torch
@@ -89,49 +91,28 @@ def seg_dedup(flat):
     """Segment-local dedup of the (N,) int64 stream *flat*.
 
     Returns ``(keys, weights, counts)``: (S, 8192) int64 keys and
-    weights and (S,) int32 counts.  Row s begins with the counts[s]
-    distinct live keys of segment s, ascending, and their multiplicities;
-    sentinel keys form no run.  What follows in a row is unspecified (the
-    kernel leaves it unwritten).  A CUDA tensor launches kernel K9d; a
-    CPU tensor runs the plain version.
+    weights and (S,) int32 counts, S = ceil(N / 8192).  Row s begins
+    with the counts[s] distinct live keys of segment s, ascending, and
+    their multiplicities; sentinel keys form no run.  What follows in a
+    row is unspecified (the kernel leaves it unwritten).  A CUDA tensor
+    launches kernel K9d; a CPU tensor runs the plain version.
     """
     global dedup_launches
-    kind = _check(flat)
-    keys = segments(flat, SENTINEL)
-    if kind == "cpu":
-        return dev.segment_runs(keys)
-    keys_out = torch.empty_like(keys)
+    if _check(flat) == "cpu":
+        return dev.segment_runs(segments(flat, SENTINEL))
+    n = flat.shape[0]
+    n_seg = -(-n // SEGMENT)
+    keys = torch.empty((n_seg, SEGMENT), dtype=torch.int64,
+                       device=flat.device)
     weights = torch.empty_like(keys)
-    counts = torch.empty(keys.shape[0], dtype=torch.int32,
-                         device=flat.device)
-    if keys.shape[0] == 0:
-        return keys_out, weights, counts
+    counts = torch.empty(n_seg, dtype=torch.int32, device=flat.device)
+    if n_seg == 0:
+        return keys, weights, counts
+    flat = flat.contiguous()
     with torch.cuda.device(flat.device):
         err = _cuda.lib().kdf_seg_dedup(
-            keys.data_ptr(), keys_out.data_ptr(), weights.data_ptr(),
-            counts.data_ptr(), keys.shape[0], _cuda.stream_of(flat))
+            flat.data_ptr(), n, keys.data_ptr(), weights.data_ptr(),
+            counts.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "seg_dedup")
     dedup_launches += 1
-    return keys_out, weights, counts
-
-
-def compact(keys, weights, counts):
-    """The first counts[s] rows of each segment of :func:`seg_dedup`'s
-    output, as one (U,) stream of keys and one of weights, in segment
-    order.  The boolean gather reads the total count back to the host:
-    one synchronisation per batch, as ``torch.unique`` in
-    :func:`.device.dedup_windows` makes one."""
-    mask = (torch.arange(SEGMENT, device=keys.device)[None, :]
-            < counts[:, None])
-    return keys[mask], weights[mask]
-
-
-def dedup_segments(flat):
-    """The segment-local dedup of the (N,) int64 stream *flat* as one
-    (keys, weights) stream sorted by key: K9d, :func:`compact`, then a
-    global ``torch.sort``.  A key repeated in several segments stays
-    one row per segment; kernel K3 adds their weights exactly.  Sentinel
-    keys are dropped, so the weights sum to the live windows."""
-    keys, weights = compact(*seg_dedup(flat))
-    keys, order = torch.sort(keys)
-    return keys, weights[order]
+    return keys, weights, counts

@@ -1,6 +1,7 @@
 """Port FilteredCounter vs the JAX FilteredCounter and the host k-mer
 oracle (pattern of tests/test_engine.py:123).  Integer counts, exact."""
 
+import time
 from collections import Counter
 
 import numpy as np
@@ -9,6 +10,7 @@ import torch
 
 from kmer_denovo_filter_tpu import engine as jeng
 from kmer_denovo_filter_tpu import kmer as K
+from kmer_denovo_filter_tpu.htsio import native as jnative
 from kmer_denovo_filter_tpu.ops import encode as jenc
 from kmer_denovo_filter_tpu_torch import engine as teng
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
@@ -41,6 +43,22 @@ def _oracle(reads, filter_set, k):
             if c in filter_set:
                 oc[c] += 1
     return dict(oc)
+
+
+def _jax_native_available(tries=30):
+    """Whether the JAX package's native library loads, waiting out a
+    concurrent build.  Its builder (kmer_denovo_filter_tpu/htsio/native.py
+    ``_build``) writes ``kdf_native.so`` in place, not write-then-rename,
+    so in a fresh tree several pytest workers compile it at once and a
+    load that meets another worker's half-written file fails and is
+    cached for the process.  The cached failure is dropped and the load
+    tried again, once a second, until the library is whole."""
+    for _ in range(tries):
+        if jnative.available():
+            return True
+        jnative._lib = None
+        time.sleep(1)
+    return False
 
 
 def _found(index, counts):
@@ -287,6 +305,7 @@ def test_budget_gate_sends_tables_to_the_host(monkeypatch):
                       teng.HostKmerIndex)
     fc = teng.make_parent_filter_counter(words, k, device=CPU)
     assert isinstance(fc, teng.HostFilteredCounter)
+    assert _jax_native_available()
     jfc = jeng.HostFilteredCounter(words, k)
     for lo in range(0, 40, 15):
         batch, lens = pack_reads(stream[lo:lo + 15])

@@ -664,23 +664,32 @@ def test_seg_sort_kernel_matches_plain(cuda, tail):
 
 @pytest.mark.parametrize("tail", [0, 1, 5000])
 def test_seg_dedup_kernel_matches_plain(cuda, tail):
-    flat = _segment_stream(tail + 1, tail).to(cuda)
+    """K9d: every segment's count and live slots equal the plain
+    version's, on random, one-key, all-sentinel and few-key segments, a
+    40x-like one (~1,100 keys of ~7 copies: the hash), one of ~4,000 keys
+    (past the hash's 3,072-key limit: a sort of all rows), and a ragged
+    tail (no padded copy)."""
+    rng = np.random.default_rng(tail)
+    seg = segsort.SEGMENT
+    extra = torch.from_numpy(np.concatenate([
+        rng.choice(rng.integers(0, 4 ** 31, 1100), seg),
+        rng.choice(rng.integers(0, 4 ** 31, 5000), seg)]))
+    flat = torch.cat([_segment_stream(tail + 1, 0), extra,
+                      _segment_stream(tail + 2, tail)[4 * seg:]]).to(cuda)
     before = segsort.dedup_launches
     keys, weights, counts = segsort.seg_dedup(flat)
     ref = dev.segment_runs(segsort.segments(flat, keys64.SENTINEL))
     torch.cuda.synchronize()
     assert segsort.dedup_launches == before + 1
+    assert keys.shape == (6 + (tail > 0), seg)
     assert torch.equal(counts, ref[2])
     assert counts[1] == 1 and counts[2] == 0  # all equal, all sentinel
-    for got, want in zip(segsort.compact(keys, weights, counts),
-                         segsort.compact(*ref)):
+    assert 1000 < int(counts[4]) <= 1100 and int(counts[5]) > 3072
+    for got, want in zip(dev.segment_compact(keys, weights, counts),
+                         dev.segment_compact(*ref)):
         assert torch.equal(got, want)
-    dense = segsort.dedup_segments(flat)
-    live = flat[flat != keys64.SENTINEL]
-    assert int(dense[1].sum()) == live.numel()
-    cpu = segsort.dedup_segments(flat.cpu())
-    assert torch.equal(dense[0].cpu(), cpu[0])
-    assert torch.equal(dense[1].cpu(), cpu[1])
+    cpu = segsort.seg_dedup(flat.cpu())
+    assert torch.equal(counts.cpu(), cpu[2])
 
 
 def test_cuda_segsort_never_takes_the_plain_path(cuda, monkeypatch):
@@ -688,10 +697,101 @@ def test_cuda_segsort_never_takes_the_plain_path(cuda, monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain path")
     monkeypatch.setattr(dev, "segment_sort", plain)
     monkeypatch.setattr(dev, "segment_runs", plain)
+    monkeypatch.setattr(dev, "segment_compact", plain)
+    monkeypatch.setattr(dev, "weighted_tally", plain)
     flat = _segment_stream(3, 17).to(cuda)
     segsort.seg_sort(flat)
-    segsort.dedup_segments(flat)
+    keys, weights, counts = segsort.seg_dedup(flat)
+    table = torch.unique(flat)
+    probe.probe_tally_weighted(keys, weights, table, torch.zeros_like(table),
+                               counts=counts)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", TABLES + ("2**20",))
+def test_weighted_probe_on_slots_matches_plain(cuda, kind):
+    """K3 through the directory on K9d's slots: rows of a 40x-like
+    stream, stale slots past each count, a key in every segment; equal
+    to the plain version (compaction + weighted_tally) and to K3 on the
+    flat whole-batch dedup."""
+    table = _directory_table(kind, 31, cuda)
+    rng = np.random.default_rng(len(kind))
+    live = table[table != keys64.SENTINEL].cpu().numpy()
+    pool = np.concatenate([live, rng.integers(0, 4 ** 31, 4000)])
+    flat = torch.from_numpy(np.concatenate([
+        rng.choice(pool, 3 * segsort.SEGMENT + 777),
+        np.full(300, keys64.SENTINEL)])).to(cuda)
+    keys, weights, counts = segsort.seg_dedup(flat)
+    d = tdir.build_directory(table)
+    acc = torch.full_like(table, 5)
+    before = probe.weighted_launches
+    probe.probe_tally_weighted(keys, weights, table, acc, d, counts)
+    ref = 5 + dev.small_table_tally(table, flat)
+    flat_acc = probe.probe_tally_weighted(*dev.dedup_windows(flat), table,
+                                          torch.full_like(table, 5), d)
+    torch.cuda.synchronize()
+    assert probe.weighted_launches == before + 2
+    assert torch.equal(acc, ref) and torch.equal(flat_acc, ref)
+    plain = dev.weighted_tally(table, *dev.segment_compact(
+        keys, weights, counts), torch.full_like(table, 5))
+    assert torch.equal(acc, plain)
+
+
+def test_weighted_probe_skips_stale_slots(cuda):
+    """Slots past each row's count hold table keys; K3 never reads them.
+    Counts 0, 8,192, 1 and 4,095."""
+    seg = segsort.SEGMENT
+    table = torch.arange(0, 3 * 4 * seg, 3, dtype=torch.int64, device=cuda)
+    keys = table[:4 * seg].reshape(4, seg).clone()
+    weights = torch.full_like(keys, 2)
+    counts = torch.tensor([0, seg, 1, 4095], dtype=torch.int32, device=cuda)
+    acc = torch.zeros_like(table)
+    probe.probe_tally_weighted(keys, weights, table, acc, counts=counts)
+    want = dev.weighted_tally(table, *dev.segment_compact(
+        keys, weights, counts), torch.zeros_like(table))
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want) and int(acc.sum()) == 2 * (seg + 4096)
+
+
+def test_weighted_probe_builds_or_checks_its_directory(cuda):
+    """K3 without a directory builds one (a counted launch); given
+    another table's, it raises before any launch."""
+    table = _directory_table("4096", 31, cuda)
+    keys, weights = dev.dedup_windows(table[::3].repeat(3))
+    acc = torch.zeros_like(table)
+    before = (tdir.launches, probe.weighted_launches)
+    probe.probe_tally_weighted(keys, weights, table, acc)
+    torch.cuda.synchronize()
+    assert (tdir.launches, probe.weighted_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert torch.equal(acc, dev.small_table_tally(table,
+                                                  table[::3].repeat(3)))
+    other = tdir.build_directory(
+        torch.from_numpy(make_table("4096", 21)).to(cuda))
+    with pytest.raises(ValueError, match="does not belong"):
+        probe.probe_tally_weighted(keys, weights, table, acc, other)
+    assert probe.weighted_launches == before[1] + 1
+
+
+def test_segment_step_makes_no_host_sync(cuda):
+    """K9d -> K3 on the slots, from K1's keys on the card to the
+    accumulator, with CUDA sync debugging set to raise."""
+    codes, lengths = (t.to(cuda) for t in _batch(23, n=4096))
+    table = _table_for(
+        extract.extract_canonical(codes, lengths, 31).reshape(-1), 4096,
+        cuda)
+    d = tdir.build_directory(table)
+    acc = torch.zeros_like(table)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flat = extract.extract_canonical(codes, lengths, 31).reshape(-1)
+        keys, weights, counts = segsort.seg_dedup(flat)
+        probe.probe_tally_weighted(keys, weights, table, acc, d, counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(acc, dev.small_table_tally(table, flat))
 
 
 def test_segment_counter_cuda_matches_cpu(cuda):

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu.ops import pallas_join as pj
+from kmer_denovo_filter_tpu_torch.ops import device as tdev
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops import segsort
 from kmer_denovo_filter_tpu_torch.ops.extract import extract_canonical
@@ -77,9 +78,9 @@ def test_dedup_matches_jax_dedup_compact_per_segment(n_reads, dup):
 
 
 def test_dedup_segments_matches_the_whole_batch_dedup():
+    """K9d's slots, compacted, summed by key: the whole-batch dedup."""
     flat = torch.cat([_windows(7, 300, dup=100)] * 2)  # repeats far apart
-    keys, weights = segsort.dedup_segments(flat)
-    assert (keys[1:] >= keys[:-1]).all()
+    keys, weights = tdev.segment_compact(*segsort.seg_dedup(flat))
     assert not (keys == keys64.SENTINEL).any()
     live = flat[flat != keys64.SENTINEL]
     assert int(weights.sum()) == live.numel()
@@ -136,7 +137,7 @@ def test_seg_dedup_invariants_and_edge_segments():
         assert torch.equal(weights[s, :c], n)
         assert (keys[s, c:] == keys64.SENTINEL).all()
         assert (weights[s, c:] == 0).all()
-    dense_keys, dense_weights = segsort.compact(keys, weights, counts)
+    dense_keys, dense_weights = tdev.segment_compact(keys, weights, counts)
     assert dense_keys.numel() == int(counts.sum())
     assert int(dense_weights.sum()) == int((flat != keys64.SENTINEL).sum())
 
@@ -144,7 +145,7 @@ def test_seg_dedup_invariants_and_edge_segments():
 def test_all_sentinel_and_empty_streams():
     for flat in (torch.full((SEG + 3,), keys64.SENTINEL),
                  torch.zeros(0, dtype=torch.int64)):
-        keys, weights = segsort.dedup_segments(flat)
+        keys, weights = tdev.segment_compact(*segsort.seg_dedup(flat))
         assert keys.numel() == weights.numel() == 0
         assert int(segsort.seg_dedup(flat)[2].sum()) == 0
 

@@ -8,7 +8,7 @@ at a small size.
 * 10b ``_tally_kernel_wT`` (via ``join_tally_step_dedup_T``) and 10c
   ``_tally_kernel_w2`` (patched into the v5 prototype's
   ``join_tally_step_v5``, whose four-part metadata it takes) against the
-  port's segment-form tally, K1 -> K9d -> sort -> K3 on the plain paths,
+  port's segment-form tally, K1 -> K9d -> K3 on the slots (plain paths),
   through the tile permutation.
 
 Pallas runs in interpret mode: a fixture forces ``interpret=True`` on

@@ -7,7 +7,7 @@ counterparts in the port, on the CPU, and the port's
   ``extract_mixed``) against K1 -> ``torch.sort`` -> K2 on the plain
   paths, through the tile permutation.
 * 9c ``_tally_kernel_w`` (via ``join_tally_step_v5``) against the
-  port's segment form, K1 -> K9d -> sort -> K3.
+  port's segment form, K1 -> K9d -> K3 on the slots.
 * 9d ``extract_v2p``, 9e ``extract_v3`` and 9f the stage-5 kernel of
   ``_make_extract_stage`` against the mixed words (``mix_keys_np``) of
   the port's K1 keys, the sentinel pinned to the all-ones pair.  The
