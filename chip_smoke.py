@@ -49,12 +49,16 @@ any failure exits non-zero before the result line:
    form), each equal to the plain path; the anchoring scan
    (``scan_reads_for_hits_many``) over groups of 8 x 4,096 reads at
    M = 2**20, equal to the plain path.  Reads/s.
-3s. Segment-local sort and dedup: K9 (seg_sort) and K9d (seg_dedup)
-   against their plain versions (``torch.sort(dim=1)`` with the payload
-   gathered; a per-segment run-length count) on the phase-3 random batch
-   and on one 40x-coverage batch at k = 31 (488 segments of 8,192
-   windows each), beside ``torch.sort(dim=1)`` and ``dedup_windows``
-   (the whole-batch dedup of the engine).  Exact; CUDA events.
+3s. Segment-local sort and dedup: K9 (seg_sort, with and without its
+   payload) and K9d (seg_dedup) against their plain versions
+   (``torch.sort(dim=1)`` with the payload gathered; a per-segment
+   run-length count) on the phase-3 random batch and on one
+   40x-coverage batch at k = 31 (488 segments of 8,192 windows each),
+   beside ``torch.sort(dim=1)`` and ``dedup_windows`` (a whole-batch
+   ``torch.unique``); K9dw (seg_dedup_wide) against its plain version
+   at k = 63 and 201 on a random and a 40x batch (152 bp, 256 bp at
+   k = 201), beside the whole-batch ``dedup_windows_wide`` and
+   ``torch.unique(dim=0)``.  Exact; CUDA events.
 3w. Wide keys (k = 33..207, rows of Q = ceil(k / 31) int64 limbs):
    K1w (extract_canonical_wide) at k in {33, 63, 127, 151, 201} on
    32,768 random reads of 152 bp (256 bp at k = 201), with N bases and
@@ -63,29 +67,34 @@ any failure exits non-zero before the result line:
    the prefix directory over limb 0 (build_directory of the (M, Q)
    table, built once per table as ``KmerIndex`` builds it) against its
    plain version and timed, and through it K7 (probe_tally_wide)
-   unweighted on the flat windows and weighted on their dedup, K8
-   (probe_member_wide) found bytes and rows; the batch dedup both ways
-   (Q stable sorts, the port's form, and ``torch.unique(dim=0)``).
-   Exact; CUDA events.
+   unweighted on the flat windows and weighted on their dedup and on
+   K9dw's slots, K8 (probe_member_wide) found bytes and rows; the batch
+   dedup both ways (Q stable sorts and ``torch.unique(dim=0)``); the
+   step K1w -> K9dw -> K7 on the slots once with CUDA sync debugging set
+   to raise (no host sync).  Exact; CUDA events.
 4c. Main path, wide: ``kmer-denovo-torch`` and ``kmer-discovery-torch``
    with ``--kmer-size 63`` on the GIAB trio, each on a copy of
    ``mini_ref.fa`` (Module 0 counts the FASTA at k > 31 and caches it
    beside it); the same pipelines on ``device="cpu"`` (the plain
    versions) must give byte-equal outputs (3 + 6), and K1w, the
-   directory builder, K7 in both forms and K8 must have been launched
-   during the card runs.
+   directory builder, K7 in both forms, K9dw and K8 must have been
+   launched during the card runs.
 5c. Wide scale, phase-5 recipe: the parent filter at k = 63, M = 2**24
    (every distinct key of the 16 batches plus random fill) and at
-   k = 201, M = 2**22 on 3 batches of 256 bp reads, both forms, each
-   equal to the plain path; the anchoring scan at k = 63, M = 2**20,
-   in groups of 8 x 4,096.  Reads/s.
+   k = 201, M = 2**22 on 3 batches of 256 bp reads, in three forms
+   interleaved: the engine's two (K1w -> K7 and K1w -> K9dw -> K7 on the
+   slots) and a whole-batch dedup (``experiments.x_join_variants.
+   WideBatchDedupCounter``: K1w -> ``dedup_windows_wide`` -> K7
+   weighted), each equal to the plain path; the anchoring scan at
+   k = 63, M = 2**20, in groups of 8 x 4,096.  Reads/s.
 5d. The parent filter of 5b in a third form, with a whole-batch dedup
    (``experiments.x_join_variants.BatchDedupCounter``: K1 ->
    ``dedup_windows``, a ``torch.unique`` -> K3 on the flat stream),
    interleaved with the two engine forms on the same batches at each M,
    all three equal to the plain path.  Reads/s.  K9d's launches are
    counted over the 5b/5d filter loops.
-6. Profile: the phase-5, 5b, 5d and 5c loops once more under
+6. Profile: the phase-5, 5b, 5d and 5c loops (5c at k = 63, all three
+   forms) once more under
    ``torch.profiler``; device busy time (union of kernel and copy
    spans), each device op's ms per batch, and the device's idle share
    against the loop's wall time with and without the profiler.
@@ -96,8 +105,8 @@ any failure exits non-zero before the result line:
    timed repetitions; a false parity line fails the run.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches in phases 4 and 4b (phase 4c for the wide kernels, and the
-directory builder in 4, 4b and 4c; phases 5d and 7 for K9), its
+launches in phases 4 and 4b (phase 4c for the wide kernels and K9dw,
+and the directory builder in 4, 4b and 4c; phases 5d and 7 for K9), its
 largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
 move over 3.35 TB/s and its operations over 67 T/s) and the time of a
@@ -344,13 +353,16 @@ def extract_row(cuda, check, times, k, label):
           f"{plain_ms:.4f} ms, bound {lim[0]:.4f} ms by {lim[1]}", flush=True)
 
 
-def wide_probe_bound(key_bytes, row_bytes, keys, rows_hit, m):
+def wide_probe_bound(key_bytes, row_bytes, keys, rows_hit, m,
+                     extra_bytes=0):
     """Bound of a wide probe of (N, Q) *keys* into an M-row table:
-    *key_bytes* per key plus *row_bytes* per distinct table row hit, and
-    (ceil(log2(M + 1)) + 1) * Q compares per live key."""
+    *key_bytes* per key plus *row_bytes* per distinct table row hit plus
+    *extra_bytes*, and (ceil(log2(M + 1)) + 1) * Q compares per live
+    key."""
     n_live = int((keys[:, 0] != torch.iinfo(torch.int64).max).sum())
     n_ops = n_live * (m.bit_length() + 1) * keys.shape[1]
-    return bound(key_bytes * keys.shape[0] + row_bytes * rows_hit, n_ops)
+    return bound(key_bytes * keys.shape[0] + row_bytes * rows_hit
+                 + extra_bytes, n_ops)
 
 
 def phase_3w(rng, cuda, check, times):
@@ -360,6 +372,7 @@ def phase_3w(rng, cuda, check, times):
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import directory as tdir
     from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
+    from kmer_denovo_filter_tpu_torch.ops import segsort
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
     for k in KS_WIDE:
         length = L_K201 if k == 201 else L
@@ -397,6 +410,9 @@ def phase_3w(rng, cuda, check, times):
         if not (torch.equal(uniq, lib_uniq)
                 and torch.equal(weights, lib_counts)):
             fail(f"dedup_windows_wide differs from torch.unique at k={k}")
+        slots = segsort.seg_dedup_wide(flat)
+        live_slots = dev.segment_compact(*slots)[0]
+        n_segs = slots[2].numel()
         sort_ms = device_ms(lambda: dev.dedup_windows_wide(flat), reps=5)
         unique_ms = device_ms(lambda: torch.unique(
             flat, dim=0, sorted=True, return_counts=True), reps=3)
@@ -420,6 +436,30 @@ def phase_3w(rng, cuda, check, times):
             acc_w = torch.zeros_like(acc)
             probe.probe_tally_wide(uniq, table, acc_w, weights, d)
             check("probe_tally_wide_weighted", acc_w, ref, f"k={k}, M={m}")
+            acc_w.zero_()
+            probe.probe_tally_wide(slots[0], table, acc_w, slots[1], d,
+                                   slots[2])
+            check("probe_tally_wide_weighted", acc_w, ref,
+                  f"k={k}, M={m}, K9dw's slots")
+            if m == WIDE_TABLE_MS[k][-1]:
+                acc_w.zero_()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    step = segsort.seg_dedup_wide(
+                        extract.extract_canonical_wide(codes, lengths,
+                                                       k).flatten(0, 1))
+                    probe.probe_tally_wide(step[0], table, acc_w, step[1], d,
+                                           step[2])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                check("probe_tally_wide_weighted", acc_w, ref,
+                      f"k={k}, M={m}, K1w -> K9dw -> K7 with sync debugging "
+                      "on")
+                print(f"[3w] k={k} M={m}: K1w -> K9dw -> K7 on the slots "
+                      "equal to plain with CUDA sync debugging set to "
+                      "raise: no host sync", flush=True)
+                del step
             found = member.probe_member_wide(flat, table, d)
             check("probe_member_wide", found, dev.member_wide(table, flat),
                   f"k={k}, M={m}")
@@ -430,7 +470,8 @@ def phase_3w(rng, cuda, check, times):
             largest = int((d.offsets[1:] - d.offsets[:-1]).max())
             print(f"[3w] k={k} M={m}: directory over limb 0 bits {d.bits}, "
                   f"shift {d.shift}, largest bucket {largest} rows; "
-                  "directory, K7 both forms and K8 equal to plain",
+                  "directory, K7 both forms (weighted flat and on K9dw's "
+                  "slots) and K8 equal to plain",
                   flush=True)
             n_dir = (1 << d.bits) + 1
             ms = device_ms(lambda: tdir.build_directory(table, m, max_key))
@@ -460,6 +501,13 @@ def phase_3w(rng, cuda, check, times):
                                                     acc_w),
                     wide_probe_bound(8 * q + 8, 8 * q + 16, uniq, rows_hit,
                                      m)),
+                "probe_tally_wide_slots": (
+                    lambda: probe.probe_tally_wide(slots[0], table, acc_w,
+                                                   slots[1], d, slots[2]),
+                    lambda: dev.weighted_tally_wide(
+                        table, *dev.segment_compact(*slots), acc_w),
+                    wide_probe_bound(8 * q + 8, 8 * q + 16, live_slots,
+                                     rows_hit, m, 4 * n_segs)),
                 "probe_member_wide": (
                     lambda: member.probe_member_wide(flat, table, d),
                     lambda: dev.member_wide(table, flat),
@@ -474,17 +522,22 @@ def phase_3w(rng, cuda, check, times):
                       f"plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms by "
                       f"{lim[1]}", flush=True)
             del table, acc, acc_w, ref, d
+        del slots, live_slots
+
+
+def codes_40x(cuda, length=L):
+    """(codes, lengths) of one 40x-coverage batch of B reads of *length*
+    bp on the card (its own generator, seed 4)."""
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
+    return (torch.from_numpy(synth_reads(rng, genome, B, length)).to(cuda),
+            torch.full((B,), length, dtype=torch.int32, device=cuda))
 
 
 def batch_40x(cuda):
-    """The flat k = 31 window keys of one 40x-coverage batch of B reads
-    (its own generator, seed 4)."""
+    """The flat k = 31 window keys of one 40x-coverage batch of B reads."""
     from kmer_denovo_filter_tpu_torch.ops import extract
-    rng = np.random.default_rng(4)
-    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
-    return extract.extract_canonical(
-        torch.from_numpy(synth_reads(rng, genome, B, L)).to(cuda),
-        torch.full((B,), L, dtype=torch.int32, device=cuda), 31).reshape(-1)
+    return extract.extract_canonical(*codes_40x(cuda), 31).reshape(-1)
 
 
 def staged_budget():
@@ -599,6 +652,10 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
                              pair_order(ref_keys, ref_pay)):
             check("seg_sort", got, want,
                   f"{label} batch, (key, payload) pairs per segment")
+        keys_only, none = segsort.seg_sort(flat)
+        if none is not None:
+            fail("seg_sort without a payload returned one")
+        check("seg_sort", keys_only, ref_keys, f"{label} batch, no payload")
         raw = segsort.seg_dedup(flat)
         ref = dev.segment_runs(segs)
         check("seg_dedup", raw[2], ref[2], f"{label} batch, counts")
@@ -621,6 +678,7 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
         dedup_lim = bound(8 * n_rows + 16 * rows + 4 * n_segs,
                           91 * n_rows // 2)
         sort_ms = device_ms(lambda: segsort.seg_sort(flat, payload))
+        keys_ms = device_ms(lambda: segsort.seg_sort(flat))
         sort_plain = device_ms(lambda: dev.segment_sort(segs, pays))
         sort_lib = device_ms(library_sort)
         dedup_ms = device_ms(lambda: segsort.seg_dedup(flat))
@@ -631,15 +689,65 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
         times[("seg_dedup", label)] = (dedup_ms, dedup_plain, dedup_lib,
                                        dedup_lim)
         print(f"[3s] K9 {label} batch: equal ({n_segs} segments, "
-              f"{flat.numel()} windows); kernel {sort_ms:.4f} ms, plain "
-              f"{sort_plain:.4f} ms, torch.sort(dim=1) + gather "
-              f"{sort_lib:.4f} ms, bound {sort_lim[0]:.4f} ms by "
-              f"{sort_lim[1]}", flush=True)
+              f"{flat.numel()} windows); kernel {sort_ms:.4f} ms (without "
+              f"the payload {keys_ms:.4f} ms), plain {sort_plain:.4f} ms, "
+              f"torch.sort(dim=1) + gather {sort_lib:.4f} ms, bound "
+              f"{sort_lim[0]:.4f} ms by {sort_lim[1]}", flush=True)
         print(f"[3s] K9d {label} batch: equal ({rows} segment rows, "
               f"{whole} distinct keys in the whole batch); kernel "
               f"{dedup_ms:.4f} ms, plain {dedup_plain:.4f} ms, "
               f"dedup_windows (whole batch) {dedup_lib:.4f} ms, bound "
               f"{dedup_lim[0]:.4f} ms by {dedup_lim[1]}", flush=True)
+
+
+def phase_3s_wide(rng, cuda, check, times):
+    """K9dw against its plain version at k = 63 and 201, on a random and
+    a 40x batch, timed beside the whole-batch dedups."""
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract, segsort
+    from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+    for k in (63, 201):
+        length = L_K201 if k == 201 else L
+        codes, lengths = random_batch(rng, length)
+        batches = {"random": (torch.from_numpy(codes).to(cuda),
+                              torch.from_numpy(lengths).to(cuda)),
+                   "40x": codes_40x(cuda, length)}
+        for label, (c, l) in batches.items():
+            flat = extract.extract_canonical_wide(c, l, k).flatten(0, 1)
+            got = segsort.seg_dedup_wide(flat)
+            ref = dev.segment_runs_wide(segsort.segments(flat, SENTINEL))
+            check("seg_dedup_wide", got[2], ref[2], f"k={k}, {label} batch, "
+                  "counts")
+            for g, w in zip(dev.segment_compact(*got),
+                            dev.segment_compact(*ref)):
+                check("seg_dedup_wide", g, w, f"k={k}, {label} batch, rows")
+            n_rows, q = flat.shape
+            rows = int(got[2].sum())
+            n_segs = got[2].numel()
+            whole = dev.dedup_windows_wide(flat)[0].shape[0]
+            ms = device_ms(lambda: segsort.seg_dedup_wide(flat))
+            plain_ms = device_ms(lambda: dev.segment_runs_wide(
+                segsort.segments(flat, SENTINEL)), reps=3)
+            batch_ms = device_ms(lambda: dev.dedup_windows_wide(flat),
+                                 reps=5)
+            unique_ms = device_ms(lambda: torch.unique(
+                flat, dim=0, sorted=True, return_counts=True), reps=3)
+            # rows read; a row and a weight written per distinct row of
+            # a segment and a count per segment; the fingerprint's
+            # multiply-xorshift (3 operations a limb) and a compare a row
+            lim = bound(8 * q * n_rows + (8 * q + 8) * rows + 4 * n_segs,
+                        (3 * q + 1) * n_rows)
+            # library: one PyTorch call that dedups the whole batch
+            times[("seg_dedup_wide", k, label)] = (ms, plain_ms, unique_ms,
+                                                   lim)
+            print(f"[3s] K9dw k={k} {label} batch: equal ({n_rows} rows, "
+                  f"{n_segs} segments, {rows} segment rows, {whole} "
+                  f"distinct rows in the whole batch); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, dedup_windows_wide (whole "
+                  f"batch) {batch_ms:.4f} ms, torch.unique(dim=0) "
+                  f"{unique_ms:.4f} ms, bound {lim[0]:.4f} ms by {lim[1]}",
+                  flush=True)
 
 
 def phase_7(reset_counts, read_counts):
@@ -766,6 +874,7 @@ def phase_4c(cuda, reset_counts, read_counts):
                            ("extract_canonical_wide", launches_disc),
                            ("build_directory", launches_disc),
                            ("probe_tally_wide_weighted", launches_disc),
+                           ("seg_dedup_wide", launches_disc),
                            ("probe_member_wide", launches_disc)):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the k=63 main path")
@@ -779,15 +888,22 @@ def phase_4c(cuda, reset_counts, read_counts):
 
 
 def phase_5c(rng, genome, batches_152, cuda, card):
-    """Wide scale: the parent filter at k = 63 and 201 in both forms and
+    """Wide scale: the parent filter at k = 63 and 201 in three forms and
     the anchoring scan at k = 63, each equal to the plain path.  Returns
     the profiled loops for phase 6."""
     from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.experiments.x_join_variants import (
+        WideBatchDedupCounter,
+    )
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import extract
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
     profiles = []
-    forms = {"K1w->K7": False, "K1w->dedup->K7w": True}
+    # the engine's two forms, then the whole-batch dedup it replaced
+    forms = {"K1w->K7": lambda index: eng.FilteredCounter(index),
+             "K1w->K9dw->K7": lambda index: eng.FilteredCounter(
+                 index, dedup=True),
+             "K1w->dedup->K7w": WideBatchDedupCounter}
     for k in (63, 201):
         if k == 201:
             batches = [synth_reads(rng, genome, B, L_K201)
@@ -821,7 +937,7 @@ def phase_5c(rng, genome, batches_152, cuda, card):
         def run_feed(name, index=index, n_reads=n_reads, feed_all=feed_all):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            fc = feed_all(eng.FilteredCounter(index, dedup=forms[name]))
+            fc = feed_all(forms[name](index))
             return fc.acc, n_reads / (time.perf_counter() - t)
 
         torch.cuda.synchronize()
@@ -849,22 +965,21 @@ def phase_5c(rng, genome, batches_152, cuda, card):
         t = time.perf_counter()
         fc.result()
         result_ms = (time.perf_counter() - t) * 1e3
-        a, b = forms
+        feeds = ", ".join(f"{name} {rates[name][0]:.1f} / "
+                          f"{rates[name][1]:.1f}" for name in forms)
         print(f"[5c] parent filter k={k} M={m} ({seen.shape[0]} batch keys, "
               f"{8 * index.table.numel() >> 20} MB table): {n_reads} reads x "
-              f"{width} bp, {int(plain.sum())} hits, both forms equal to "
-              f"plain; feed reads/s {a} {rates[a][0]:.1f} / "
-              f"{rates[a][1]:.1f}, {b} {rates[b][0]:.1f} / "
-              f"{rates[b][1]:.1f}, plain {plain_rate:.1f}; result() of the "
-              f"{8 * m >> 20} MB accumulator {result_ms:.3f} ms ({card})",
-              flush=True)
+              f"{width} bp, {int(plain.sum())} hits, all three forms equal "
+              f"to plain; feed reads/s {feeds}, plain {plain_rate:.1f}; "
+              f"result() of the {8 * m >> 20} MB accumulator "
+              f"{result_ms:.3f} ms ({card})", flush=True)
         del plain, fc, seen
         if k == 63:
             for name in forms:
                 profiles.append((
                     f"parent filter k=63 M={m} {name} (feed)", len(batches),
                     lambda name=name, index=index, feed_all=feed_all:
-                    feed_all(eng.FilteredCounter(index, dedup=forms[name])),
+                    feed_all(forms[name](index)),
                     n_reads / max(rates[name])))
         else:
             del index
@@ -960,6 +1075,7 @@ def main():
                 "probe_member_wide": (member, "wide_launches"),
                 "seg_sort": (segsort, "launches"),
                 "seg_dedup": (segsort, "dedup_launches"),
+                "seg_dedup_wide": (segsort, "dedup_wide_launches"),
                 # K1 cut at a stage (the xmicro probes); not in the JSON
                 "extract_canonical_stage": (extract, "stage_launches")}
 
@@ -1131,6 +1247,8 @@ def main():
 
     # ── 3s. segment-local sort and dedup against their plain versions
     phase_3s(flat, flat_40x, cuda, check, times)
+
+    phase_3s_wide(rng, cuda, check, times)
 
     # ── 3w. wide kernels against their plain versions ──────────────
     phase_3w(rng, cuda, check, times)
@@ -1425,7 +1543,8 @@ def main():
     launches = {name: launches_vcf[name] + launches_disc[name]
                 for name in counters}
     for name in ("extract_canonical_wide", "probe_tally_wide",
-                 "probe_tally_wide_weighted", "probe_member_wide"):
+                 "probe_tally_wide_weighted", "probe_member_wide",
+                 "seg_dedup_wide"):
         launches[name] = sum(run[name] for run in launches_wide)
     # the directory: narrow tables in 4 and 4b, wide ones in 4c
     launches["build_directory"] += sum(run["build_directory"]
@@ -1433,8 +1552,10 @@ def main():
     # K9 is on no main path: its launches in 5d and 7
     launches["seg_sort"] = launches_5d["seg_sort"] + launches_7["seg_sort"]
     wide = {name: times[(name, 63, BIG_M)]
-            for name in ("probe_tally_wide", "probe_tally_wide_weighted",
-                         "probe_member_wide")}
+            for name in ("probe_tally_wide", "probe_member_wide")}
+    # K7 weighted on K9dw's slots: the main path's form
+    wide["probe_tally_wide_weighted"] = times[("probe_tally_wide_slots", 63,
+                                               BIG_M)]
     wide["extract_canonical_wide"] = times[("extract_canonical_wide", 63)]
     wide_replaces = {
         "extract_canonical_wide": "kmer_denovo_filter_tpu/ops/device.py:33",
@@ -1494,13 +1615,19 @@ def main():
          "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
          "bound_ms": lim[0], "bound_by": lim[1], "library_ms": None}
         for name, (ms, plain_ms, lim) in wide.items()]}
-    for name, replaces in (
-            ("seg_sort", "scripts/x_fused.py:133"),
-            ("seg_dedup", "kmer_denovo_filter_tpu/ops/pallas_join.py:600")):
+    # K9dw: the 40x batch at k = 63
+    times[("seg_dedup_wide", "40x")] = times[("seg_dedup_wide", 63, "40x")]
+    for name, replaces, source in (
+            ("seg_sort", "scripts/x_fused.py:133", "seg_sort.cu"),
+            ("seg_dedup", "kmer_denovo_filter_tpu/ops/pallas_join.py:600",
+             "seg_sort.cu"),
+            ("seg_dedup_wide",
+             "kmer_denovo_filter_tpu/ops/pallas_join.py:1494",
+             "seg_dedup_wide.cu")):
         ms, plain_ms, library_ms, lim = times[(name, "40x")]
         report["kernels"].append({
             "name": name, "route": "cuda",
-            "source": "kmer_denovo_filter_tpu_torch/csrc/seg_sort.cu",
+            "source": f"kmer_denovo_filter_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": lim[0], "bound_by": lim[1],

@@ -8,7 +8,8 @@
 // parent scan) and join_tally_flat_wide_dedup (:1564, weighted: the
 // discovery parent filter over a batch's distinct keys and their
 // multiplicities).  As there, one body serves both forms: a found key
-// adds 1, or its weight.
+// adds 1, or its weight.  The weighted form also reads kernel K9dw's
+// per-segment slots in place (seg_dedup_wide.cu), a block a segment.
 //
 // K8 (kdf_probe_member_wide) replaces pallas_join.py:_member_kernel_wide
 // (:1997) via join_member_step_wide (:2216): the reference subtraction
@@ -21,6 +22,8 @@
 //
 // In:  keys (N, Q) int64 (a row with limb 0 = INT64_MAX is an invalid
 //      window: skipped, never found); weights (N,) int64 or null (K7);
+//      or K9dw's slots, keys (S, 8192, Q) and weights (S, 8192) with
+//      counts (S,) int32, only the first counts[s] of row s read;
 //      table (M, Q) int64, rows ascending, unique apart from trailing
 //      sentinel rows, and its prefix directory over limb 0 (dir, bits,
 //      shift; built by kdf_build_directory over its live rows).
@@ -157,6 +160,41 @@ __global__ void __launch_bounds__(kdf::kDirGlobalThreads,
                    Tally<Q, kWeighted>{weights, acc});
 }
 
+// K7 weighted on kernel K9dw's slots (seg_dedup_wide.cu): `rows` rows of
+// 8,192 slots of Q limbs, the first counts[s] of row s live.  A block
+// takes a row at a time (grid-stride over rows) and its threads the row's
+// live groups only, so no thread visits a dead slot (K3's slots form,
+// probe_tally.cu); the search is the flat form's.
+template <int Q>
+__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
+                                  kdf::kDirGlobalBlocksPerSm)
+    probe_tally_wide_slots_kernel(const long long* __restrict__ keys,
+                                  const long long* __restrict__ weights,
+                                  const int* __restrict__ counts,
+                                  long long rows, bool vec,
+                                  const long long* __restrict__ table,
+                                  const int* __restrict__ dir, int bits,
+                                  int shift,
+                                  unsigned long long* __restrict__ acc) {
+  constexpr int K = kdf::row_keys<Q>();
+  constexpr int kRowBits = 13;  // 8,192 slots a row: whole groups of K
+  const Tally<Q, true> tally{weights, acc};
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long first = row << kRowBits;
+    // a count outside [0, 8,192] reads no slot of another row
+    const int live = min(max(__ldg(counts + row), 0), 1 << kRowBits);
+    const long long end = first + live;
+    for (long long g = first / K + threadIdx.x; g * K < end;
+         g += blockDim.x) {
+      long long q[K][Q];
+      int found[K];
+      kdf::load_rows<Q, K>(keys, end, g, vec, q);
+      kdf::find_rows_dir_wide<Q, K>(table, dir, shift, bits, q, found);
+      tally(g, found);
+    }
+  }
+}
+
 // K8: no atomics, the table is only read.
 template <int Q>
 __global__ void __launch_bounds__(kdf::kDirGlobalThreads,
@@ -173,6 +211,7 @@ __global__ void __launch_bounds__(kdf::kDirGlobalThreads,
 struct Args {
   const long long* keys;
   const long long* weights;
+  const int* counts;
   long long n;
   const long long* table;
   const int* dir;
@@ -209,8 +248,25 @@ int launch_member(const Args& a, uint8_t* found, long long* rows) {
 }
 
 template <int Q>
+int launch_tally_slots(const Args& a, unsigned long long* acc) {
+  // a block a row, at most the global form's blocks
+  const long long rows = a.n / 8192;
+  unsigned blocks = 0;
+  const cudaError_t err =
+      kdf::global_probe_blocks(rows * kdf::kDirGlobalThreads, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = reinterpret_cast<uintptr_t>(a.keys) % 16 == 0;
+  probe_tally_wide_slots_kernel<Q>
+      <<<blocks, kdf::kDirGlobalThreads, 0, a.stream>>>(
+          a.keys, a.weights, a.counts, rows, vec, a.table, a.dir, a.bits,
+          a.shift, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int Q>
 int tally_q(const Args& a, void* acc) {
   auto* c = static_cast<unsigned long long*>(acc);
+  if (a.counts != nullptr) return launch_tally_slots<Q>(a, c);
   return a.weights != nullptr ? launch_tally<Q, true>(a, c)
                               : launch_tally<Q, false>(a, c);
 }
@@ -221,11 +277,12 @@ int member_q(const Args& a, void* found, void* rows) {
                           static_cast<long long*>(rows));
 }
 
-Args make_args(const void* keys, const void* weights, long long n,
-               const void* table, const void* dir, int bits, int shift,
-               void* stream) {
+Args make_args(const void* keys, const void* weights, const void* counts,
+               long long n, const void* table, const void* dir, int bits,
+               int shift, void* stream) {
   return Args{static_cast<const long long*>(keys),
               static_cast<const long long*>(weights),
+              static_cast<const int*>(counts),
               n,
               static_cast<const long long*>(table),
               static_cast<const int*>(dir),
@@ -236,13 +293,20 @@ Args make_args(const void* keys, const void* weights, long long n,
 
 }  // namespace
 
-// weights null: unweighted.  Returns a CUDA error code, or
+// weights null: unweighted.  counts not null (weights then too): keys
+// (n / 8,192, 8,192, q) and weights (n / 8,192, 8,192) are K9dw's slots,
+// the first counts[s] of row s live.  Returns a CUDA error code, or
 // cudaErrorInvalidValue for q outside 2..7.
 extern "C" int kdf_probe_tally_wide(const void* keys, const void* weights,
-                                    long long n, const void* table,
-                                    const void* dir, int bits, int shift,
-                                    int q, void* acc, void* stream) {
-  const Args a = make_args(keys, weights, n, table, dir, bits, shift, stream);
+                                    const void* counts, long long n,
+                                    const void* table, const void* dir,
+                                    int bits, int shift, int q, void* acc,
+                                    void* stream) {
+  if (counts != nullptr && weights == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a = make_args(keys, weights, counts, n, table, dir, bits, shift,
+                           stream);
   switch (q) {
     case 2: return tally_q<2>(a, acc);
     case 3: return tally_q<3>(a, acc);
@@ -258,7 +322,8 @@ extern "C" int kdf_probe_member_wide(const void* keys, long long n,
                                      const void* table, const void* dir,
                                      int bits, int shift, int q, void* found,
                                      void* rows, void* stream) {
-  const Args a = make_args(keys, nullptr, n, table, dir, bits, shift, stream);
+  const Args a =
+      make_args(keys, nullptr, nullptr, n, table, dir, bits, shift, stream);
   switch (q) {
     case 2: return member_q<2>(a, found, rows);
     case 3: return member_q<3>(a, found, rows);

@@ -1,5 +1,7 @@
 // Kernels K9 and K9d: a sort local to each 8,192-row segment of a flat
-// int64 window-key stream, and a dedup local to each segment.
+// int64 window-key stream, and a dedup local to each segment.  Both sort
+// by the register bitonic network of block_sort.cuh, which kernel K9dw
+// (seg_dedup_wide.cu) shares.
 //
 // K9 (kdf_seg_sort) replaces the Pallas TPU kernel
 // scripts/x_fused.py:_sort_kernel (:133, via seg_sort_pallas :144): an
@@ -8,14 +10,13 @@
 // invalid window, sorting last under the signed compare) and the payload
 // an optional int32.  The TPU kernel emits its segment in a lane-major
 // order (row * 128 + lane mapped to lane * 64 + row); this one writes it
-// in plain ascending order.  One block of 1,024 threads sorts a segment
-// in 96 KB of dynamic shared memory by the TPU kernel's network: 13 merge
-// sizes, 91 compare-exchange stages, each behind a __syncthreads(), each
-// thread taking 4 of a stage's 4,096 pairs (2 shared loads and up to 2
-// stores of 12 B a pair).  Compares are strict, so a payload is never
-// duplicated or dropped; the order within equal keys is unspecified, as
-// on the TPU.  ~0.44 ms on a 32,768 x 152 bp batch on an H100 SXM, 15x
-// its bound (PERF.md).
+// in plain ascending order.  One block of 512 threads sorts a segment,
+// 16 keys (and payloads) a thread in registers, with 8 barriers where a
+// shared-memory port of the TPU network took 91 (0.44 ms a 32,768 x
+// 152 bp batch on an H100, 15x its bound; PERF.md).  The payload rides
+// beside its key, compared on the key alone by a strict rule that never
+// drops or duplicates it; the order within equal keys is unspecified, as
+// on the TPU.  Rows leave through shared memory in coalesced stores.
 //
 // K9d (kdf_seg_dedup) replaces the XLA front half of the dedup-first
 // tally, kmer_denovo_filter_tpu/ops/pallas_join.py:_dedup_compact (:600,
@@ -29,20 +30,10 @@
 // and its u_chunk capacity (with an overflow flag and a retry ladder)
 // are workarounds for a slow TPU scatter; nothing here can overflow.
 //
-// K9d's design.  K9's network spends its time in 91 block barriers and
-// the shared-memory traffic of every stage (K9d took ~0.30 ms on a 40x
-// batch, 25x its bound, PERF.md).  Here one block of 512 threads takes a
-// segment, each thread holding 16 keys in registers, and sorts them by
-// the same bitonic network laid out for this card (block_sort):
-// element i = 16 t + r is register r of thread t, so the strides 1..8
-// are compare-exchanges between a thread's own registers, the strides
-// 16..256 warp shuffles (lane xor 1..16), and only the strides 512..4096
-// cross warps.  Those go through shared memory once per merge of 1,024
-// rows or more: stored in the natural layout, loaded in a transposed one
-// (i = t + 512 r) in which they too are register strides, stored back and
-// reloaded: 8 barriers for the whole sort.  Addresses are XOR-swizzled
-// (i ^ (i >> 4 & 15)) so both layouts' 8-byte accesses are free of bank
-// conflicts.  Rows leave through shared memory in coalesced stores.
+// K9d's design.  One block of 512 threads takes a segment, 16 keys a
+// thread in registers, and sorts by block_sort (on the shared-memory
+// network of K9's first port K9d took ~0.30 ms on a 40x batch, 25x its
+// bound, PERF.md).
 //
 // Real reads repeat a k-mer in ~40 reads: a 40x batch's segment holds
 // ~1,090 distinct keys of its 8,192 (PERF.md).  So a block first counts
@@ -73,79 +64,68 @@
 
 #include <cuda_runtime.h>
 
+#include "block_sort.cuh"
+
 namespace {
 
-constexpr long long kSentinel = 0x7FFFFFFFFFFFFFFFLL;
-constexpr int kSegment = 8192;
-constexpr int kThreads = 1024;
-constexpr size_t kSmemBytes =
-    static_cast<size_t>(kSegment) * (sizeof(long long) + sizeof(int32_t));
+using kdf::block_exclusive_sum;
+using kdf::block_sort;
+using kdf::kLogSegment;
+using kdf::kSegment;
+using kdf::kSentinel;
+using kdf::swizzle;
 
-// Bitonic sort of key[0, kSegment) ascending, pay[] following when
-// kPayload.  Ends with a __syncthreads().
-template <bool kPayload>
-__device__ __forceinline__ void bitonic_sort(long long* key, int32_t* pay) {
-  for (int size = 2; size <= kSegment; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < kSegment / 2; t += kThreads) {
-        // the pair (lo, lo + stride): bit `stride` of lo is clear
-        const int lo = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool ascending = (lo & size) == 0;
-        const long long a = key[lo];
-        const long long b = key[hi];
-        if (ascending ? a > b : a < b) {
-          key[lo] = b;
-          key[hi] = a;
-          if (kPayload) {
-            const int32_t p = pay[lo];
-            pay[lo] = pay[hi];
-            pay[hi] = p;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+constexpr int kThreads = kdf::kSortThreads;
+constexpr int kRegs = kdf::kSortRegs;
+constexpr int kWarps = kdf::kSortWarps;
+
+// ── K9 ──────────────────────────────────────────────────────────────
+
+// Shared memory of K9: the sort's key buffer (64 KB) and, with a
+// payload, its payload buffer (32 KB).
+constexpr size_t sort_smem_bytes(bool payload) {
+  return kSegment * (sizeof(long long) + (payload ? sizeof(int) : 0));
 }
 
-// Loads segment blockIdx.x of keys (and payload) into shared memory.
+// K9 over segment blockIdx.x: thread t takes rows t + 512 r (coalesced)
+// as its elements 16 t + r (a sorting network sorts any arrangement),
+// sorts them by block_sort (the payload carried) and writes them back
+// through shared memory in coalesced stores.  With a payload one block
+// an SM (~100 registers), without one two.
 template <bool kPayload>
-__device__ __forceinline__ void load_segment(const long long* __restrict__ keys,
-                                             const int32_t* __restrict__ payload,
-                                             long long* key, int32_t* pay) {
-  const long long base = static_cast<long long>(blockIdx.x) * kSegment;
-  for (int i = threadIdx.x; i < kSegment; i += kThreads) {
-    key[i] = keys[base + i];
-    if (kPayload) pay[i] = payload[base + i];
-  }
-  __syncthreads();
-}
-
-template <bool kPayload>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kPayload ? 1 : 2)
     seg_sort_kernel(const long long* __restrict__ keys,
                     const int32_t* __restrict__ payload,
                     long long* __restrict__ keys_out,
                     int32_t* __restrict__ payload_out) {
   extern __shared__ long long smem[];
-  long long* key = smem;
-  int32_t* pay = reinterpret_cast<int32_t*>(smem + kSegment);
-  load_segment<kPayload>(keys, payload, key, pay);
-  bitonic_sort<kPayload>(key, pay);
+  int* const pbuf = reinterpret_cast<int*>(smem + kSegment);
+  const int t = threadIdx.x;
   const long long base = static_cast<long long>(blockIdx.x) * kSegment;
-  for (int i = threadIdx.x; i < kSegment; i += kThreads) {
-    keys_out[base + i] = key[i];
-    if (kPayload) payload_out[base + i] = pay[i];
+  long long key[kRegs];
+  int pay[kRegs];
+#pragma unroll
+  for (int r = 0; r < kRegs; ++r) {
+    key[r] = __ldg(keys + base + t + r * kThreads);
+    if constexpr (kPayload) pay[r] = __ldg(payload + base + t + r * kThreads);
+  }
+  block_sort<kPayload ? kdf::Sort::kCarried : kdf::Sort::kKeys>(
+      key, pay, kLogSegment, smem, pbuf);
+  // each thread overwrites only the elements it reloaded last
+#pragma unroll
+  for (int r = 0; r < kRegs; ++r) {
+    smem[swizzle(t * kRegs + r)] = key[r];
+    if constexpr (kPayload) pbuf[swizzle(t * kRegs + r)] = pay[r];
+  }
+  __syncthreads();
+  for (int i = t; i < kSegment; i += kThreads) {
+    keys_out[base + i] = smem[swizzle(i)];
+    if constexpr (kPayload) payload_out[base + i] = pbuf[swizzle(i)];
   }
 }
 
 // ── K9d ─────────────────────────────────────────────────────────────
 
-constexpr int kDedupThreads = 512;
-constexpr int kRegs = kSegment / kDedupThreads;  // 16 keys a thread
-constexpr int kLogSegment = 13;
-constexpr int kDedupWarps = kDedupThreads / 32;
 constexpr int kHashSlots = 4096;
 constexpr int kHashLimit = 3072;  // distinct keys past which a block sorts all
 constexpr size_t kHashBytes = kHashSlots * (sizeof(long long) + sizeof(int));
@@ -156,126 +136,6 @@ constexpr size_t kDedupSmemBytes =
     kSegment * (sizeof(long long) + sizeof(int));
 static_assert(kDedupSmemBytes >= kHashBytes + kHashSlots * sizeof(long long),
               "the hash and the compacted keys must fit");
-
-// Inclusive sum of v over the warp.
-__device__ __forceinline__ int warp_inclusive_sum(int v) {
-  const int lane = threadIdx.x & 31;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int other = __shfl_up_sync(0xFFFFFFFFu, v, off);
-    if (lane >= off) v += other;
-  }
-  return v;
-}
-
-// Exclusive sum of v over the block of kDedupThreads, and the block's
-// total in *total.  Uses sums[kDedupWarps]; all threads must call it.
-__device__ __forceinline__ int block_exclusive_sum(int v, int* sums,
-                                                   int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int inclusive = warp_inclusive_sum(v);
-  if (lane == 31) sums[warp] = inclusive;
-  __syncthreads();
-  if (warp == 0) {
-    const int s = warp_inclusive_sum(lane < kDedupWarps ? sums[lane] : 0);
-    if (lane < kDedupWarps) sums[lane] = s;
-  }
-  __syncthreads();
-  *total = sums[kDedupWarps - 1];
-  return inclusive - v + (warp > 0 ? sums[warp - 1] : 0);
-}
-
-// Shared-memory slot of element i: the XOR swizzle that keeps both the
-// natural (i = 16 t + r) and the transposed (i = t + 512 r) layout's
-// 8-byte accesses free of bank conflicts.
-__device__ __forceinline__ int swizzle(int i) { return i ^ ((i >> 4) & 15); }
-
-// The pair (a, b), a at the lower position: ascending leaves the smaller
-// in a.  One 64-bit compare, a predicate XOR and the selects of a swap.
-__device__ __forceinline__ void compare_exchange(long long& a, long long& b,
-                                                 bool ascending) {
-  const bool swap = (b < a) == ascending;
-  const long long lo = swap ? b : a;
-  b = swap ? a : b;
-  a = lo;
-}
-
-// Sorts p = 2^log_p keys (9 <= log_p <= 13) ascending by the bitonic
-// network: key[r] of thread t < p / kRegs is element 16 t + r.  Merge
-// size 2^j, stride 2^b, ascending where bit j of the lower element is
-// clear.  Strides 1..8 (b <= 3) pair a thread's registers, 16..256 the
-// same register of lanes t ^ 2^(b - 4); strides 512..4096 pair registers
-// of the transposed layout, element t + 512 r in key[r] of every thread
-// (p / 512 of them), through `buf` (p x 8 B of shared memory).  Threads
-// past p / kRegs hold nothing in the natural layout and only meet the
-// barriers; the natural holders are whole warps (p >= 512).  All threads
-// must call it; it ends with the keys in key[] in the natural layout and
-// no barrier after the last reload.  (One instance: an instance for each
-// size spilled and ran slower.)
-__device__ __forceinline__ void block_sort(long long (&key)[kRegs], int log_p,
-                                           long long* buf) {
-  const int t = threadIdx.x;
-  const bool holds = t < (1 << log_p) / kRegs;
-  const int n_tr = (1 << log_p) >> 9;  // transposed registers a thread
-#pragma unroll 1
-  for (int j = 1; j <= log_p; ++j) {
-    if (j > 9) {
-      if (holds) {
-#pragma unroll
-        for (int r = 0; r < kRegs; ++r) buf[swizzle(t * kRegs + r)] = key[r];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kRegs; ++r) {
-        if (r < n_tr) key[r] = buf[swizzle(t + (r << 9))];
-      }
-#pragma unroll
-      for (int b = kLogSegment - 1; b >= 9; --b) {
-        if (b >= j) continue;
-        const int rb = 1 << (b - 9);
-#pragma unroll
-        for (int r = 0; r < kRegs; ++r) {
-          if ((r & rb) == 0 && r < n_tr) {
-            compare_exchange(key[r], key[r | rb], ((r >> (j - 9)) & 1) == 0);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRegs; ++r) {
-        if (r < n_tr) buf[swizzle(t + (r << 9))] = key[r];
-      }
-      __syncthreads();
-      if (holds) {
-#pragma unroll
-        for (int r = 0; r < kRegs; ++r) key[r] = buf[swizzle(t * kRegs + r)];
-      }
-    }
-    if (!holds) continue;
-#pragma unroll
-    for (int b = 8; b >= 4; --b) {
-      if (b >= j) continue;
-      const int lanes = 1 << (b - 4);
-      const bool keep_min = (((t >> (j - 4)) & 1) == 0) == ((t & lanes) == 0);
-#pragma unroll
-      for (int r = 0; r < kRegs; ++r) {
-        const long long o = __shfl_xor_sync(0xFFFFFFFFu, key[r], lanes);
-        if ((o < key[r]) == keep_min) key[r] = o;
-      }
-    }
-#pragma unroll
-    for (int b = 3; b >= 0; --b) {
-      if (b >= j) continue;
-      const int rb = 1 << b;
-#pragma unroll
-      for (int r = 0; r < kRegs; ++r) {
-        if ((r & rb) == 0) {
-          compare_exchange(key[r], key[r | rb],
-                           (((t * kRegs + r) >> j) & 1) == 0);
-        }
-      }
-    }
-  }
-}
 
 // Writes the runs of the block's sorted 8,192 keys (key[] of every
 // thread, natural layout): each run's key and length at ranks 0, 1, ..
@@ -322,7 +182,7 @@ __device__ __forceinline__ void write_runs(const long long (&key)[kRegs],
     if (starts >> r & 1u) start[rank++] = t * kRegs + r;
   }
   __syncthreads();
-  for (int q = t; q < n_runs; q += kDedupThreads) {
+  for (int q = t; q < n_runs; q += kThreads) {
     const int pos = start[q];
     keys_out[q] = sorted[swizzle(pos)];
     weights_out[q] = (q + 1 < n_runs ? start[q + 1] : n_live) - pos;
@@ -349,17 +209,17 @@ __device__ __forceinline__ int hash_count(const unsigned long long* hkey,
 // Counts the segment's rows [base, base + 8,192) of keys[0, n) into the
 // hash; returns the number of distinct keys, or -1 once more than
 // kHashLimit have been claimed, or when more than 7/8 of the live keys
-// among the first kDedupThreads rows (~4 consecutive reads) are distinct
+// among the first kThreads rows (~4 consecutive reads) are distinct
 // (random keys: a sort of all rows is the way, and the rest of the hash
 // would be wasted; the reads of a sorted 40x BAM repeat ~1/2 of them).  Threads stop inserting at their next key after
-// the flag is raised, so at most kHashLimit + kDedupThreads of the
+// the flag is raised, so at most kHashLimit + kThreads of the
 // kHashSlots slots are ever claimed and every probe sequence ends.
 __device__ __forceinline__ int hash_count_segment(
     const long long* __restrict__ keys, long long n, long long base,
     unsigned long long* hkey, int* hcount, int* n_distinct, int* n_live,
     int* overflow) {
   const int t = threadIdx.x;
-  for (int s = t; s < kHashSlots; s += kDedupThreads) {
+  for (int s = t; s < kHashSlots; s += kThreads) {
     hkey[s] = kSentinel;  // empty: the sentinel is never inserted
     hcount[s] = 0;
   }
@@ -371,7 +231,7 @@ __device__ __forceinline__ int hash_count_segment(
   __syncthreads();
   // one row of the segment: a live key claims a slot or finds its own
   const auto insert = [&](long long r) {
-    const long long i = base + t + r * kDedupThreads;
+    const long long i = base + t + r * kThreads;
     const long long k = i < n ? __ldg(keys + i) : kSentinel;
     if (r == 0) {  // the first round counts its live rows, a warp at once
       const unsigned live = __ballot_sync(0xFFFFFFFFu, k != kSentinel);
@@ -411,14 +271,14 @@ __device__ __forceinline__ int hash_count_segment(
 // K9d over segment blockIdx.x of keys[0, n) (rows past n are sentinel):
 // the hash first, then one block_sort, of the compacted distinct keys
 // (weights from the hash) or of all rows (weights the run lengths).
-__global__ void __launch_bounds__(kDedupThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
     seg_dedup_kernel(const long long* __restrict__ keys, long long n,
                      long long* __restrict__ keys_out,
                      long long* __restrict__ weights_out,
                      int32_t* __restrict__ counts) {
   extern __shared__ long long smem[];
-  __shared__ int sums[kDedupWarps];
-  __shared__ long long warp_last[kDedupWarps];
+  __shared__ int sums[kWarps];
+  __shared__ long long warp_last[kWarps];
   __shared__ int n_distinct;
   __shared__ int n_live;
   __shared__ int overflow;
@@ -437,12 +297,12 @@ __global__ void __launch_bounds__(kDedupThreads, 2)
     // t + 512 r (coalesced) as its elements 16 t + r
 #pragma unroll
     for (int r = 0; r < kRegs; ++r) {
-      const long long i = base + t + r * kDedupThreads;
+      const long long i = base + t + r * kThreads;
       key[r] = i < n ? __ldg(keys + i) : kSentinel;
     }
   } else {
     // the occupied slots, 8 a thread, compacted into buf by a scan
-    constexpr int kPer = kHashSlots / kDedupThreads;
+    constexpr int kPer = kHashSlots / kThreads;
     buf = smem + kHashSlots + kHashSlots / 2;
     int occupied = 0;
 #pragma unroll
@@ -470,7 +330,8 @@ __global__ void __launch_bounds__(kDedupThreads, 2)
     }
     __syncthreads();  // every load done before the sort stores into buf
   }
-  block_sort(key, log_p, buf);
+  int none[kRegs];  // no payload: never read
+  block_sort<kdf::Sort::kKeys>(key, none, log_p, buf, nullptr);
   if (distinct < 0) {
     write_runs(key, smem, reinterpret_cast<int*>(smem + kSegment), sums,
                warp_last, keys_out + base, weights_out + base,
@@ -484,30 +345,12 @@ __global__ void __launch_bounds__(kDedupThreads, 2)
     for (int r = 0; r < kRegs; ++r) buf[swizzle(t * kRegs + r)] = key[r];
   }
   __syncthreads();
-  for (int i = t; i < distinct; i += kDedupThreads) {
+  for (int i = t; i < distinct; i += kThreads) {
     const long long k = buf[swizzle(i)];
     keys_out[base + i] = k;
     weights_out[base + i] = hash_count(hkey, hcount, k);
   }
   if (t == 0) counts[blockIdx.x] = distinct;
-}
-
-// Opts *kernel* in to *bytes* of dynamic shared memory on the current
-// device, once: *done* holds a bit for each device (0..63) already set, so
-// later launches skip the runtime call.
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, size_t bytes,
-                        std::atomic<uint64_t>& done) {
-  int device;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
 }
 
 std::atomic<uint64_t> sort_opted_in{0};
@@ -524,19 +367,22 @@ extern "C" int kdf_seg_sort(const void* keys, const void* payload,
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* k = static_cast<const long long*>(keys);
   auto* ko = static_cast<long long*>(keys_out);
+  const auto blocks = static_cast<unsigned>(n_segments);
   cudaError_t err;
   if (payload != nullptr) {
-    err = opt_in_smem(seg_sort_kernel<true>, kSmemBytes, sort_payload_opted_in);
+    constexpr size_t bytes = sort_smem_bytes(true);
+    err = kdf::opt_in_smem(seg_sort_kernel<true>, bytes,
+                           sort_payload_opted_in);
     if (err != cudaSuccess) return static_cast<int>(err);
-    seg_sort_kernel<true><<<static_cast<unsigned>(n_segments), kThreads,
-                            kSmemBytes, s>>>(
+    seg_sort_kernel<true><<<blocks, kThreads, bytes, s>>>(
         k, static_cast<const int32_t*>(payload), ko,
         static_cast<int32_t*>(payload_out));
   } else {
-    err = opt_in_smem(seg_sort_kernel<false>, kSmemBytes, sort_opted_in);
+    constexpr size_t bytes = sort_smem_bytes(false);
+    err = kdf::opt_in_smem(seg_sort_kernel<false>, bytes, sort_opted_in);
     if (err != cudaSuccess) return static_cast<int>(err);
-    seg_sort_kernel<false><<<static_cast<unsigned>(n_segments), kThreads,
-                             kSmemBytes, s>>>(k, nullptr, ko, nullptr);
+    seg_sort_kernel<false><<<blocks, kThreads, bytes, s>>>(k, nullptr, ko,
+                                                           nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -548,10 +394,10 @@ extern "C" int kdf_seg_sort(const void* keys, const void* payload,
 extern "C" int kdf_seg_dedup(const void* keys, long long n, void* keys_out,
                              void* weights_out, void* counts, void* stream) {
   const cudaError_t err =
-      opt_in_smem(seg_dedup_kernel, kDedupSmemBytes, dedup_opted_in);
+      kdf::opt_in_smem(seg_dedup_kernel, kDedupSmemBytes, dedup_opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   seg_dedup_kernel<<<static_cast<unsigned>((n + kSegment - 1) / kSegment),
-                     kDedupThreads, kDedupSmemBytes,
+                     kThreads, kDedupSmemBytes,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(keys), n,
       static_cast<long long*>(keys_out), static_cast<long long*>(weights_out),

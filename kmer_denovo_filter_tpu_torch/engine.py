@@ -68,7 +68,7 @@ from kmer_denovo_filter_tpu_torch.ops.probe import (
     probe_tally_wide,
     probe_tally_weighted,
 )
-from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup
+from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup, seg_dedup_wide
 
 logger = logging.getLogger(__name__)
 
@@ -129,12 +129,12 @@ def _rows(keys, index):
 
 def _tally(keys, index, acc, weights=None, counts=None):
     """``acc += `` the tally of *keys* (weighted when *weights* is
-    given, on K9d's slots when *counts* is): K2 or K3 through the
-    index's directory, or K7 (both forms) through it for a (M, Q)
+    given, on K9d's or K9dw's slots when *counts* is): K2 or K3 through
+    the index's directory, or K7 (both forms) through it for a (M, Q)
     table."""
     if index.table.dim() == 2:
         return probe_tally_wide(keys, index.table, acc, weights,
-                                index.directory)
+                                index.directory, counts)
     if weights is None:
         return probe_tally(keys, index.table, acc, index.directory)
     return probe_tally_weighted(keys, weights, index.table, acc,
@@ -428,9 +428,12 @@ class FilteredCounter:
       chunks, then the weighted tally).
 
     For k > 31 the same forms run K1w → K7 unweighted (the reference's
-    ``join_tally_flat_wide``) and K1w →
-    :func:`~.ops.device.dedup_windows_wide` → K7 weighted
-    (``join_tally_flat_wide_dedup``).
+    ``join_tally_flat_wide``) and K1w → K9dw
+    (:func:`~.ops.segsort.seg_dedup_wide`: each segment's distinct limb
+    rows and multiplicities, left in its slot) → K7 weighted on those
+    slots, again with no host sync (``join_tally_flat_wide_dedup``:
+    ``_dedup_compact_wide`` over 8,192-row local chunks, then the
+    weighted tally).
     """
 
     def __init__(self, index, dedup=False):
@@ -448,12 +451,10 @@ class FilteredCounter:
         flat = win.flatten(0, 1)
         if not self.dedup:
             _tally(flat, self.index, self.acc)
-        elif flat.dim() == 2:
-            keys, weights = dev.dedup_windows_wide(flat)
-            _tally(keys, self.index, self.acc, weights)
-        else:
-            keys, weights, counts = seg_dedup(flat)
-            _tally(keys, self.index, self.acc, weights, counts)
+            return
+        dedup = seg_dedup_wide if flat.dim() == 2 else seg_dedup
+        keys, weights, counts = dedup(flat)
+        _tally(keys, self.index, self.acc, weights, counts)
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""

@@ -1,5 +1,5 @@
-"""K1, K1w, K2, K3, K4, K7, K8 and K9d of one checkout, each read three
-ways on the card:
+"""K1, K1w, K2, K3, K4, K7, K8, K9, K9d and K9dw of one checkout, each
+read three ways on the card:
 
 * ``device``: ``ops.timing.timings``' first reading, the calls queued
   behind a spin, the timer of ``chip_smoke.py`` and the experiments;
@@ -25,7 +25,14 @@ and weighted on the batch dedup) and K8
 (found bytes, rows) at k = 63 on 2,048, 4,096, 262,144 and 2**24 rows
 and at k = 201 on 1,024, 4,096 and 2**22, half drawn from the batch
 (2,048 and 1,024 rows are tables that a form staging them in shared
-memory would hold).  Where the checkout has the prefix directory
+memory would hold).  K9 with and without its payload on the k = 31 keys
+of both batches; K9dw, where the checkout has it, beside the whole-batch
+dedup ``dedup_windows_wide`` and ``torch.unique(dim=0)``, and the wide
+step from the codes to the tally at k = 63, 2**24 rows and k = 201,
+2**22 rows, in every form the checkout has (K1w -> K7, K1w ->
+``dedup_windows_wide`` -> K7 weighted, K1w -> K9dw -> K7 on the slots,
+and K7 on the slots alone), on the random batch and a 40x batch of
+152 bp (256 bp at k = 201).  Where the checkout has the prefix directory
 (``ops/directory.py``), K2 and K4 get it built once per table, as the
 engine does, and so do K7 and K8 where its wide wrappers take a
 directory (its build timed as ``dir wide``).
@@ -37,7 +44,7 @@ so two checkouts compare under one timer::
         [--root CHECKOUT] [--tag NAME] [--kernels K1,K3,...]
 
 ``--kernels`` keeps only the named groups (K1, K1w, K2, K3, K4, K7, K8,
-K9d, step, dir; default all).
+K9, K9d, K9dw, step, wstep, dir; default all).
 
 Run it as a file: *CHECKOUT* (default: the one that holds this file) goes
 first on ``sys.path`` and its package is imported.  Every output is
@@ -59,8 +66,10 @@ B, L, L_K201, ROW, M, REPS = 32768, 152, 256, 1 << 20, 4096, 20
 PROBE_MS = (4096, 262144, 1 << 20, 1 << 24)
 WIDE_MS = {63: (2048, 4096, 262144, 1 << 24), 201: (1024, 4096, 1 << 22)}
 GROUP, GROUP_B = 8, 4096
-GROUPS = ("K1", "K1w", "K2", "K3", "K4", "K7", "K8", "K9d", "step", "dir")
+GROUPS = ("K1", "K1w", "K2", "K3", "K4", "K7", "K8", "K9", "K9d", "K9dw",
+          "step", "wstep", "dir")
 STEP_M = 1 << 24
+WSTEP_M = {63: 1 << 24, 201: 1 << 22}
 
 
 def load_timing():
@@ -346,6 +355,90 @@ def main(argv=None):
             time_it("step", f"{name} M={table.shape[0]} {label}",
                     lambda: step(acc))
 
+    def k9(label, flat):
+        """K9 with and without its payload on *flat*, checked against its
+        plain version (every (key, payload) pair once)."""
+        from kmer_denovo_filter_tpu_torch.experiments.x_fused import (
+            pair_order,
+        )
+        payload = torch.arange(flat.numel(), dtype=torch.int32, device=cuda)
+        keys, pay = segsort.seg_sort(flat, payload)
+        ref_keys, ref_pay = dev.segment_sort(
+            segsort.segments(flat, keys64.SENTINEL),
+            segsort.segments(payload, -1))
+        check(f"K9 {label} keys", keys, ref_keys)
+        for got, ref in zip(pair_order(keys, pay),
+                            pair_order(ref_keys, ref_pay)):
+            check(f"K9 {label} pairs", got, ref)
+        time_it("K9", f"k=31 {label}", lambda: segsort.seg_sort(flat, payload))
+        time_it("K9 keys", f"k=31 {label}", lambda: segsort.seg_sort(flat))
+
+    has_k9dw = hasattr(segsort, "seg_dedup_wide")
+
+    def k9dw(label, k, flat):
+        """K9dw on the (N, Q) rows *flat*, where the checkout has it,
+        checked against its plain version; the whole-batch dedups."""
+        if has_k9dw:
+            got = segsort.seg_dedup_wide(flat)
+            ref = dev.segment_runs_wide(segsort.segments(flat,
+                                                         keys64.SENTINEL))
+            check(f"K9dw k={k} {label} counts", got[2], ref[2])
+            for g, w in zip(compact(*got), compact(*ref)):
+                check(f"K9dw k={k} {label} rows", g, w)
+            time_it("K9dw", f"k={k} {label}",
+                    lambda: segsort.seg_dedup_wide(flat))
+        time_it("K9dw batch", f"k={k} {label}",
+                lambda: dev.dedup_windows_wide(flat))
+        time_it("K9dw unique", f"k={k} {label}", lambda: torch.unique(
+            flat, dim=0, sorted=True, return_counts=True))
+
+    def wide_step(label, k, codes, lengths):
+        """K1w's rows to the tally at WSTEP_M[k] table rows in each form
+        the checkout has, checked against the plain tally."""
+        flat = extract.extract_canonical_wide(codes, lengths, k).flatten(0, 1)
+        m = WSTEP_M[k]
+        table = wide_table(flat, k, m)
+        dargs = wide_directory_args(table)
+        d = dargs[0] if dargs else None
+        ref = dev.small_table_tally_wide(table, flat)
+
+        def keys():
+            return extract.extract_canonical_wide(codes, lengths,
+                                                  k).flatten(0, 1)
+
+        def dedup_step(acc):
+            uniq, weights = dev.dedup_windows_wide(keys())
+            return probe.probe_tally_wide(uniq, table, acc, weights, *dargs)
+
+        forms = {
+            "K1w->K7": lambda acc: probe.probe_tally_wide(keys(), table, acc,
+                                                          None, *dargs),
+            "K1w->dedup->K7w": dedup_step,
+        }
+        if has_k9dw:
+            slots = segsort.seg_dedup_wide(flat)
+            acc = torch.zeros_like(ref)
+            probe.probe_tally_wide(slots[0], table, acc, slots[1], d,
+                                   slots[2])
+            check(f"K7 slots k={k} {label}", acc, ref)
+            time_it("wstep", f"K7 slots k={k} M={m} {label}",
+                    lambda: probe.probe_tally_wide(slots[0], table, acc,
+                                                   slots[1], d, slots[2]))
+
+            def slots_step(acc):
+                s_keys, s_weights, s_counts = segsort.seg_dedup_wide(keys())
+                return probe.probe_tally_wide(s_keys, table, acc, s_weights,
+                                              d, s_counts)
+
+            forms["K1w->K9dw->K7"] = slots_step
+        for name, step in forms.items():
+            acc = torch.zeros_like(ref)
+            step(acc)
+            check(f"wstep {name} k={k} {label}", acc, ref)
+            time_it("wstep", f"{name} k={k} M={m} {label}",
+                    lambda: step(acc))
+        del table, dargs, d, ref
+
     rng = np.random.default_rng(0)
     batches = {}
     for length in (L, L_K201):
@@ -357,8 +450,8 @@ def main(argv=None):
     row = (torch.from_numpy(row_np).to(cuda),
            torch.tensor([ROW], dtype=torch.int32, device=cuda))
 
-    narrow = {"K1", "K2", "K3", "K4", "K9d", "step"}
-    wide = {"K1w", "K7", "K8", "dir"}
+    narrow = {"K1", "K2", "K3", "K4", "K9", "K9d", "step"}
+    wide = {"K1w", "K7", "K8", "K9dw", "wstep", "dir"}
     for k in (31, 33, 63, 127, 151, 201):
         if not wanted & (narrow if k <= 31 else wide):
             continue
@@ -387,8 +480,14 @@ def main(argv=None):
                 for i in range(GROUP)])
             group = kernel(group_codes, group_lengths, k).reshape(-1)
             probes("random", codes, lengths, got.reshape(-1), group)
-        if k in WIDE_MS:
+            if "K9" in wanted:
+                k9("random", got.reshape(-1))
+        if k in WIDE_MS and wanted & {"K7", "K8", "dir"}:
             wide_probes(k, got.flatten(0, 1))
+        if k in WSTEP_M and "K9dw" in wanted:
+            k9dw("random", k, got.flatten(0, 1))
+        if k in WSTEP_M and "wstep" in wanted:
+            wide_step("random", k, codes, lengths)
     rng_40x = np.random.default_rng(4)
     genome = rng_40x.integers(0, 4, 4 << 20, dtype=np.uint8)
     codes = torch.from_numpy(synth_reads(rng_40x, genome, B, L)).to(cuda)
@@ -397,6 +496,20 @@ def main(argv=None):
         probes("40x", codes, lengths,
                extract.extract_canonical(codes, lengths, 31).reshape(-1),
                None)
+    if "K9" in wanted:
+        k9("40x", extract.extract_canonical(codes, lengths, 31).reshape(-1))
+    if wanted & {"K9dw", "wstep"}:
+        codes_256 = torch.from_numpy(
+            synth_reads(rng_40x, genome, B, L_K201)).to(cuda)
+        lengths_256 = torch.full((B,), L_K201, dtype=torch.int32,
+                                 device=cuda)
+        for k, (c, l) in ((63, (codes, lengths)),
+                          (201, (codes_256, lengths_256))):
+            if "K9dw" in wanted:
+                k9dw("40x", k, extract.extract_canonical_wide(
+                    c, l, k).flatten(0, 1))
+            if "wstep" in wanted:
+                wide_step("40x", k, c, l)
     print(json.dumps({"timer_ab": args.tag, "rows": rows}), flush=True)
 
 

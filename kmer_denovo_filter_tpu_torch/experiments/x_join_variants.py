@@ -57,6 +57,7 @@ from kmer_denovo_filter_tpu_torch.ops.extract import (
 from kmer_denovo_filter_tpu_torch.ops.probe import (
     probe_tally,
     probe_tally_weighted,
+    probe_tally_wide,
 )
 
 COMMANDS = ("v5", "kernel", "xextract", "xextract3", "xmicro")
@@ -92,6 +93,29 @@ class BatchDedupCounter(SegmentDedupCounter):
         keys, weights = dev.dedup_windows(win.reshape(-1))
         probe_tally_weighted(keys, weights, self.index.table, self.acc,
                              self.index.directory)
+
+
+class WideBatchDedupCounter(eng.FilteredCounter):
+    """The wide parent filter with a whole-batch dedup: K1w ->
+    :func:`~kmer_denovo_filter_tpu_torch.ops.device.dedup_windows_wide`
+    (Q stable sorts and a host sync) -> K7 weighted on the flat (row,
+    weight) stream, the engine's wide dedup form before K9dw; k > 31
+    only (``chip_smoke.py`` phase 5c's third form)."""
+
+    def __init__(self, index):
+        if index.k <= keys64.NARROW_K:
+            raise ValueError(f"the wide batch form takes k > "
+                             f"{keys64.NARROW_K}, got k={index.k}")
+        super().__init__(index, dedup=True)
+
+    def feed(self, codes, lengths):
+        win = eng._window_keys(codes, lengths, self.index.k,
+                               self.index.device)
+        if win is None:
+            return
+        keys, weights = dev.dedup_windows_wide(win.flatten(0, 1))
+        probe_tally_wide(keys, self.index.table, self.acc, weights,
+                         self.index.directory)
 
 
 def _sync(device):

@@ -115,6 +115,9 @@ def lib():
             so.kdf_seg_sort.restype = i32
             so.kdf_seg_dedup.argtypes = [ptr, i64, ptr, ptr, ptr, ptr]
             so.kdf_seg_dedup.restype = i32
+            so.kdf_seg_dedup_wide.argtypes = [ptr, i64, i32, ptr, ptr, ptr,
+                                              ptr]
+            so.kdf_seg_dedup_wide.restype = i32
             so.kdf_build_directory.argtypes = [ptr, i32, i32, i32, i32, ptr,
                                                ptr]
             so.kdf_build_directory.restype = i32
@@ -130,8 +133,8 @@ def lib():
             so.kdf_extract_canonical_wide.argtypes = [ptr, ptr, ptr, i32,
                                                       i32, i32, ptr]
             so.kdf_extract_canonical_wide.restype = i32
-            so.kdf_probe_tally_wide.argtypes = [ptr, ptr, i64, ptr, ptr, i32,
-                                                i32, i32, ptr, ptr]
+            so.kdf_probe_tally_wide.argtypes = [ptr, ptr, ptr, i64, ptr, ptr,
+                                                i32, i32, i32, ptr, ptr]
             so.kdf_probe_tally_wide.restype = i32
             so.kdf_probe_member_wide.argtypes = [ptr, i64, ptr, ptr, i32, i32,
                                                  i32, ptr, ptr, ptr]

@@ -19,15 +19,15 @@ search (``torch.searchsorted``): on a GPU the probe is O(N log M) where
 the TPU sweep was O(N·M).
 
 Wide keys (k = 33..207) are (N, Q) int64 limb rows.  Their functions
-(``*_wide``, the plain versions of kernels K1w, K7 and K8) reduce rows
-to int64 ranks by :func:`unique_rows` (Q stable sorts) and then search
-in one dimension.  The JAX wide path's route hash
+(``*_wide``, the plain versions of kernels K1w, K7, K8 and K9dw) reduce
+rows to int64 ranks by :func:`unique_rows` (Q stable sorts) and then
+search in one dimension.  The JAX wide path's route hash
 (``pallas_join.route_hash_np``/``_route_hash``), tile partitions
-(``build_tile_partitions_wide``), routing (``_route_wide``), chunk-local
-compaction (``_dedup_compact_wide``) and VMEM window ladders
-(``max_wide_w_part_tally``/``_member``, ``wide_dd_w_part_cap``) are TPU
-workarounds with no counterpart: a binary search has no window and no
-capacity that can overflow.
+(``build_tile_partitions_wide``), routing (``_route_wide``), the
+log-shift compaction and ``u_chunk`` capacity of ``_dedup_compact_wide``
+and VMEM window ladders (``max_wide_w_part_tally``/``_member``,
+``wide_dd_w_part_cap``) are TPU workarounds with no counterpart: a
+binary search has no window and no capacity that can overflow.
 """
 
 import torch
@@ -135,10 +135,11 @@ def segment_runs(keys):
 
 def segment_compact(keys, weights, counts):
     """The first counts[s] rows of each row s of (S, 8192) *keys* and
-    *weights* (kernel K9d's slots), as one (U,) stream of keys and one
-    of weights, in row order.  On the card the boolean gather reads the
-    total back to the host (a sync); kernel K3 reads the slots in place
-    and needs none of it."""
+    *weights* (kernel K9d's slots; (S, 8192, Q) keys for K9dw's), as one
+    (U,) stream of keys ((U, Q) rows) and one of weights, in row order.
+    On the card the boolean gather reads the total back to the host (a
+    sync); kernels K3 and K7 read the slots in place and need none of
+    it."""
     live = (torch.arange(keys.shape[1], device=keys.device)[None, :]
             < counts[:, None])
     return keys[live], weights[live]
@@ -302,11 +303,37 @@ def unique_rows(rows):
 
 def dedup_windows_wide(flat):
     """Distinct rows of a flat (N, Q) window stream, ascending (a
-    sentinel row, if any, last), with int64 multiplicities: the batch
-    dedup in front of the weighted K7 (the JAX dedup-first front half,
-    ``pallas_join._dedup_compact_wide``, over the whole batch)."""
+    sentinel row, if any, last), with int64 multiplicities: the JAX
+    dedup-first front half, ``pallas_join._dedup_compact_wide``, over
+    the whole batch (kernel K9dw, ``segsort.seg_dedup_wide``, is the
+    segment-local form the engine runs in front of K7 weighted)."""
     uniq, _inverse, counts = unique_rows(flat)
     return uniq, counts
+
+
+def segment_runs_wide(rows):
+    """Per-segment run-length count of (S, 8192, Q) limb rows: the plain
+    version of kernel K9dw (``segsort.seg_dedup_wide``).  Returns
+    (S, 8192, Q) int64 keys, (S, 8192) int64 weights and (S,) int32
+    counts: segment s holds its counts[s] distinct live rows ascending
+    with their multiplicities at the front, then :data:`SENTINEL` rows of
+    weight 0.  Sentinel rows form no run."""
+    s, seg, q = rows.shape
+    sid = torch.arange(s, device=rows.device).repeat_interleave(seg)
+    uniq, _inverse, weights = unique_rows(
+        torch.cat([sid[:, None], rows.reshape(-1, q)], 1))
+    live = uniq[:, 1] != SENTINEL
+    uniq, weights = uniq[live], weights[live]
+    useg = uniq[:, 0]
+    counts = torch.bincount(useg, minlength=s)
+    rank = (torch.arange(useg.shape[0], device=rows.device)
+            - (counts.cumsum(0) - counts)[useg])
+    out_keys = torch.full_like(rows, SENTINEL)
+    out_weights = torch.zeros((s, seg), dtype=torch.int64,
+                              device=rows.device)
+    out_keys[useg, rank] = uniq[:, 1:]
+    out_weights[useg, rank] = weights
+    return out_keys, out_weights, counts.to(torch.int32)
 
 
 def sort_count_wide(flat):
@@ -334,7 +361,8 @@ def weighted_tally_wide(table, keys, weights, acc):
     """``acc[j] += sum(weights[i] : keys[i] == table[j])`` over limb rows,
     in place; returns *acc*.  *table*: (M, Q) int64 sorted (trailing
     sentinel rows allowed); *keys*: (N, Q); *weights*: (N,) int64;
-    *acc*: (M,) int64.  The plain version of kernel K7, weighted."""
+    *acc*: (M,) int64.  The plain version of kernel K7, weighted (of its
+    slots form after :func:`segment_compact`)."""
     if table.shape[0] == 0 or keys.shape[0] == 0:
         return acc
     idx, hit = _locate_wide(table, keys)

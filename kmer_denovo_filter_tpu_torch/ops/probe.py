@@ -23,10 +23,11 @@ builds it.
 K7 (``probe_tally_wide``) is the counterpart of the wide tile join
 ``pallas_join._tally_kernel_wide`` (:1905) in both its forms: unweighted
 via ``join_tally_flat_wide`` (:2180) and weighted via
-``join_tally_flat_wide_dedup`` (:1564).  Keys are (N, Q) int64 limb rows
-(:mod:`.keys`); its CUDA kernel is in ``csrc/probe_wide.cu`` and
-searches through the table's prefix directory over limb 0, passed in or
-built as for K2.
+``join_tally_flat_wide_dedup`` (:1564), flat or on kernel K9dw's
+per-segment slots (``segsort.seg_dedup_wide``) read in place.  Keys are
+(N, Q) int64 limb rows (:mod:`.keys`); its CUDA kernel is in
+``csrc/probe_wide.cu`` and searches through the table's prefix directory
+over limb 0, passed in or built as for K2.
 
 CPU tensors take the plain PyTorch versions in :mod:`.device`.
 """
@@ -175,7 +176,8 @@ def check_wide_probe_args(keys, table, others):
     return _check_tensors(keys, table, others)
 
 
-def probe_tally_wide(keys, table, acc, weights=None, directory=None):
+def probe_tally_wide(keys, table, acc, weights=None, directory=None,
+                     counts=None):
     """``acc[j] += #{i : keys[i] == table[j]}``, or the sum of
     ``weights[i]`` over those i when *weights* is given, in place;
     returns *acc*.
@@ -184,29 +186,56 @@ def probe_tally_wide(keys, table, acc, weights=None, directory=None):
     (M, Q) int64 rows ascending, unique apart from trailing sentinel
     rows (which count 0).  *acc*: (M,) int64.  *weights*: (N,) int64,
     normally the multiplicities of a batch's distinct keys
-    (:func:`.device.dedup_windows_wide`).  *directory*: the table's
+    (:func:`.device.dedup_windows_wide`); or, with *counts*, kernel
+    K9dw's (S, 8192, Q) slots and (S, 8192) weights with (S,) int32
+    counts (:func:`.segsort.seg_dedup_wide`), of which only the first
+    counts[s] of segment s are read.  *directory*: the table's
     :class:`~.directory.Directory` (over limb 0), or None.  A CUDA
     tensor launches kernel K7 (building the directory first when none
     is given); a CPU tensor runs the plain version, which needs no
     directory.
     """
     global wide_launches, wide_weighted_launches
+    flat_keys, flat_weights = keys, weights
+    if counts is not None:
+        if (keys.dim() != 3 or keys.shape[1] != SEGMENT or weights is None
+                or weights.shape != keys.shape[:2]
+                or counts.shape != keys.shape[:1]
+                or counts.dtype != torch.int32
+                or counts.device != keys.device):
+            raise ValueError(
+                f"expected (S, {SEGMENT}, Q) slots, (S, {SEGMENT}) weights "
+                f"and (S,) int32 counts on their device, got "
+                f"{tuple(keys.shape)}, "
+                f"{None if weights is None else tuple(weights.shape)} and "
+                f"{tuple(counts.shape)} {counts.dtype}")
+        flat_keys = keys.reshape(-1, keys.shape[2])
+        flat_weights = weights.reshape(-1)
     others = [("acc", acc, table.shape[:1])]
     if weights is not None:
-        others.append(("weights", weights, keys.shape[:1]))
-    if check_wide_probe_args(keys, table, others) == "cpu":
+        others.append(("weights", flat_weights, flat_keys.shape[:1]))
+    kind = check_wide_probe_args(flat_keys, table, others)
+    if kind == "cuda" and counts is not None and not (
+            keys.is_contiguous() and weights.is_contiguous()
+            and counts.is_contiguous()):
+        raise ValueError("probe tensors must be contiguous")
+    if kind == "cpu":
         if weights is None:
             acc += dev.small_table_tally_wide(table, keys)
             return acc
+        if counts is not None:
+            keys, weights = dev.segment_compact(keys, weights, counts)
         return dev.weighted_tally_wide(table, keys, weights, acc)
-    n, m = keys.shape[0], table.shape[0]
+    n, m = flat_keys.shape[0], table.shape[0]
     if n == 0 or m == 0:
         return acc
     d = tdir.directory_for(table, directory)
     with torch.cuda.device(keys.device):
         err = _cuda.lib().kdf_probe_tally_wide(
-            keys.data_ptr(), None if weights is None else weights.data_ptr(),
-            n, table.data_ptr(), d.offsets.data_ptr(), d.bits, d.shift,
+            flat_keys.data_ptr(),
+            None if weights is None else flat_weights.data_ptr(),
+            None if counts is None else counts.data_ptr(), n,
+            table.data_ptr(), d.offsets.data_ptr(), d.bits, d.shift,
             table.shape[1], acc.data_ptr(), _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally_wide")
     if weights is None:

@@ -1,5 +1,5 @@
-"""Kernel K9 and K9d wrappers: the segment-local sort and dedup of a flat
-window-key stream.
+"""Kernel K9, K9d and K9dw wrappers: the segment-local sort and dedup of
+a flat window-key stream.
 
 K9 (``seg_sort``) is the counterpart of the Pallas kernel
 ``scripts/x_fused.py:_sort_kernel`` (:133, via ``seg_sort_pallas`` :144),
@@ -7,39 +7,51 @@ an in-VMEM bitonic sort of each 8,192-row segment with one payload
 riding along.  K9d (``seg_dedup``) is the counterpart of
 ``kmer_denovo_filter_tpu/ops/pallas_join.py:_dedup_compact`` (:600), the
 XLA front half of the dedup-first tally: each segment's distinct keys
-with their multiplicities, left in the segment's slot.  Kernel K3
-(``probe.probe_tally_weighted``) reads those slots as they stand, so
-the engine's dedup form at k <= 31 is K1 -> K9d -> K3 with no
-compaction and no host sync between them.  Both CUDA kernels are in
-``csrc/seg_sort.cu``.
+with their multiplicities, left in the segment's slot.  K9dw
+(``seg_dedup_wide``) is the same for wide keys, (N, Q) limb rows, the
+counterpart of ``pallas_join._dedup_compact_wide`` (:1494).  Kernels K3
+(``probe.probe_tally_weighted``) and K7 (``probe.probe_tally_wide``)
+read those slots as they stand, so the engine's dedup form is K1 -> K9d
+-> K3, or K1w -> K9dw -> K7 for k > 31, with no compaction and no host
+sync between them.  K9 and K9d are in ``csrc/seg_sort.cu``, K9dw in
+``csrc/seg_dedup_wide.cu``; all three sort by the register network of
+``csrc/block_sort.cuh``.
 
 The stream is cut into segments of :data:`SEGMENT` rows, its tail padded
-with :data:`~.keys.SENTINEL` keys, as the JAX dedup pads its stream with
-the all-ones word (pallas_join.py:823); K9d reads the tail's padding as
-sentinels without a padded copy.  CPU tensors take the plain versions in
-:mod:`.device` (``segment_sort``, ``segment_runs``).
+with :data:`~.keys.SENTINEL` keys (rows), as the JAX dedup pads its
+stream with the all-ones word (pallas_join.py:823); K9d and K9dw read
+the tail's padding as sentinels without a padded copy.  CPU tensors take
+the plain versions in :mod:`.device` (``segment_sort``,
+``segment_runs``, ``segment_runs_wide``).
 """
 
 import torch
 
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
-from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+from kmer_denovo_filter_tpu_torch.ops.keys import (
+    MAX_K,
+    SENTINEL,
+    limbs_per_kmer,
+)
 
 SEGMENT = 8192  # rows a segment (pallas_join.LCHUNK_DD)
 
 # CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0        # K9
-dedup_launches = 0  # K9d
+launches = 0             # K9
+dedup_launches = 0       # K9d
+dedup_wide_launches = 0  # K9dw
 
 
 def segments(flat, fill):
     """(N,) *flat* padded with *fill* to a multiple of :data:`SEGMENT`,
-    as an (S, SEGMENT) contiguous tensor."""
+    as an (S, SEGMENT) contiguous tensor; (N, Q) rows padded with rows
+    of *fill*, as (S, SEGMENT, Q)."""
     pad = -flat.shape[0] % SEGMENT
     if pad:
-        flat = torch.cat([flat, flat.new_full((pad,), fill)])
-    return flat.reshape(-1, SEGMENT).contiguous()
+        flat = torch.cat([flat, flat.new_full((pad,) + flat.shape[1:],
+                                              fill)])
+    return flat.reshape((-1, SEGMENT) + flat.shape[1:]).contiguous()
 
 
 def _check(flat, payload=None):
@@ -115,4 +127,47 @@ def seg_dedup(flat):
             counts.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "seg_dedup")
     dedup_launches += 1
+    return keys, weights, counts
+
+
+def seg_dedup_wide(flat):
+    """Segment-local dedup of the (N, Q) int64 limb rows *flat* (Q in
+    2..7, the row form of :mod:`.keys`: limb 0 first, compared
+    row-lexicographically, the sentinel in every limb).
+
+    Returns ``(keys, weights, counts)``: (S, 8192, Q) int64 rows, (S,
+    8192) int64 weights and (S,) int32 counts, S = ceil(N / 8192).
+    Segment s begins with its counts[s] distinct live rows, ascending,
+    and their multiplicities; sentinel rows form no run.  What follows
+    in a segment is unspecified (the kernel leaves it unwritten).  A
+    CUDA tensor launches kernel K9dw (it must be contiguous); a CPU
+    tensor runs the plain version.
+    """
+    global dedup_wide_launches
+    if (flat.dim() != 2 or flat.dtype != torch.int64
+            or not 2 <= flat.shape[1] <= limbs_per_kmer(MAX_K)):
+        raise ValueError(f"expected (N, Q) int64 rows with Q in "
+                         f"2..{limbs_per_kmer(MAX_K)}, got "
+                         f"{tuple(flat.shape)} {flat.dtype}")
+    if flat.device.type == "cpu":
+        return dev.segment_runs_wide(segments(flat, SENTINEL))
+    if flat.device.type != "cuda":
+        raise ValueError(f"unsupported device {flat.device}")
+    if not flat.is_contiguous():
+        raise ValueError("seg_dedup_wide needs contiguous rows")
+    n, q = flat.shape
+    n_seg = -(-n // SEGMENT)
+    keys = torch.empty((n_seg, SEGMENT, q), dtype=torch.int64,
+                       device=flat.device)
+    weights = torch.empty((n_seg, SEGMENT), dtype=torch.int64,
+                          device=flat.device)
+    counts = torch.empty(n_seg, dtype=torch.int32, device=flat.device)
+    if n_seg == 0:
+        return keys, weights, counts
+    with torch.cuda.device(flat.device):
+        err = _cuda.lib().kdf_seg_dedup_wide(
+            flat.data_ptr(), n, q, keys.data_ptr(), weights.data_ptr(),
+            counts.data_ptr(), _cuda.stream_of(flat))
+    _cuda.check(err, "seg_dedup_wide")
+    dedup_wide_launches += 1
     return keys, weights, counts

@@ -610,6 +610,7 @@ def test_wide_engine_cuda_matches_cpu(cuda):
                for i in range(0, 3000, 1000)]
     queries = keys64.limbs_to_words(live[::2], k)
     results = []
+    segsort.dedup_wide_launches = 0
     for device in (cuda, torch.device("cpu")):
         plain = eng.make_filtered_counter(eng.KmerIndex(words, k,
                                                         device=device))
@@ -622,6 +623,7 @@ def test_wide_engine_cuda_matches_cpu(cuda):
                         eng.scan_reads_for_hits_many(idx, batches),
                         idx.counts_of(queries)))
     (p0, d0, m0, c0), (p1, d1, m1, c1) = results
+    assert segsort.dedup_wide_launches >= 3  # the dedup form: K9dw
     assert np.array_equal(p0, p1) and np.array_equal(d0, d1)
     assert np.array_equal(p0, d0) and p0.sum() > 0
     assert all(np.array_equal(a, b) for a, b in zip(m0, m1))
@@ -692,20 +694,210 @@ def test_seg_dedup_kernel_matches_plain(cuda, tail):
     assert torch.equal(counts.cpu(), cpu[2])
 
 
+def test_seg_sort_kernel_keeps_every_payload(cuda):
+    """K9 with a payload on segments of few distinct keys and a random
+    int32 payload with repeats: every (key, payload) pair lands once."""
+    rng = np.random.default_rng(5)
+    n = 3 * segsort.SEGMENT + 999
+    flat = torch.from_numpy(rng.integers(0, 6, n).astype(np.int64)).to(cuda)
+    payload = torch.from_numpy(
+        rng.integers(-50, 50, n).astype(np.int32)).to(cuda)
+    keys, pay = segsort.seg_sort(flat, payload)
+    ref_keys, ref_pay = dev.segment_sort(
+        segsort.segments(flat, keys64.SENTINEL), segsort.segments(payload, -1))
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref_keys)
+    got, ref = pair_order(keys, pay), pair_order(ref_keys, ref_pay)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
 def test_cuda_segsort_never_takes_the_plain_path(cuda, monkeypatch):
     def plain(*_args):
         raise AssertionError("a CUDA tensor reached the plain path")
-    monkeypatch.setattr(dev, "segment_sort", plain)
-    monkeypatch.setattr(dev, "segment_runs", plain)
-    monkeypatch.setattr(dev, "segment_compact", plain)
-    monkeypatch.setattr(dev, "weighted_tally", plain)
+    for name in ("segment_sort", "segment_runs", "segment_runs_wide",
+                 "segment_compact", "weighted_tally", "weighted_tally_wide"):
+        monkeypatch.setattr(dev, name, plain)
     flat = _segment_stream(3, 17).to(cuda)
     segsort.seg_sort(flat)
     keys, weights, counts = segsort.seg_dedup(flat)
     table = torch.unique(flat)
     probe.probe_tally_weighted(keys, weights, table, torch.zeros_like(table),
                                counts=counts)
+    rows = _wide_segment_stream(3, 3, 17).to(cuda)
+    keys, weights, counts = segsort.seg_dedup_wide(rows)
+    table = keys[0, :100].contiguous()
+    probe.probe_tally_wide(keys, table, torch.zeros(100, dtype=torch.int64,
+                                                    device=cuda),
+                           weights, counts=counts)
     torch.cuda.synchronize()
+
+
+# ── K9dw, the wide segment dedup, and K7 on its slots ─────────────────
+
+
+def _wide_segment_stream(seed, q, tail):
+    """(N, Q) limb rows in whole segments that the kernel's hash takes
+    (0: 40x-like with sentinels; 1: ~3,900 distinct rows; 2: limb-0 ties
+    of 4 rows that differ only in their last limb; 3: one row repeated)
+    and that it gives up on (4: random rows; 5: ~7,250 distinct rows all
+    tied on limb 0; 6-8: 512 random rows, then limb-0 ties of
+    duplicates, one row repeated, or 40 rows on one limb 0; 9: past
+    6,144 distinct rows), 10: all sentinel, and *tail* random rows, so
+    the last segment is ragged.  Segments 1, 2 and 9 draw their first
+    512 rows from a few rows, as consecutive reads repeat theirs."""
+    rng = np.random.default_rng(seed)
+    seg = segsort.SEGMENT
+    head = 512
+
+    def pool(n, limb0=None):
+        rows = rng.integers(0, 1 << 62, (n, q))
+        if limb0 is not None:
+            rows[:, 0] = limb0
+        return rows
+
+    def draw(rows, n=seg, first=None):
+        """n rows of *rows*, the first 512 of them from rows[:first]."""
+        out = rows[rng.integers(0, rows.shape[0], n)]
+        if first is not None:
+            out[:head] = rows[rng.integers(0, first, head)]
+        return out
+
+    ties = np.repeat(pool(1000), 4, axis=0)
+    ties[:, -1] = rng.integers(0, 1 << 62, ties.shape[0])
+    pairs = np.repeat(pool(500), 2, axis=0)
+    pairs[1::2, 1:] = rng.integers(0, 1 << 62, (500, q - 1))
+    parts = [
+        draw(pool(1100)),
+        draw(pool(5000), first=100),
+        draw(ties, first=400),
+        np.repeat(pool(1), seg, axis=0),
+        pool(seg),
+        draw(pool(4 * seg, limb0=7)),
+        np.concatenate([pool(head), draw(pairs, seg - head)]),
+        np.concatenate([pool(head), np.repeat(pool(1), seg - head, axis=0)]),
+        np.concatenate([pool(head), draw(pool(40, limb0=5), seg - head)]),
+        np.concatenate([draw(pool(100), head), pool(seg - head)]),
+        np.full((seg, q), keys64.SENTINEL),
+        pool(tail),
+    ]
+    flat = np.concatenate(parts).astype(np.int64)
+    flat[:seg][rng.random(seg) < 0.05] = keys64.SENTINEL
+    return torch.from_numpy(flat)
+
+
+@pytest.mark.parametrize("q", [2, 3, 7])
+@pytest.mark.parametrize("tail", [0, 5000])
+def test_seg_dedup_wide_kernel_matches_plain(cuda, q, tail):
+    """K9dw: every segment's count and live slots equal the plain
+    version's, on the hash's segments and on those it gives up on."""
+    flat = _wide_segment_stream(q + tail, q, tail).to(cuda)
+    before = segsort.dedup_wide_launches
+    keys, weights, counts = segsort.seg_dedup_wide(flat)
+    ref = dev.segment_runs_wide(segsort.segments(flat, keys64.SENTINEL))
+    torch.cuda.synchronize()
+    assert segsort.dedup_wide_launches == before + 1
+    assert keys.shape == (11 + (tail > 0), segsort.SEGMENT, q)
+    assert torch.equal(counts, ref[2])
+    assert counts[3] == 1 and counts[7] == 513 and counts[10] == 0
+    assert int(counts[5]) > 6144 and int(counts[9]) > 6144
+    for got, want in zip(dev.segment_compact(keys, weights, counts),
+                         dev.segment_compact(*ref)):
+        assert torch.equal(got, want)
+    cpu = segsort.seg_dedup_wide(flat.cpu())
+    assert torch.equal(counts.cpu(), cpu[2])
+
+
+def test_seg_dedup_wide_rejects_bad_tensors(cuda):
+    rows = _wide_segment_stream(1, 3, 0)[:1000].to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        segsort.seg_dedup_wide(rows.t().contiguous().t())
+    with pytest.raises(ValueError, match="int64"):
+        segsort.seg_dedup_wide(rows.to(torch.int32))
+    with pytest.raises(ValueError, match="Q in"):
+        segsort.seg_dedup_wide(rows[:, :1].contiguous())
+    keys, weights, counts = segsort.seg_dedup_wide(rows)
+    table = dev.unique_rows(rows)[0]
+    acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        probe.probe_tally_wide(torch.cat([keys, keys], 2)[..., :3], table,
+                               acc, weights, counts=counts)
+    with pytest.raises(ValueError, match="int32"):
+        probe.probe_tally_wide(keys, table, acc, weights,
+                               counts=counts.long())
+
+
+@pytest.mark.parametrize("kind,k", [("4096", 63), ("limb-0-tie", 63),
+                                    ("trailing-sentinels", 201)])
+def test_wide_probe_on_slots_matches_plain(cuda, kind, k):
+    """K7 weighted on K9dw's slots: rows of a 40x-like stream with stale
+    slots past each count; equal to the plain version (compaction +
+    weighted_tally_wide) and to K7 on the flat whole-batch dedup."""
+    table = torch.from_numpy(make_table_wide(kind, k)).to(cuda)
+    rng = np.random.default_rng(k)
+    live = table[table[:, 0] != keys64.SENTINEL].cpu().numpy()
+    rand = np.stack([rng.integers(0, 4 ** nb, 4000)
+                     for nb in keys64.limb_bases(k)], 1)
+    pool = np.concatenate([live, rand])
+    flat = torch.from_numpy(np.concatenate([
+        pool[rng.integers(0, pool.shape[0], 3 * segsort.SEGMENT + 777)],
+        np.full((300, table.shape[1]), keys64.SENTINEL)])).to(cuda)
+    keys, weights, counts = segsort.seg_dedup_wide(flat)
+    d = tdir.build_directory(table)
+    acc = torch.full((table.shape[0],), 5, dtype=torch.int64, device=cuda)
+    before = probe.wide_weighted_launches
+    probe.probe_tally_wide(keys, table, acc, weights, d, counts)
+    ref = 5 + dev.small_table_tally_wide(table, flat)
+    uniq, uniq_weights = dev.dedup_windows_wide(flat)
+    flat_acc = probe.probe_tally_wide(uniq, table, torch.full_like(acc, 5),
+                                      uniq_weights, d)
+    torch.cuda.synchronize()
+    assert probe.wide_weighted_launches == before + 2
+    assert torch.equal(acc, ref) and torch.equal(flat_acc, ref)
+    plain = dev.weighted_tally_wide(table, *dev.segment_compact(
+        keys, weights, counts), torch.full_like(acc, 5))
+    assert torch.equal(acc, plain) and int(ref.sum()) > 5 * acc.numel()
+
+
+def test_wide_probe_skips_stale_slots(cuda):
+    """Slots past each segment's count hold table rows; K7 never reads
+    them.  Counts 0, 8,192, 1 and 4,095."""
+    seg = segsort.SEGMENT
+    table = torch.stack([torch.arange(0, 3 * 4 * seg, 3),
+                         torch.arange(4 * seg)], 1).to(cuda)
+    keys = table.reshape(4, seg, 2).clone()
+    weights = torch.full((4, seg), 2, dtype=torch.int64, device=cuda)
+    counts = torch.tensor([0, seg, 1, 4095], dtype=torch.int32, device=cuda)
+    acc = torch.zeros(4 * seg, dtype=torch.int64, device=cuda)
+    probe.probe_tally_wide(keys, table, acc, weights, counts=counts)
+    want = dev.weighted_tally_wide(table, *dev.segment_compact(
+        keys, weights, counts), torch.zeros_like(acc))
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want) and int(acc.sum()) == 2 * (seg + 4096)
+
+
+@pytest.mark.parametrize("k", [63, 201])
+def test_wide_segment_step_makes_no_host_sync(cuda, k):
+    """K1w -> K9dw -> K7 on the slots, from the codes on the card to the
+    accumulator, with CUDA sync debugging set to raise."""
+    codes, lengths = (t.to(cuda) for t in _batch(29, n=4096, length=k + 60))
+    codes = torch.cat([codes, codes[:2000]])
+    lengths = torch.cat([lengths, lengths[:2000]])
+    flat = extract.extract_canonical_wide(codes, lengths, k).flatten(0, 1)
+    table = _wide_table_for(flat, 4096, k, cuda)
+    d = tdir.build_directory(table)
+    acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flat = extract.extract_canonical_wide(codes, lengths,
+                                              k).flatten(0, 1)
+        keys, weights, counts = segsort.seg_dedup_wide(flat)
+        probe.probe_tally_wide(keys, table, acc, weights, d, counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ref = dev.small_table_tally_wide(table, flat)
+    assert torch.equal(acc, ref) and int(ref.max()) > 1
 
 
 @pytest.mark.parametrize("kind", TABLES + ("2**20",))
