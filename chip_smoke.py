@@ -26,7 +26,8 @@ any failure exits non-zero before the result line:
    6,208, 10,367, 10,368} (the staged limits +- 1; checked only) and
    {4,096, 262,144, 2**20, 2**24} (timed): the directory
    (build_directory, kdf_build_directory) against its plain version and
-   timed apart, K2 through it, K4 through it on the flat windows and (on
+   timed apart beside its library call (one ``torch.searchsorted`` of the
+   shifted prefixes over the bucket numbers), K2 through it, K4 through it on the flat windows and (on
    the random batch) a stacked group of 8 x 4,096 reads; beside
    ``torch.isin`` for K4 and ``torch.searchsorted(table, keys)``, a
    search-only yardstick (not the same function) for both.
@@ -79,6 +80,12 @@ any failure exits non-zero before the result line:
    versions) must give byte-equal outputs (3 + 6), and K1w, the
    directory builder, K7 in both forms, K9dw and K8 must have been
    launched during the card runs.
+4d. Both CLIs as one process of a multi-host run: ``KDF_COORDINATOR``
+   (127.0.0.1, a free port), ``KDF_NUM_PROCESSES=1``,
+   ``KDF_PROCESS_ID=0``, so each joins an NCCL group on cuda:0; their
+   3 + 6 outputs must equal phases 4 and 4b byte for byte, then
+   ``kmer-report-torch`` (``cli.report_main``) writes its HTML from
+   them.  The group is destroyed after.
 5c. Wide scale, phase-5 recipe: the parent filter at k = 63, M = 2**24
    (every distinct key of the 16 batches plus random fill) and at
    k = 201, M = 2**22 on 3 batches of 256 bp reads, in three forms
@@ -99,6 +106,26 @@ any failure exits non-zero before the result line:
    spans), each device op's ms per batch, and the device's idle share
    against the loop's wall time with and without the profiler.
 
+8. The sharded engine (``parallel.sharded``) on one card: the mesh
+   ``[cuda:0] * S`` for S = 1, 2, 4, at k = 31 and 63, an M = 2**20
+   table (half of it keys of the first phase-5 batch), the phase-5
+   batches: ``ShardedFilteredCounter`` (both forms) equal to
+   ``FilteredCounter``, ``ShardedKmerIndex.membership`` to
+   ``KmerIndex.membership`` (2**20 windows of a batch, sentinels
+   included), ``sharded_scan_reads_for_hits`` to ``scan_reads_for_hits``
+   (8,192 reads), ``sharded_count`` to ``StreamCounter`` (a batch), on a
+   homopolymer batch (one owner takes every key) and an empty batch;
+   each shard's launches counted exactly.  Reads/s of both forms at
+   S = 1, 2, 4 beside the single-device form's, interleaved, and the
+   routing share of a batch's feed.  The stream count over 2 and 4
+   shards equal to ``StreamCounter``'s, with both rates.  The sharded
+   index's build time at M = 2**20, 2**22, 2**24 (k = 31) and 2**20,
+   2**22 (k = 63), S = 4, and its host steps timed alone.
+8b. A one-process NCCL group (``multihost.initialize``, tcp://127.0.0.1,
+   world size 1): ``sum_aligned`` on a CUDA tensor,
+   ``sharded_count_multihost`` (its ``all_to_all_single`` on the card)
+   and ``merge_counts_sharded`` of two halves at k = 31 and 63 equal to
+   the single-process results; then ``destroy_process_group``.
 7. Experiments: every ported command of ``experiments.x_fused`` (sort,
    prof, transposed, unroll2) and ``experiments.x_join_variants`` (v5,
    kernel, xextract, xextract3, xmicro) once, in this process, with 3
@@ -106,11 +133,13 @@ any failure exits non-zero before the result line:
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches in phases 4 and 4b (phase 4c for the wide kernels and K9dw,
-and the directory builder in 4, 4b and 4c; phases 5d and 7 for K9), its
+and the directory builder in 4, 4b and 4c; phases 5d and 7 for K9),
+those of phases 4d, 8 and 8b apart under ``launches_by_phase``, its
 largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
-move over 3.35 TB/s and its operations over 67 T/s) and the time of a
-PyTorch call that computes the same function where there is one; the
+move over 3.35 TB/s and its operations over 67 T/s; the directory of a
+wide table reads a 32-byte sector a row) and the time of a PyTorch call
+that computes the same function where there is one; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -118,6 +147,7 @@ import gzip
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -477,12 +507,19 @@ def phase_3w(rng, cuda, check, times):
             ms = device_ms(lambda: tdir.build_directory(table, m, max_key))
             plain_ms = device_ms(lambda: tdir.plain_directory(
                 table, m, d.bits, d.shift))
-            # limb 0 of each live row read, entries written; an entry or
-            # row a thread
-            lim = bound(8 * m + 4 * n_dir, m + n_dir)
-            times[("build_directory", "wide", k, m)] = (ms, plain_ms, lim)
+            prefixes = (table[:m, 0] >> d.shift).contiguous()
+            buckets = torch.arange(n_dir, dtype=torch.int64, device=cuda)
+            lib_ms = device_ms(lambda: torch.searchsorted(prefixes, buckets))
+            del prefixes, buckets
+            # limb 0 of each live row read: rows lie 8Q B apart, so each
+            # costs a 32-byte sector, or the whole row where 8Q < 32;
+            # entries written; an entry or row a thread
+            lim = bound(min(8 * q, 32) * m + 4 * n_dir, m + n_dir)
+            times[("build_directory", "wide", k, m)] = (ms, plain_ms, lim,
+                                                        lib_ms)
             print(f"[3w]   build_directory over limb 0: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {lim[0]:.4f} ms by "
+                  f"plain {plain_ms:.4f} ms, torch.searchsorted of the "
+                  f"prefixes {lib_ms:.4f} ms, bound {lim[0]:.4f} ms by "
                   f"{lim[1]}", flush=True)
             rows_hit = int((ref > 0).sum())
             # keys (and weights) read; per row hit its limbs read and its
@@ -600,11 +637,19 @@ def phase_3p(batches, cuda, check, times):
             ms = device_ms(lambda: tdir.build_directory(table, m, max_key))
             plain_ms = device_ms(lambda: tdir.plain_directory(
                 table, m, d.bits, d.shift))
-            # live rows read, entries written; an entry or row a thread
+            # the library call: one torch.searchsorted of the shifted
+            # prefixes over the bucket numbers
+            prefixes = (table[:m] >> d.shift).contiguous()
+            buckets = torch.arange(n_dir, dtype=torch.int64, device=cuda)
+            lib_ms = device_ms(lambda: torch.searchsorted(prefixes, buckets))
+            del prefixes, buckets
+            # live rows read (8 B each, contiguous), entries written; an
+            # entry or row a thread
             lim = bound(8 * m + 4 * n_dir, m + n_dir)
-            times[("build_directory", label, m)] = (ms, plain_ms, lim)
+            times[("build_directory", label, m)] = (ms, plain_ms, lim, lib_ms)
             print(f"[3p]   build_directory: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {lim[0]:.4f} ms by {lim[1]}",
+                  f"{plain_ms:.4f} ms, torch.searchsorted of the prefixes "
+                  f"{lib_ms:.4f} ms, bound {lim[0]:.4f} ms by {lim[1]}",
                   flush=True)
             ms = device_ms(lambda: probe.probe_tally(flat, table, acc, d))
             plain_ms = device_ms(
@@ -885,6 +930,442 @@ def phase_4c(cuda, reset_counts, read_counts):
           f"outputs byte-equal to the plain CPU run ({wall_cpu:.3f} s); "
           f"launches {launches_vcf} / {launches_disc}", flush=True)
     return launches_vcf, launches_disc
+
+
+def free_port():
+    """A free TCP port on 127.0.0.1 for a one-process group."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_4d(outputs_4, reset_counts, read_counts):
+    """Both CLIs as one process of a multi-host run (``KDF_COORDINATOR``
+    set, world size 1: the CLI joins an NCCL group on cuda:0); outputs
+    byte-equal to phases 4 and 4b; then ``kmer-report-torch`` on them.
+    Returns the launch counts of the two runs."""
+    from kmer_denovo_filter_tpu_torch import cli
+    from kmer_denovo_filter_tpu_torch.parallel import multihost
+    giab = os.path.join(REPO, "tests", "data", "giab")
+    goldens = os.path.join(REPO, "tests", "goldens")
+    trio = ["--child", os.path.join(giab, "HG002_child.bam"),
+            "--mother", os.path.join(giab, "HG004_mother.bam"),
+            "--father", os.path.join(giab, "HG003_father.bam")]
+    env = {"KDF_COORDINATOR": f"127.0.0.1:{free_port()}",
+           "KDF_NUM_PROCESSES": "1", "KDF_PROCESS_ID": "0"}
+    out = tempfile.mkdtemp(prefix="kdf_chip_smoke_")
+    os.environ.update(env)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.vcf_main(trio + [
+            "--vcf", os.path.join(giab, "candidates.vcf.gz"),
+            "--output", os.path.join(out, "annotated.vcf.gz"),
+            "--metrics", os.path.join(out, "metrics.json"),
+            "--summary", os.path.join(out, "summary.txt"),
+            "--proband-id", "HG002"])
+        torch.cuda.synchronize()
+        wall_vcf = time.perf_counter() - t0
+        launches_vcf = read_counts()
+        if not multihost.joined() or multihost.device() != torch.device(
+                "cuda", 0) or torch.distributed.get_backend() != "nccl":
+            fail("kmer-denovo-torch did not join an NCCL group on cuda:0")
+        prefix = os.path.join(out, "giab_discovery")
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.discovery_main(trio + [
+            "--ref-fasta", os.path.join(giab, "mini_ref.fa"),
+            "--ref-jf", os.path.join(giab, "mini_ref.fa.k31.jf"),
+            "--out-prefix", prefix, "--min-child-count", "3",
+            "--kmer-size", "31",
+            "--candidate-summary", os.path.join(goldens, "summary.txt")])
+        torch.cuda.synchronize()
+        wall_disc = time.perf_counter() - t0
+        launches_disc = read_counts()
+        for name, want in outputs_4.items():
+            opener = gzip.open if name.endswith(".gz") else open
+            with opener(os.path.join(out, name), "rb") as fh:
+                if fh.read() != want:
+                    fail(f"4d: {name} differs from phases 4 and 4b")
+        html = os.path.join(out, "report.html")
+        cli.report_main([
+            "--output", html,
+            "--vcf-metrics", os.path.join(out, "metrics.json"),
+            "--vcf-summary", os.path.join(out, "summary.txt"),
+            "--vcf", os.path.join(out, "annotated.vcf.gz"),
+            "--discovery-metrics", f"{prefix}.metrics.json",
+            "--discovery-summary", f"{prefix}.summary.txt"])
+        with open(html) as fh:
+            size = len(fh.read())
+        if size < 1000:
+            fail(f"kmer-report-torch wrote {size} characters")
+    finally:
+        multihost.shutdown()
+        for name in env:
+            os.environ.pop(name, None)
+        shutil.rmtree(out, ignore_errors=True)
+    for name, launches in (("extract_canonical", launches_vcf),
+                           ("probe_tally", launches_vcf),
+                           ("extract_canonical", launches_disc),
+                           ("seg_dedup", launches_disc),
+                           ("probe_tally_weighted", launches_disc),
+                           ("probe_member", launches_disc)):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched in phase 4d")
+    print(f"[4d] one-process NCCL run: kmer-denovo-torch {wall_vcf:.3f} s, "
+          f"kmer-discovery-torch {wall_disc:.3f} s, {len(outputs_4)} "
+          f"outputs byte-equal to phases 4 and 4b; kmer-report-torch wrote "
+          f"{size} characters of HTML; launches {launches_vcf} / "
+          f"{launches_disc}", flush=True)
+    return launches_vcf, launches_disc
+
+
+def table_words(rng, flat, m, k, cuda):
+    """(M, W) uint32 words of a sorted table of *m* keys, half of them
+    distinct live keys of *flat*, as ``make_table`` draws them."""
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    if k > keys64.NARROW_K:
+        return keys64.limbs_to_words(make_table_wide(rng, flat, m, k, cuda),
+                                     k)
+    return keys64.keys64_to_words(
+        make_table(rng, flat, m, k, keys64.SENTINEL, cuda), k)
+
+
+def phase_8(batches, cuda, card, reset_counts, read_counts):
+    """The sharded engine on one card, mesh [cuda:0] * S, S = 1, 2, 4, at
+    k = 31 and 63 against an M = 2**20 table on the phase-5 batches: every
+    sharded result equal to its single-device counterpart, every shard's
+    launches counted, and the feed's reads/s beside the single-device
+    form's.  Returns the launch counts of the sharded runs."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    from kmer_denovo_filter_tpu_torch.parallel import (
+        ShardedFilteredCounter,
+        ShardedKmerIndex,
+        sharded_count,
+        sharded_scan_reads_for_hits,
+    )
+    from kmer_denovo_filter_tpu_torch.parallel.sharded import (
+        _gather_by_owner,
+        _window_keys_by_source,
+    )
+    rng = np.random.default_rng(8)
+    lens = np.full(B, L, np.int32)
+    n_reads = len(batches) * B
+    total = {}
+
+    def counted(run):
+        """run() with the launch counts reset before it; adds them to the
+        phase's total and returns (result, counts)."""
+        reset_counts()
+        result = run()
+        torch.cuda.synchronize()
+        got = read_counts()
+        for name, n in got.items():
+            total[name] = total.get(name, 0) + n
+        return result, got
+
+    def feed_all(fc):
+        for c in batches:
+            fc.feed(c, lens)
+        torch.cuda.synchronize()
+        return fc
+
+    def rate(fc):
+        """reads/s of the feed loop (the counter is built before)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        feed_all(fc)
+        return n_reads / (time.perf_counter() - t)
+
+    homopolymer = np.zeros((GROUP_B, L), np.uint8)
+    hlens = np.full(GROUP_B, L, np.int32)
+    for k in (31, 63):
+        wide = k > keys64.NARROW_K
+        x = "_wide" if wide else ""
+        extract_name = "extract_canonical" + x
+        tally_name = "probe_tally" + x
+        weighted_name = ("probe_tally_wide_weighted" if wide
+                         else "probe_tally_weighted")
+        dedup_name = "seg_dedup_wide" if wide else "seg_dedup"
+        member_name = "probe_member" + x
+        flat = eng._window_keys(batches[0], lens, k, cuda).flatten(0, 1)
+        words = table_words(rng, flat, SCAN_M, k, cuda)
+        index = eng.KmerIndex(words, k, device=cuda)
+        singles = {}
+        for dedup in (False, True):
+            fc = feed_all(eng.FilteredCounter(index, dedup=dedup))
+            singles[dedup] = fc.result()
+        if not singles[False].any() or not np.array_equal(singles[False],
+                                                          singles[True]):
+            fail(f"8: k={k} single-device forms disagree or find nothing")
+        q_words = (keys64.limbs_to_words(flat[:1 << 20], k) if wide
+                   else keys64.keys64_to_words(flat[:1 << 20], k))
+        q_member = index.membership(q_words)
+        scan_codes, scan_lens = batches[1][:2 * GROUP_B], lens[:2 * GROUP_B]
+        scan_ref = eng.scan_reads_for_hits(index, scan_codes, scan_lens)
+        sc = eng.StreamCounter(k, device=cuda)
+        sc.feed(batches[2], lens)
+        count_ref = sc.result()
+        sc = eng.StreamCounter(k, device=cuda)
+        sc.feed(homopolymer, hlens)
+        homo_count_ref = sc.result()
+        homo_tally_ref = eng.FilteredCounter(index)
+        homo_tally_ref.feed(homopolymer, hlens)
+        homo_tally_ref = homo_tally_ref.result()
+        for s in (1, 2, 4):
+            mesh = [cuda] * s
+            for dedup in (False, True):
+                fc, got = counted(lambda: feed_all(ShardedFilteredCounter(
+                    words, k, mesh, dedup=dedup)))
+                if not np.array_equal(fc.result(), singles[dedup]):
+                    fail(f"8: k={k} S={s} ShardedFilteredCounter "
+                         f"(dedup={dedup}) differs from FilteredCounter")
+                want = {extract_name: s * len(batches),
+                        "build_directory": s}
+                if dedup:
+                    want.update({dedup_name: s * len(batches),
+                                 weighted_name: s * len(batches)})
+                else:
+                    want[tally_name] = s * len(batches)
+                for name, n in want.items():
+                    if got[name] != n:
+                        fail(f"8: k={k} S={s} dedup={dedup}: {name} "
+                             f"launched {got[name]} times, not {n}")
+            sharded, got = counted(lambda: ShardedKmerIndex(words, k, mesh))
+            member, got_m = counted(lambda: sharded.membership(q_words))
+            if not np.array_equal(member, q_member):
+                fail(f"8: k={k} S={s} ShardedKmerIndex.membership differs")
+            hits, got_s = counted(lambda: sharded_scan_reads_for_hits(
+                sharded, scan_codes, scan_lens))
+            if not np.array_equal(hits, scan_ref):
+                fail(f"8: k={k} S={s} sharded_scan_reads_for_hits differs")
+            (keys_s, counts_s), got_c = counted(
+                lambda: sharded_count(batches[2], lens, k, mesh))
+            if not (np.array_equal(keys_s, count_ref[0])
+                    and np.array_equal(counts_s, count_ref[1])):
+                fail(f"8: k={k} S={s} sharded_count differs from "
+                     "StreamCounter")
+            for name, n in ((member_name, s), (extract_name, 0)):
+                if got_m[name] != n:
+                    fail(f"8: k={k} S={s} membership: {name} launched "
+                         f"{got_m[name]} times, not {n}")
+            for name, n in ((member_name, s), (extract_name, s)):
+                if got_s[name] != n:
+                    fail(f"8: k={k} S={s} scan: {name} launched "
+                         f"{got_s[name]} times, not {n}")
+            if got_c[extract_name] != s:
+                fail(f"8: k={k} S={s} sharded_count: {extract_name} "
+                     f"launched {got_c[extract_name]} times, not {s}")
+            fc, _ = counted(lambda: ShardedFilteredCounter(words, k, mesh))
+            counted(lambda: fc.feed(homopolymer, hlens))
+            counted(lambda: fc.feed(homopolymer[:0], hlens[:0]))
+            (hk, hc), _ = counted(
+                lambda: sharded_count(homopolymer, hlens, k, mesh))
+            if not (np.array_equal(fc.result(), homo_tally_ref)
+                    and np.array_equal(hk, homo_count_ref[0])
+                    and np.array_equal(hc, homo_count_ref[1])
+                    and hc.tolist() == [GROUP_B * (L - k + 1)]):
+                fail(f"8: k={k} S={s} the homopolymer batch differs")
+            (ek, ec), _ = counted(
+                lambda: sharded_count(homopolymer[:0], hlens[:0], k, mesh))
+            empty = counted(lambda: sharded_scan_reads_for_hits(
+                sharded, homopolymer[:0], hlens[:0]))[0]
+            if ek.shape[0] or ec.shape[0] or empty.shape != (0, L - k + 1):
+                fail(f"8: k={k} S={s} an empty batch gave a result")
+            del sharded, fc
+        print(f"[8] k={k} M={SCAN_M}: S = 1, 2, 4 on [cuda:0] * S, "
+              "ShardedFilteredCounter (both forms), membership, scan, "
+              "sharded_count, a homopolymer and an empty batch equal to "
+              "the single-device engine; every shard's launches counted",
+              flush=True)
+        # reads/s of the feed loop, interleaved: single, S = 1, 2, 4, 4,
+        # 2, 1, single; each counter built before its loop (the sharded
+        # one's build, a host hash and S directories, timed apart)
+        for dedup in (False, True):
+            rates, builds = {}, {}
+            for form in ("one", 1, 2, 4, 4, 2, 1, "one"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fc = (eng.FilteredCounter(index, dedup=dedup) if form == "one"
+                      else ShardedFilteredCounter(words, k, [cuda] * form,
+                                                  dedup=dedup))
+                torch.cuda.synchronize()
+                builds.setdefault(form, []).append(time.perf_counter() - t)
+                rates.setdefault(form, []).append(rate(fc))
+                del fc
+            line = "; ".join(
+                f"{'one device' if f == 'one' else f'S={f}'} "
+                f"{rates[f][0]:.1f} / {rates[f][1]:.1f}"
+                for f in ("one", 1, 2, 4))
+            built = ", ".join(f"S={f} {1e3 * min(builds[f]):.1f}"
+                              for f in (1, 2, 4))
+            print(f"[8] k={k} M={SCAN_M} {'dedup' if dedup else 'plain'} "
+                  f"filter reads/s: {line}; the sharded counter's build "
+                  f"ms: {built} ({card})", flush=True)
+        # the routing share of a batch: extraction alone, extraction and
+        # routing, the whole feed (host clock, synchronized)
+        for s in (1, 2, 4):
+            mesh = [cuda] * s
+            fc = ShardedFilteredCounter(words, k, mesh)
+            walls = {}
+            for label, run in (
+                    ("extract", lambda c: _window_keys_by_source(
+                        c, lens, k, mesh)),
+                    ("route", lambda c: _gather_by_owner(
+                        [kk for kk, _ in _window_keys_by_source(
+                            c, lens, k, mesh)], mesh)),
+                    ("feed", lambda c: fc.feed(c, lens))):
+                run(batches[0])
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for c in batches:
+                    run(c)
+                torch.cuda.synchronize()
+                walls[label] = (time.perf_counter() - t) * 1e3 / len(batches)
+            share = (walls["route"] - walls["extract"]) / walls["feed"]
+            print(f"[8] k={k} S={s} ms a batch: extraction {walls['extract']:.3f}, "
+                  f"+ routing {walls['route']:.3f}, whole feed "
+                  f"{walls['feed']:.3f}; routing share {share:.4f} ({card})",
+                  flush=True)
+        del index
+    phase_8_stream_count(batches[:4], lens, cuda, card)
+    phase_8_build(batches[0], lens, rng, cuda, card)
+    return total
+
+
+def phase_8_stream_count(batches, lens, cuda, card):
+    """The stream count over the mesh (``engine.ShardedStreamCounter``,
+    taken under ``KDF_SHARDED=1``) beside ``StreamCounter``, at k = 31
+    and 63: equal results, and reads/s of the feeds and the result,
+    interleaved."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    for k in (31, 63):
+        rates, results = {}, {}
+        for form in ("one", 2, 4, 4, 2, "one"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sc = (eng.StreamCounter(k, device=cuda) if form == "one"
+                  else eng.ShardedStreamCounter(k, [cuda] * form))
+            for c in batches:
+                sc.feed(c, lens)
+            got = sc.result()
+            rates.setdefault(form, []).append(
+                len(batches) * B / (time.perf_counter() - t))
+            results.setdefault(form, got)
+        for form, (keys, counts) in results.items():
+            if not (np.array_equal(keys, results["one"][0])
+                    and np.array_equal(counts, results["one"][1])):
+                fail(f"8: k={k} ShardedStreamCounter on {form} shards "
+                     "differs from StreamCounter")
+        line = "; ".join(
+            f"{'one device' if f == 'one' else f'S={f}'} "
+            f"{rates[f][0] / 1e6:.2f}M / {rates[f][1] / 1e6:.2f}M"
+            for f in ("one", 2, 4))
+        print(f"[8] k={k} stream count, {len(batches)} batches, feeds and "
+              f"result: reads/s {line}; equal ({card})", flush=True)
+
+
+def phase_8_build(codes, lens, rng, cuda, card):
+    """The sharded index's build against the table's size: one device
+    and S = 4 on the card, k = 31 up to 2**24 keys and k = 63 up to
+    2**22, and the build's host steps timed alone (best of two)."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.parallel import ShardedKmerIndex
+    from kmer_denovo_filter_tpu_torch.parallel.sharded import _table_owners
+
+    def best_ms(run):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        return min(walls)
+
+    mesh = [cuda] * 4
+    for k, sizes in ((31, (1 << 20, 1 << 22, 1 << 24)),
+                     (63, (1 << 20, 1 << 22))):
+        flat = eng._window_keys(codes, lens, k, cuda).flatten(0, 1)
+        for m in sizes:
+            words = table_words(rng, flat, m, k, cuda)
+            index = ShardedKmerIndex(words, k, mesh)
+            if sum(s.n for s in index.shards) != m:
+                fail(f"8: k={k} M={m} the shards do not hold the table")
+            del index
+            one = best_ms(lambda: eng.KmerIndex(words, k, device=cuda))
+            sharded = best_ms(lambda: ShardedKmerIndex(words, k, mesh))
+            convert = best_ms(lambda: eng._key_tensor(words, k))
+            host = eng._key_tensor(words, k)
+            owners = best_ms(lambda: _table_owners(host, mesh))
+            owner, ordered = _table_owners(host, mesh)
+            if not ordered:
+                fail(f"8: k={k} M={m} a sorted table seen as unsorted")
+            group = best_ms(lambda: np.argsort(owner, kind="stable"))
+            print(f"[8] build k={k} M={m}: one device {one:.1f} ms, "
+                  f"S=4 {sharded:.1f} ms ({1e6 * sharded / m:.1f} ns a "
+                  f"key); alone: key conversion {convert:.1f}, owners "
+                  f"and order check on the card {owners:.1f}, grouping "
+                  f"{group:.1f} ({card})", flush=True)
+            del words, host, owner
+
+
+def phase_8b(batches, cuda, reset_counts, read_counts):
+    """A one-process NCCL group (tcp://127.0.0.1, world size 1): the
+    multi-host collectives on CUDA tensors equal the single-process
+    results; the group is destroyed after.  Returns the launch counts."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.parallel import multihost
+    lens = np.full(B, L, np.int32)
+    port = free_port()
+    if not multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda"):
+        fail("8b: multihost.initialize did not join")
+    try:
+        if (torch.distributed.get_backend() != "nccl"
+                or multihost.device() != cuda):
+            fail("8b: the group is not NCCL on cuda:0")
+        t = torch.arange(1 << 20, dtype=torch.int64, device=cuda)
+        got = multihost.sum_aligned(t)
+        if got.device != t.device or not torch.equal(got, t):
+            fail("8b: sum_aligned of a CUDA tensor differs")
+        if multihost.sum_aligned(np.arange(7)).tolist() != list(range(7)):
+            fail("8b: sum_aligned of a host array differs")
+        reset_counts()
+        for k in (31, 63):
+            keys, counts = multihost.sharded_count_multihost(
+                batches[0], lens, k)
+            sc = eng.StreamCounter(k, device=cuda)
+            sc.feed(batches[0], lens)
+            ref_k, ref_c = sc.result()
+            if not (np.array_equal(keys, ref_k)
+                    and np.array_equal(counts, ref_c)):
+                fail(f"8b: k={k} sharded_count_multihost differs from "
+                     "StreamCounter")
+            half = B // 2
+            parts = [multihost.sharded_count_multihost(
+                batches[0][rows], lens[rows], k, per_process=True)
+                for rows in (slice(0, half), slice(half, B))]
+            mk, mc = multihost.merge_counts_sharded(
+                np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+            if not (np.array_equal(mk, ref_k) and np.array_equal(mc, ref_c)):
+                fail(f"8b: k={k} merge_counts_sharded differs")
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        multihost.shutdown()
+    if torch.distributed.is_initialized():
+        fail("8b: the process group outlived destroy_process_group")
+    for name in ("extract_canonical", "extract_canonical_wide"):
+        if launches[name] <= 0:
+            fail(f"8b: kernel {name} was not launched")
+    print(f"[8b] one-process NCCL group: sum_aligned, "
+          f"sharded_count_multihost (all_to_all_single) and "
+          f"merge_counts_sharded at k = 31 and 63 equal to the "
+          f"single-process results; group destroyed; launches {launches}",
+          flush=True)
+    return launches
 
 
 def phase_5c(rng, genome, batches_152, cuda, card):
@@ -1275,15 +1756,17 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches_vcf = read_counts()
+        outputs_4 = {}
         with gzip.open(os.path.join(out, "annotated.vcf.gz")) as fh:
-            got_vcf = fh.read()
+            outputs_4["annotated.vcf.gz"] = fh.read()
         with gzip.open(os.path.join(goldens, "annotated.vcf.gz")) as fh:
-            if got_vcf != fh.read():
+            if outputs_4["annotated.vcf.gz"] != fh.read():
                 fail("annotated.vcf.gz differs from tests/goldens")
         for name in ("metrics.json", "summary.txt"):
-            with open(os.path.join(out, name)) as a, \
-                    open(os.path.join(goldens, name)) as b:
-                if a.read() != b.read():
+            with open(os.path.join(out, name), "rb") as a, \
+                    open(os.path.join(goldens, name), "rb") as b:
+                outputs_4[name] = a.read()
+                if outputs_4[name] != b.read():
                     fail(f"{name} differs from tests/goldens")
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -1317,7 +1800,8 @@ def main():
         for suffix in DISCOVERY_OUTPUTS:
             with open(f"{prefix}.{suffix}", "rb") as a, open(os.path.join(
                     goldens, f"giab_discovery.{suffix}"), "rb") as b:
-                if a.read() != b.read():
+                got = outputs_4[f"giab_discovery.{suffix}"] = a.read()
+                if got != b.read():
                     fail(f"giab_discovery.{suffix} differs from "
                          "tests/goldens")
         if not os.path.isfile(f"{prefix}.informative.bam.bai"):
@@ -1335,6 +1819,9 @@ def main():
 
     # ── 4c. main path, wide: both CLIs at k = 63 ──────────────────
     launches_wide = phase_4c(cuda, reset_counts, read_counts)
+
+    # ── 4d. both CLIs as one process of a multi-host run; the report ─
+    launches_4d = phase_4d(outputs_4, reset_counts, read_counts)
 
     # ── 5. scale: FilteredCounter on cuda vs the plain path ────────
     k = 31
@@ -1518,6 +2005,11 @@ def main():
                                                 card):
         profile_loop(label, n_batches, run, wall, card)
 
+    # ── 8, 8b. the sharded engine on one card; a one-process group ─
+    launches_8 = phase_8(batches, cuda, card, reset_counts, read_counts)
+    launches_8b = phase_8b(batches, cuda, reset_counts, read_counts)
+    del batches
+
     # ── 7. the ported experiment commands ─────────────────────────
     launches_7 = phase_7(reset_counts, read_counts)
     print(f"[7] launches over the experiments: {launches_7}", flush=True)
@@ -1539,7 +2031,8 @@ def main():
         "probe_tally_weighted", "40x", BIG_M)]
     k4_ms, k4_plain, k4_isin, _k4_search, k4_lim = times[(
         "probe_member", "group", "random", BIG_M)]
-    dir_ms, dir_plain, dir_lim = times[("build_directory", "random", BIG_M)]
+    dir_ms, dir_plain, dir_lim, dir_lib = times[("build_directory", "random",
+                                                 BIG_M)]
     launches = {name: launches_vcf[name] + launches_disc[name]
                 for name in counters}
     for name in ("extract_canonical_wide", "probe_tally_wide",
@@ -1551,6 +2044,11 @@ def main():
                                        for run in launches_wide)
     # K9 is on no main path: its launches in 5d and 7
     launches["seg_sort"] = launches_5d["seg_sort"] + launches_7["seg_sort"]
+    # the multi-host CLIs (4d), the sharded engine on [cuda:0] * S (8)
+    # and the one-process group (8b) are other paths: their launches
+    # stand apart, a count for each
+    other_paths = {"4d": launches_4d, "8": (launches_8,),
+                   "8b": (launches_8b,)}
     wide = {name: times[(name, 63, BIG_M)]
             for name in ("probe_tally_wide", "probe_member_wide")}
     # K7 weighted on K9dw's slots: the main path's form
@@ -1608,7 +2106,8 @@ def main():
          "launches": launches["build_directory"],
          "max_abs_err": err["build_directory"],
          "ms": dir_ms, "plain_ms": dir_plain,
-         "bound_ms": dir_lim[0], "bound_by": dir_lim[1], "library_ms": None},
+         "bound_ms": dir_lim[0], "bound_by": dir_lim[1],
+         "library_ms": dir_lib},
     ] + [
         {"name": name, "route": "cuda", "source": wide_source[name],
          "replaces": wide_replaces[name], "launches": launches[name],
@@ -1632,6 +2131,10 @@ def main():
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": lim[0], "bound_by": lim[1],
             "library_ms": library_ms})
+    for entry in report["kernels"]:
+        entry["launches_by_phase"] = {
+            phase: sum(run.get(entry["name"], 0) for run in runs)
+            for phase, runs in other_paths.items()}
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
 """Command-line interface of the port: ``kmer-denovo-torch``,
-``kmer-discovery-torch`` and the legacy combined command
-(``python -m kmer_denovo_filter_tpu_torch``, :func:`main`).
+``kmer-discovery-torch``, ``kmer-report-torch`` and the legacy combined
+command (``python -m kmer_denovo_filter_tpu_torch``, :func:`main`).
 
-Flag-compatible with ``kmer-denovo`` / ``kmer-discovery``: the parsers
-below are copied from the JAX package.  Every pipeline runs its device
-work on CUDA, chosen here; there is no CPU fallback.
+Flag-compatible with ``kmer-denovo`` / ``kmer-discovery`` /
+``kmer-report``: the parsers and ``report_main`` below are copied from
+the JAX package.  Every pipeline runs its device work on CUDA unless
+the caller passes ``device="cpu"`` (the tests do); there is no CPU
+fallback.  With ``KDF_COORDINATOR`` / ``KDF_NUM_PROCESSES`` /
+``KDF_PROCESS_ID`` set, each entry point first joins an N-process run
+(:func:`_join_multihost`).
 """
 
 import argparse
@@ -241,23 +245,88 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def vcf_main(argv=None):
+def _join_multihost(device):
+    """Join a multi-process run when configured; return the device this
+    process runs on.
+
+    Set ``KDF_COORDINATOR`` (host:port), ``KDF_NUM_PROCESSES`` and
+    ``KDF_PROCESS_ID`` on every process to run ``kmer-denovo-torch`` /
+    ``kmer-discovery-torch`` across N processes (reference
+    cli.py:237–260): inputs stream in per-process stripes, partial
+    results merge at module boundaries, and process 0 writes the
+    outputs.  A CUDA process joins with NCCL on ``cuda:{rank % cards}``,
+    a CPU one with gloo (:func:`~.parallel.multihost.initialize`).
+    Without the variables this is a no-op and *device* stands.
+    """
+    device = torch.device(device)
+    from kmer_denovo_filter_tpu_torch.parallel import multihost
+    if not multihost.initialize(device=device):
+        return device
+    return multihost.device()
+
+
+def vcf_main(argv=None, device="cuda"):
     """Entry point for ``kmer-denovo-torch`` (VCF mode on CUDA)."""
+    device = _join_multihost(device)
     from kmer_denovo_filter_tpu_torch.vcf.pipeline import run_pipeline
-    run_pipeline(parse_vcf_args(argv), torch.device("cuda"))
+    run_pipeline(parse_vcf_args(argv), device)
 
 
-def discovery_main(argv=None):
+def discovery_main(argv=None, device="cuda"):
     """Entry point for ``kmer-discovery-torch`` (discovery on CUDA)."""
+    device = _join_multihost(device)
     from kmer_denovo_filter_tpu_torch.discovery.pipeline import (
         run_discovery_pipeline,
     )
-    run_discovery_pipeline(parse_discovery_args(argv), torch.device("cuda"))
+    run_discovery_pipeline(parse_discovery_args(argv), device)
 
 
-def main(argv=None):
+# Copied from kmer_denovo_filter_tpu/cli.py:279–315 (parse_report_args,
+# report_main), the report module renamed to the port's.
+
+def parse_report_args(argv=None):
+    """Parser for the standalone report generator (kmer-report)."""
+    parser = argparse.ArgumentParser(
+        prog="kmer-report",
+        description=(
+            "Generate an interactive HTML report from kmer-denovo / "
+            "kmer-discovery output files without re-running the "
+            "pipelines."))
+    parser.add_argument("--output", "-o", required=True,
+                        help="Output path for the HTML report.")
+    parser.add_argument("--vcf-metrics", default=None,
+                        help="VCF-mode metrics.json from kmer-denovo.")
+    parser.add_argument("--vcf-summary", default=None,
+                        help="VCF-mode summary.txt from kmer-denovo.")
+    parser.add_argument(
+        "--vcf", default=None,
+        help="Annotated VCF from kmer-denovo (used for Kraken2 "
+             "annotations if present).")
+    parser.add_argument("--discovery-metrics", default=None,
+                        help="Discovery metrics.json from kmer-discovery.")
+    parser.add_argument("--discovery-summary", default=None,
+                        help="Discovery summary.txt from kmer-discovery.")
+    return parser.parse_args(argv)
+
+
+def report_main(argv=None):
+    """Entry point for ``kmer-report``."""
+    from kmer_denovo_filter_tpu_torch.report import generate_report
+    args = parse_report_args(argv)
+    result = generate_report(
+        output_path=args.output,
+        vcf_metrics_path=args.vcf_metrics,
+        vcf_summary_path=args.vcf_summary,
+        vcf_path=args.vcf,
+        discovery_metrics_path=args.discovery_metrics,
+        discovery_summary_path=args.discovery_summary)
+    print(f"Report written to: {result}")
+
+
+def main(argv=None, device="cuda"):
     """Legacy combined entry point dispatching by mode (reference
-    cli.py:318–337, on CUDA; multi-host joining is not ported)."""
+    cli.py:318–337, on CUDA)."""
+    device = _join_multihost(device)
     args = parse_args(argv)
     if args.vcf is not None:
         if args.output is None:
@@ -265,7 +334,7 @@ def main(argv=None):
                   file=sys.stderr)
             sys.exit(2)
         from kmer_denovo_filter_tpu_torch.vcf.pipeline import run_pipeline
-        run_pipeline(args, torch.device("cuda"))
+        run_pipeline(args, device)
     else:
         if args.out_prefix is None:
             print("error: either --vcf (with --output) or --out-prefix "
@@ -274,7 +343,7 @@ def main(argv=None):
         from kmer_denovo_filter_tpu_torch.discovery.pipeline import (
             run_discovery_pipeline,
         )
-        run_discovery_pipeline(args, torch.device("cuda"))
+        run_discovery_pipeline(args, device)
 
 
 if __name__ == "__main__":

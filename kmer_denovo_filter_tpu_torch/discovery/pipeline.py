@@ -11,14 +11,20 @@ device work runs through the port's engine on an explicit
 * Module 1 counts the child (K1 → device sort-count → host merge) and
   subtracts the reference (K4 membership);
 * Module 2 filters by the parents: K1 → K9d segment dedup → K3 weighted
-  tally on K9d's slots (k > 31: K1w → batch dedup → K7 weighted);
+  tally on K9d's slots (k > 31: K1w → K9dw → K7 weighted on its slots);
+  over 2 or more cards the table shards (:mod:`.parallel.sharded`);
 * Modules 3–4 anchor the proband-unique k-mers in the child reads:
   groups of ``NB_JOIN_MEMBER`` batches, K1 → K4 in one pass per group.
 
-Changes from the reference: multi-host stripes and the primary-only
-writes are gone (single process, ROADMAP queue 1 item 9); the scan group
-size is the constant :data:`NB_JOIN_MEMBER` (no ``KDF_SB_JOIN``); the
-``KDF_PROFILE`` trace is not ported (item 10).
+In a multi-host run (``KDF_COORDINATOR``, :mod:`.parallel.multihost`)
+every process consumes its own stripe of each BAM: the child counts
+merge owner-sharded, the reference subtraction gathers the survivors,
+the parent tallies sum, the anchoring scan and the informative-read pass
+gather ordinal-keyed snapshots, and process 0 alone writes the outputs
+and the reference-index cache.  ``KDF_PROFILE=<dir>`` wraps the run in a
+``torch.profiler`` trace (:mod:`..profiling`).  The one change from the
+reference: the scan group size is the constant :data:`NB_JOIN_MEMBER`
+(no ``KDF_SB_JOIN``).
 """
 
 import bisect
@@ -32,6 +38,8 @@ import time
 import numpy as np
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch.parallel import multihost
+from kmer_denovo_filter_tpu_torch.profiling import run_profiled
 from kmer_denovo_filter_tpu_torch.htsio.bam import (
     BamReader,
     BamWriter,
@@ -136,16 +144,19 @@ def ensure_ref_index(ref_fasta, kmer_size, ref_jf=None, *, device):
     for name, seq in read_fasta(ref_fasta).items():
         sc.feed_sequence(seq)
     keys, counts = sc.result()
-    try:
-        # write-then-rename so concurrent readers never see a partial
-        # cache
-        tmp_cache = f"{cache}.tmp{os.getpid()}"
-        np.savez(tmp_cache, keys=keys, counts=counts, k=kmer_size)
-        os.replace(tmp_cache if os.path.exists(tmp_cache)
-                   else f"{tmp_cache}.npz", cache)
-        logger.info("Reference k-mer cache written: %s", cache)
-    except OSError:
-        pass
+    # Multi-host runs build the (deterministic) index on every process;
+    # only process 0 may write the shared cache file (no write race).
+    if multihost.is_primary():
+        try:
+            # write-then-rename so concurrent readers (other processes
+            # of a multi-host run) never see a partial cache
+            tmp_cache = f"{cache}.tmp{os.getpid()}"
+            np.savez(tmp_cache, keys=keys, counts=counts, k=kmer_size)
+            os.replace(tmp_cache if os.path.exists(tmp_cache)
+                       else f"{tmp_cache}.npz", cache)
+            logger.info("Reference k-mer cache written: %s", cache)
+        except OSError:
+            pass
     logger.info("Reference set built in %s (%d k-mers)",
                 format_elapsed(time.monotonic() - build_start),
                 keys.shape[0])
@@ -157,12 +168,14 @@ def ensure_ref_index(ref_fasta, kmer_size, ref_jf=None, *, device):
 
 
 def _extract_child_kmers_discovery(child_bam, kmer_size, min_child_count,
-                                   device):
+                                   device, stripe=None):
     """Count all child k-mers on device; keep count >= min_child_count.
 
     Returns ``(candidate_keys, n_candidates)`` — the device analog of
     ``jellyfish count -C`` + ``dump -L min_child_count``
-    (reference discovery/pipeline.py:69–268).
+    (reference discovery/pipeline.py:69–268).  With ``stripe=(h, n)``
+    each process counts its input shard and the partial (keys, counts)
+    merge across processes before thresholding.
     """
     extract_start = time.monotonic()
     logger.info("Extracting child k-mers from BAM (k=%d, device engine)…",
@@ -171,11 +184,22 @@ def _extract_child_kmers_discovery(child_bam, kmer_size, min_child_count,
     sc = eng.make_stream_counter(kmer_size, device=device)
     n_reads = 0
     for codes, lengths in prefetch_batches(packed_batches(
-            child_bam, exclude_flags=_COUNT_EXCLUDE_FLAGS)):
+            child_bam, exclude_flags=_COUNT_EXCLUDE_FLAGS,
+            stripe=stripe)):
         sc.feed(codes, lengths)
         n_reads += codes.shape[0]
     keys, counts = sc.result()
-    n_distinct = keys.shape[0]
+    if stripe is not None:
+        # owner-sharded merge: this process keeps ONLY its hash shard
+        # (O(total/N) per process); the count threshold below then
+        # applies shard-locally and only survivors ever gather
+        # (multihost.merge_counts_sharded)
+        keys, counts = multihost.merge_counts_sharded(keys, counts)
+        n_reads = int(multihost.sum_aligned(np.int64(n_reads)))
+        n_distinct = int(multihost.sum_aligned(
+            np.int64(keys.shape[0])))
+    else:
+        n_distinct = keys.shape[0]
     logger.info(
         "Child k-mer counting complete (%s, %d reads, %d distinct k-mers)",
         format_elapsed(time.monotonic() - extract_start), n_reads,
@@ -186,15 +210,26 @@ def _extract_child_kmers_discovery(child_bam, kmer_size, min_child_count,
     keep = counts >= min_child_count
     candidates = keys[keep]
     n_candidates = candidates.shape[0]
+    if stripe is not None:
+        n_candidates = int(multihost.sum_aligned(
+            np.int64(n_candidates)))
     logger.info("Child candidate k-mers (count >= %d): %d",
                 min_child_count, n_candidates)
     return candidates, n_candidates
 
 
-def _subtract_reference_kmers(ref_index, candidate_keys):
-    """Keep candidate keys absent from the reference set."""
+def _subtract_reference_kmers(ref_index, candidate_keys, stripe=None):
+    """Keep candidate keys absent from the reference set.
+
+    With ``stripe`` set, *candidate_keys* is this process's owner
+    shard: membership applies shard-locally (the replicated reference
+    index serves any key subset) and only the surviving non-reference
+    sets gather into the identical global sorted array on every process.
+    """
     member = ref_index.membership(candidate_keys)
     non_ref = candidate_keys[~member]
+    if stripe is not None:
+        non_ref = multihost.allgather_keys_sorted(non_ref)
     logger.info("Non-reference child k-mers after subtraction: %d",
                 non_ref.shape[0])
     return non_ref, non_ref.shape[0]
@@ -204,13 +239,15 @@ def _subtract_reference_kmers(ref_index, candidate_keys):
 
 
 def _count_parent_device(parent_bam, filter_keys, kmer_size, label,
-                         device):
+                         device, stripe=None):
     """Filtered parent count (``--if`` analog) on the gated engine.
 
     Takes host-side *filter_keys*; ``engine.make_parent_filter_counter``
     builds the counter on *device* (host-resident only for a CPU-device
-    table over ``KDF_DEVICE_TABLE_BYTES``).  Returns int64 counts
-    aligned with *filter_keys*.
+    table over ``KDF_DEVICE_TABLE_BYTES``, sharded over 2 or more cards).
+    Returns int64 counts aligned with *filter_keys*.  With ``stripe=(h,
+    n)`` each process counts its input shard; the aligned partial
+    tallies sum across processes.
     """
     scan_start = time.monotonic()
     logger.info("%s: scanning BAM (%s): %s", label,
@@ -222,10 +259,14 @@ def _count_parent_device(parent_bam, filter_keys, kmer_size, label,
                                         device=device)
     n_reads = 0
     for codes, lengths in prefetch_batches(packed_batches(
-            parent_bam, exclude_flags=_COUNT_EXCLUDE_FLAGS)):
+            parent_bam, exclude_flags=_COUNT_EXCLUDE_FLAGS,
+            stripe=stripe)):
         fc.feed(codes, lengths)
         n_reads += codes.shape[0]
     counts = fc.result()
+    if stripe is not None:
+        counts = multihost.sum_aligned(counts)
+        n_reads = int(multihost.sum_aligned(np.int64(n_reads)))
     logger.info("  %s counting complete (%s, %d reads)",
                 label, format_elapsed(time.monotonic() - scan_start),
                 n_reads)
@@ -233,7 +274,8 @@ def _count_parent_device(parent_bam, filter_keys, kmer_size, label,
 
 
 def _filter_parents_discovery(mother_bam, father_bam, non_ref_keys,
-                              kmer_size, parent_max_count=0, *, device):
+                              kmer_size, parent_max_count=0, *, device,
+                              stripe=None):
     """Module 2: remove k-mers seen >parent_max_count in either parent.
 
     Sequential mother-then-father filtering with the reduced survivor
@@ -249,7 +291,8 @@ def _filter_parents_discovery(mother_bam, father_bam, non_ref_keys,
     log_memory("before parent filtering")
 
     mother_counts = _count_parent_device(mother_bam, non_ref_keys,
-                                         kmer_size, "Mother", device)
+                                         kmer_size, "Mother", device,
+                                         stripe=stripe)
     survive = mother_counts <= parent_max_count
     after_mother = non_ref_keys[survive]
     n_surviving = after_mother.shape[0]
@@ -261,7 +304,8 @@ def _filter_parents_discovery(mother_bam, father_bam, non_ref_keys,
         return 0, None
 
     father_counts = _count_parent_device(father_bam, after_mother,
-                                         kmer_size, "Father", device)
+                                         kmer_size, "Father", device,
+                                         stripe=stripe)
     survive = father_counts <= parent_max_count
     proband = after_mother[survive]
     n_proband = proband.shape[0]
@@ -366,8 +410,9 @@ def _infer_sv_type(region_a, region_b):
 def _read_outcome(read, unique_in_read, kmer_hit_indices, kmer_size):
     """Plain-data snapshot of one informative read.
 
-    Everything region building / SV annotation needs (reference
-    core/bam_scanner.py:284–337 collects the same fields inline).
+    Everything region building / SV annotation needs, picklable for
+    the multi-host outcome merge (reference core/bam_scanner.py:284–337
+    collects the same fields inline).
     """
     out = {"qname": read.query_name, "is_supp": read.is_supplementary,
            "unmapped": read.is_unmapped, "unique": unique_in_read}
@@ -436,8 +481,19 @@ def _process_informative_read(read, unique_in_read, kmer_hit_indices,
          read_coverage))
 
 
+def _stripe_enumerated(gen, stripe):
+    """(global_index, item) pairs of *gen*, keeping only this stripe."""
+    if stripe is None:
+        yield from enumerate(gen)
+        return
+    h, n = stripe
+    for i, item in enumerate(gen):
+        if i % n == h:
+            yield i, item
+
+
 def _scan_child_reads(child_source, proband_index, kmer_size,
-                      min_dk_per_read, state):
+                      min_dk_per_read, state, stripe=None, collect=None):
     """Anchoring scan: batched device probe of every scannable child read.
 
     *state* is the mutable tuple (read_hits, reads_seen, read_sv_meta,
@@ -449,6 +505,10 @@ def _scan_child_reads(child_source, proband_index, kmer_size,
     objects built lazily for the informative minority only — reads are
     ~99.9% uninformative at WGS scale) and the per-record fallback for
     streaming/non-native readers.
+
+    ``stripe=(h, n)`` scans only batch stripe *h* of *n* (multi-host);
+    *collect* then gathers ordinal-keyed outcome snapshots instead of
+    folding into *state* (see :func:`_process_hit_rows`).
     """
     scanner = eng.make_scanner(proband_index)
     scanner_many = eng.make_scanner_many(proband_index)
@@ -459,28 +519,30 @@ def _scan_child_reads(child_source, proband_index, kmer_size,
         if it is not None:
             return _scan_child_reads_packed(
                 reader, it, scanner_many, kmer_size, min_dk_per_read,
-                state)
+                state, stripe, collect)
     if reader is None and getattr(child_source, "streaming", False):
         from kmer_denovo_filter_tpu_torch.htsio import native
         if native.available():
             return _scan_child_reads_stream(
                 child_source, scanner_many, kmer_size,
-                min_dk_per_read, state)
+                min_dk_per_read, state, stripe, collect)
     return _scan_child_reads_records(
-        child_source, scanner, kmer_size, min_dk_per_read, state)
+        child_source, scanner, kmer_size, min_dk_per_read, state,
+        stripe, collect)
 
 
 def _drain_scan_group(group, scanner_many, kmer_size,
-                      min_dk_per_read, state):
-    """Scan the buffered (codes, lengths, get_read) group in one device
-    pass and fold each batch's hits in order."""
+                      min_dk_per_read, state, collect):
+    """Scan the buffered (codes, lengths, get_read, bi) group in one
+    device pass and fold each batch's hits in order."""
     if not group:
         return 0
-    founds = scanner_many([(c, l) for c, l, _g in group])
+    founds = scanner_many([(c, l) for c, l, _g, _b in group])
     unmapped = 0
-    for (c, l, get_read), found in zip(group, founds):
+    for (c, l, get_read, bi), found in zip(group, founds):
         unmapped += _process_hit_rows(
-            found, get_read, kmer_size, min_dk_per_read, state)
+            found, get_read, kmer_size, min_dk_per_read, state,
+            collect, bi)
     group.clear()
     return unmapped
 
@@ -509,15 +571,16 @@ def _stream_indexed_batches(path, exclude_flags):
             yield out, blens, rec_idx, data, scan, refs
 
 
-def _scan_groups(batches, scanner_many, kmer_size, min_dk_per_read, state):
-    """Group (codes, lengths, get_read) batches by NB_JOIN_MEMBER (a row
-    count change drains the group early), scan each group in one device
-    pass, and fold the hits.  Returns (unmapped_informative,
-    total_scanned)."""
+def _scan_groups(batches, scanner_many, kmer_size, min_dk_per_read, state,
+                 collect):
+    """Group (bi, (codes, lengths, get_read)) batches by NB_JOIN_MEMBER
+    (a row count change drains the group early), scan each group in one
+    device pass, and fold (or collect) the hits.  Returns
+    (unmapped_informative, total_scanned)."""
     unmapped_informative = 0
     total_scanned = 0
     group = []
-    for codes, lengths, get_read in batches:
+    for bi, (codes, lengths, get_read) in batches:
         total_scanned += codes.shape[0]
         if codes.shape[1] < kmer_size:
             if not (lengths >= kmer_size).any():
@@ -527,27 +590,32 @@ def _scan_groups(batches, scanner_many, kmer_size, min_dk_per_read, state):
                            constant_values=4)
         if group and codes.shape[0] != group[0][0].shape[0]:
             unmapped_informative += _drain_scan_group(
-                group, scanner_many, kmer_size, min_dk_per_read, state)
-        group.append((codes, lengths, get_read))
+                group, scanner_many, kmer_size, min_dk_per_read, state,
+                collect)
+        group.append((codes, lengths, get_read, bi))
         if len(group) >= NB_JOIN_MEMBER:
             unmapped_informative += _drain_scan_group(
-                group, scanner_many, kmer_size, min_dk_per_read, state)
+                group, scanner_many, kmer_size, min_dk_per_read, state,
+                collect)
     unmapped_informative += _drain_scan_group(
-        group, scanner_many, kmer_size, min_dk_per_read, state)
+        group, scanner_many, kmer_size, min_dk_per_read, state, collect)
     return unmapped_informative, total_scanned
 
 
 def _scan_child_reads_stream(child_source, scanner_many, kmer_size,
-                             min_dk_per_read, state):
+                             min_dk_per_read, state, stripe=None,
+                             collect=None):
     """Streaming two-pass scan (WGS BAMs): native chunk decode →
     grouped device mask → lazy record decode for informative rows
     only."""
     from kmer_denovo_filter_tpu_torch.htsio.bam import AlignedRead
 
     def batches():
-        for (codes, lengths, rec_idx, data, scan,
-             refs) in prefetch_batches(_stream_indexed_batches(
-                 child_source.path, _ANCHOR_EXCLUDE_FLAGS)):
+        for bi, (codes, lengths, rec_idx, data, scan,
+                 refs) in prefetch_batches(_stripe_enumerated(
+                     _stream_indexed_batches(
+                         child_source.path, _ANCHOR_EXCLUDE_FLAGS),
+                     stripe)):
 
             def get_read(i, rec_idx=rec_idx, data=data, scan=scan,
                          refs=refs):
@@ -556,15 +624,21 @@ def _scan_child_reads_stream(child_source, scanner_many, kmer_size,
                 sz = int(scan["rec_sizes"][ri])
                 return AlignedRead(data[o:o + sz], refs)
 
-            yield codes, lengths, get_read
+            yield bi, (codes, lengths, get_read)
 
     return _scan_groups(batches(), scanner_many, kmer_size,
-                        min_dk_per_read, state)
+                        min_dk_per_read, state, collect)
 
 
-def _process_hit_rows(found, get_read, kmer_size, min_dk_per_read, state):
-    """Shared informative-read handling for all scan paths: folds each
-    qualifying read into *state*."""
+def _process_hit_rows(found, get_read, kmer_size, min_dk_per_read,
+                      state, collect=None, batch_ord=0):
+    """Shared informative-read handling for all scan paths.
+
+    Folds each qualifying read into *state* directly, or — when
+    *collect* is a list (multi-host stripes) — appends
+    ``((batch_ord, row), outcome)`` so the global first-wins dedup can
+    run after merging every process's outcomes in encounter order.
+    """
     (read_hits, reads_seen, read_sv_meta,
      kmer_coverage, read_coverage) = state
     unmapped = 0
@@ -580,6 +654,10 @@ def _process_hit_rows(found, get_read, kmer_size, min_dk_per_read, state):
             kmer_hit_indices.add(int(p))
         if len(unique_in_read) < min_dk_per_read:
             continue
+        if collect is not None:
+            collect.append(((batch_ord, int(i)), _read_outcome(
+                read, unique_in_read, kmer_hit_indices, kmer_size)))
+            continue
         unmapped += _process_informative_read(
             read, unique_in_read, kmer_hit_indices, kmer_size,
             reads_seen, read_hits, read_sv_meta, kmer_coverage,
@@ -588,33 +666,43 @@ def _process_hit_rows(found, get_read, kmer_size, min_dk_per_read, state):
 
 
 def _scan_child_reads_packed(reader, batches, scanner_many, kmer_size,
-                             min_dk_per_read, state):
+                             min_dk_per_read, state, stripe=None,
+                             collect=None):
     """Two-pass scan: native packed decode → grouped device mask →
     sparse lazy record decode for informative rows only."""
 
     def with_reader():
-        for codes, lengths, rec_idx in prefetch_batches(batches):
+        for bi, (codes, lengths, rec_idx) in prefetch_batches(
+                _stripe_enumerated(batches, stripe)):
 
             def get_read(i, rec_idx=rec_idx):
                 return reader.record_at(int(rec_idx[i]))
 
-            yield codes, lengths, get_read
+            yield bi, (codes, lengths, get_read)
 
     return _scan_groups(with_reader(), scanner_many, kmer_size,
-                        min_dk_per_read, state)
+                        min_dk_per_read, state, collect)
 
 
 def _scan_child_reads_records(child_source, scanner, kmer_size,
-                              min_dk_per_read, state):
+                              min_dk_per_read, state, stripe=None,
+                              collect=None):
     """Per-record fallback (streaming readers, no native scanner)."""
     unmapped_informative = 0
     total_scanned = 0
     batch = []
+    batch_ord = 0
 
     def _flush(batch):
-        nonlocal unmapped_informative
+        nonlocal unmapped_informative, total_scanned, batch_ord
+        bi = batch_ord
+        batch_ord += 1
         if not batch:
             return
+        if stripe is not None:
+            if bi % stripe[1] != stripe[0]:
+                return  # another process's stripe
+            total_scanned += len(batch)
         codes_list = [r.seq_codes() for r in batch]
         lengths = np.array([len(c) for c in codes_list], dtype=np.int32)
         lmax = int(lengths.max())
@@ -624,14 +712,16 @@ def _scan_child_reads_records(child_source, scanner, kmer_size,
             codes[i, :len(c)] = c
         found = scanner(codes, lengths)
         unmapped_informative += _process_hit_rows(
-            found, lambda i: batch[i], kmer_size, min_dk_per_read, state)
+            found, lambda i: batch[i], kmer_size, min_dk_per_read,
+            state, collect, bi)
 
     for read in child_source.records_all():
         if read.flag & _ANCHOR_EXCLUDE_FLAGS:
             continue
         if read._l_seq == 0:
             continue
-        total_scanned += 1
+        if stripe is None:
+            total_scanned += 1
         if read._l_seq >= kmer_size:
             batch.append(read)
         if len(batch) >= _ANCHOR_BATCH_READS:
@@ -643,11 +733,15 @@ def _scan_child_reads_records(child_source, scanner, kmer_size,
 
 def _anchor_and_cluster(child_source, proband_index, kmer_size,
                         merge_distance=500, min_distinct_kmers_per_read=1,
-                        n_proband_unique=None):
+                        n_proband_unique=None, stripe=None):
     """Module 3: anchoring scan + single-pass region clustering.
 
     Mirrors reference discovery/pipeline.py:615–1153 with the device
-    probe replacing both scanning backends.
+    probe replacing both scanning backends.  With ``stripe=(h, n)``
+    each process scans its batch stripe and the sparse outcome
+    snapshots allgather + fold in global encounter order, so the
+    clustered result is identical to a single-process scan on every
+    process.
     """
     anchor_start = time.monotonic()
     logger.info(
@@ -662,9 +756,18 @@ def _anchor_and_cluster(child_source, proband_index, kmer_size,
     read_coverage = collections.defaultdict(collections.Counter)
     state = (read_hits, reads_seen, read_sv_meta, kmer_coverage,
              read_coverage)
+    collect = [] if stripe is not None else None
     unmapped_informative, total_reads_scanned = _scan_child_reads(
         child_source, proband_index, kmer_size,
-        min_distinct_kmers_per_read, state)
+        min_distinct_kmers_per_read, state, stripe, collect)
+    if stripe is not None:
+        merged = sorted(
+            (item for part in multihost.allgather_object(collect)
+             for item in part), key=lambda kv: kv[0])
+        unmapped_informative = sum(
+            _fold_outcome(out, state) for _ord, out in merged)
+        total_reads_scanned = int(multihost.sum_aligned(
+            np.int64(total_reads_scanned)))
 
     log_memory("after anchoring complete")
     total_informative = len(read_hits) + unmapped_informative
@@ -1258,19 +1361,26 @@ def _write_discovery_summary(summary_path, regions, region_reads,
 
 
 def _write_informative_reads_discovery(child_source, proband_index,
-                                       kmer_size, output_bam):
+                                       kmer_size, output_bam,
+                                       stripe=None):
     """dk:i:1-tagged informative reads BAM (ref :1979–2079).
 
     The reference iterates ``bam.fetch()`` (mapped + placed-unmapped
     reads, excluding the unplaced-unmapped block); replicated here.
+    With ``stripe=(h, n)`` each host scans its batch stripe, the raw
+    records of informative rows allgather, and process 0 alone writes
+    the (coordinate-sorted) output with global first-wins dedup.
     """
     from kmer_denovo_filter_tpu_torch.htsio.bam import AlignedRead
 
     log_memory("before informative reads scan")
     scanner = eng.make_scanner(proband_index)
     written = set()
-    writer = BamWriter(output_bam, child_source.header_text,
-                       child_source.refs)
+    collect = [] if stripe is not None else None
+    writer = None
+    if stripe is None or stripe[0] == 0:
+        writer = BamWriter(output_bam, child_source.header_text,
+                           child_source.refs)
 
     def _emit(read):
         dedup_key = (read.query_name, read.is_supplementary)
@@ -1279,6 +1389,12 @@ def _write_informative_reads_discovery(child_source, proband_index,
         read.set_tag("dk", 1, value_type="i")
         writer.write(read)
         written.add(dedup_key)
+
+    def _handle(ordinal, read):
+        if collect is not None:
+            collect.append((ordinal, bytes(read._raw)))
+        else:
+            _emit(read)
 
     reader = getattr(child_source, "_reader", None)
     packed = None
@@ -1292,7 +1408,8 @@ def _write_informative_reads_discovery(child_source, proband_index,
         streaming_native = native.available()
     if packed is not None:
         tids = reader._scan["tids"]
-        for codes, lengths, rec_idx in prefetch_batches(packed):
+        for bi, (codes, lengths, rec_idx) in prefetch_batches(
+                _stripe_enumerated(packed, stripe)):
             if codes.shape[1] < kmer_size:
                 if not (lengths >= kmer_size).any():
                     continue
@@ -1304,11 +1421,12 @@ def _write_informative_reads_discovery(child_source, proband_index,
                 ri = int(rec_idx[i])
                 if tids[ri] < 0:
                     continue  # records_placed() writes placed only
-                _emit(reader.record_at(ri))
+                _handle((bi, int(i)), reader.record_at(ri))
     elif streaming_native:
         batches = _stream_indexed_batches(child_source.path, 0x500)
-        for (codes, lengths, rec_idx, data, scan,
-             refs) in prefetch_batches(batches):
+        for bi, (codes, lengths, rec_idx, data, scan,
+                 refs) in prefetch_batches(
+                _stripe_enumerated(batches, stripe)):
             if codes.shape[1] < kmer_size:
                 if not (lengths >= kmer_size).any():
                     continue
@@ -1322,12 +1440,18 @@ def _write_informative_reads_discovery(child_source, proband_index,
                     continue
                 o = int(scan["rec_offsets"][ri])
                 sz = int(scan["rec_sizes"][ri])
-                _emit(AlignedRead(data[o:o + sz], refs))
+                _handle((bi, int(i)), AlignedRead(data[o:o + sz], refs))
     else:
         batch = []
+        batch_ord = 0
 
         def _flush(batch):
+            nonlocal batch_ord
+            bi = batch_ord
+            batch_ord += 1
             if not batch:
+                return
+            if stripe is not None and bi % stripe[1] != stripe[0]:
                 return
             codes_list = [r.seq_codes() for r in batch]
             lengths = np.array([len(c) for c in codes_list],
@@ -1339,7 +1463,7 @@ def _write_informative_reads_discovery(child_source, proband_index,
                 codes[i, :len(c)] = c
             found = scanner(codes, lengths)
             for i in np.nonzero(found.any(axis=1))[0]:
-                _emit(batch[i])
+                _handle((bi, int(i)), batch[i])
 
         for read in child_source.records_placed():
             if read.is_secondary or read.is_duplicate:
@@ -1352,6 +1476,14 @@ def _write_informative_reads_discovery(child_source, proband_index,
                 batch = []
         _flush(batch)
 
+    if collect is not None:
+        merged = sorted(
+            (item for part in multihost.allgather_object(collect)
+             for item in part), key=lambda kv: kv[0])
+        if writer is None:
+            return  # only process 0 writes
+        for _ordinal, raw in merged:
+            _emit(AlignedRead(raw, child_source.refs))
     writer.close(sort=True, index=True)
     logger.info("Informative reads BAM written: %s (%d reads)",
                 output_bam, len(written))
@@ -1373,7 +1505,7 @@ def _write_empty_discovery_outputs(bed_path, metrics_path, summary_path,
 
 def _run_discovery_pipeline_impl(args, device):
     """Run the VCF-free discovery pipeline (reference :2093–2592) with
-    the device work on *device* (single process)."""
+    the device work on *device*."""
     pipeline_start = time.monotonic()
     logging.basicConfig(
         level=logging.DEBUG if args.debug_kmers else logging.INFO,
@@ -1395,6 +1527,15 @@ def _run_discovery_pipeline_impl(args, device):
         min_dk_per_read = max(1, args.kmer_size // 4)
     memory_limit_gb = getattr(args, "memory", None)
 
+    # Multi-host deployment (KDF_COORDINATOR env / N processes): every
+    # process consumes its own input stripe of each BAM, partial results
+    # merge at module boundaries, and process 0 alone writes outputs.
+    stripe = multihost.stripe()
+    primary = multihost.is_primary()
+    if stripe is not None:
+        logger.info("  Multi-host run: process %d of %d (input stripe)",
+                    stripe[0], stripe[1])
+
     def _finish_empty(reason, n_candidates=0, n_non_ref=0):
         """Early exit: valid empty outputs + zeroed funnel metrics.
 
@@ -1403,16 +1544,17 @@ def _run_discovery_pipeline_impl(args, device):
         the metric keys and log text are byte-pinned.
         """
         logger.warning("%s; writing empty outputs", reason)
-        _write_empty_discovery_outputs(
-            bed_path, metrics_path, summary_path,
-            {"mode": "discovery",
-             "child_candidate_kmers": n_candidates,
-             "non_ref_kmers": n_non_ref,
-             "proband_unique_kmers": 0,
-             "informative_reads": 0,
-             "unmapped_informative_reads": 0,
-             "candidate_regions": 0},
-            bedpe_path=bedpe_path)
+        if primary:
+            _write_empty_discovery_outputs(
+                bed_path, metrics_path, summary_path,
+                {"mode": "discovery",
+                 "child_candidate_kmers": n_candidates,
+                 "non_ref_kmers": n_non_ref,
+                 "proband_unique_kmers": 0,
+                 "informative_reads": 0,
+                 "unmapped_informative_reads": 0,
+                 "candidate_regions": 0},
+                bedpe_path=bedpe_path)
         logger.info("Pipeline finished in %s",
                     format_elapsed(time.monotonic() - pipeline_start))
 
@@ -1508,14 +1650,15 @@ def _run_discovery_pipeline_impl(args, device):
         step_start = time.monotonic()
         logger.info("[Module 1] Child k-mer extraction & reference subtraction")
         candidate_keys, n_candidates = _extract_child_kmers_discovery(
-            args.child, args.kmer_size, args.min_child_count, device)
+            args.child, args.kmer_size, args.min_child_count, device,
+            stripe=stripe)
 
         if n_candidates == 0:
             _finish_empty("No child candidate k-mers found")
             return
 
         non_ref_keys, n_non_ref = _subtract_reference_kmers(
-            ref_index, candidate_keys)
+            ref_index, candidate_keys, stripe=stripe)
         logger.info("[Module 1] Complete (%s)",
                     format_elapsed(time.monotonic() - step_start))
         log_memory("after Module 1")
@@ -1530,7 +1673,8 @@ def _run_discovery_pipeline_impl(args, device):
         logger.info("[Module 2] Parent filtering")
         n_proband_unique, proband_keys = _filter_parents_discovery(
             args.mother, args.father, non_ref_keys, args.kmer_size,
-            parent_max_count=args.parent_max_count, device=device)
+            parent_max_count=args.parent_max_count, device=device,
+            stripe=stripe)
         logger.info("[Module 2] Complete (%s)",
                     format_elapsed(time.monotonic() - step_start))
         log_memory("after Module 2")
@@ -1548,7 +1692,7 @@ def _run_discovery_pipeline_impl(args, device):
                                   device=device)
     logger.info("[Module 2b] Complete (%s)",
                 format_elapsed(time.monotonic() - step_start))
-    if getattr(args, "save_proband_index", False):
+    if getattr(args, "save_proband_index", False) and primary:
         snap_path = f"{out_prefix}.proband_unique.kdx.npz"
         np.savez(snap_path, keys=proband_keys, k=args.kmer_size,
                  child_candidate_kmers=n_candidates,
@@ -1568,7 +1712,7 @@ def _run_discovery_pipeline_impl(args, device):
         child_source, proband_index, args.kmer_size,
         merge_distance=args.cluster_distance,
         min_distinct_kmers_per_read=min_dk_per_read,
-        n_proband_unique=n_proband_unique)
+        n_proband_unique=n_proband_unique, stripe=stripe)
     logger.info("[Module 3] Complete (%s)",
                 format_elapsed(time.monotonic() - step_start))
     log_memory("after Module 3")
@@ -1577,7 +1721,8 @@ def _run_discovery_pipeline_impl(args, device):
     logger.info("[Module 4] Writing informative reads BAM: %s",
                 info_bam_path)
     _write_informative_reads_discovery(
-        child_source, proband_index, args.kmer_size, info_bam_path)
+        child_source, proband_index, args.kmer_size, info_bam_path,
+        stripe=stripe)
 
     try:
         if not getattr(args, "tmp_dir", None) and os.path.isdir(tmp_root):
@@ -1616,15 +1761,16 @@ def _run_discovery_pipeline_impl(args, device):
         "min_supporting_reads": min_reads,
         "min_distinct_kmers": min_kmers,
     }
-    _write_bed(regions, region_reads, region_kmers, bed_path,
-               region_annotations=region_annotations,
-               filters=bed_filters)
-    _write_bedgraph(kmer_coverage, bedgraph_path,
-                    read_coverage=read_coverage,
-                    min_reads=min_bedgraph_reads)
-    _write_read_coverage_bed(kmer_coverage, read_coverage,
-                             read_cov_bed_path,
-                             min_reads=min_bedgraph_reads)
+    if primary:
+        _write_bed(regions, region_reads, region_kmers, bed_path,
+                   region_annotations=region_annotations,
+                   filters=bed_filters)
+        _write_bedgraph(kmer_coverage, bedgraph_path,
+                        read_coverage=read_coverage,
+                        min_reads=min_bedgraph_reads)
+        _write_read_coverage_bed(kmer_coverage, read_coverage,
+                                 read_cov_bed_path,
+                                 min_reads=min_bedgraph_reads)
 
     logger.info(
         "  Coverage data: kmer_coverage=%d chroms, read_coverage=%d chroms",
@@ -1635,7 +1781,8 @@ def _run_discovery_pipeline_impl(args, device):
     del read_coverage
     log_memory("after freeing coverage data")
 
-    _write_bedpe(sv_links, bedpe_path)
+    if primary:
+        _write_bedpe(sv_links, bedpe_path)
 
     candidate_comparison = None
     candidate_summary = getattr(args, "candidate_summary", None)
@@ -1718,21 +1865,22 @@ def _run_discovery_pipeline_impl(args, device):
         "loci": dnm_evaluation,
     }
 
-    with open(metrics_path, "w") as fh:
-        json.dump(metrics, fh, indent=2)
-    logger.info("[Module 4] Metrics written to: %s", metrics_path)
+    if primary:
+        with open(metrics_path, "w") as fh:
+            json.dump(metrics, fh, indent=2)
+        logger.info("[Module 4] Metrics written to: %s", metrics_path)
 
-    logger.info("[Module 4] Writing summary: %s", summary_path)
-    _write_discovery_summary(
-        summary_path, regions, region_reads, region_kmers, metrics,
-        candidate_comparison=candidate_comparison,
-        region_annotations=region_annotations,
-        dnm_evaluation=dnm_evaluation)
+        logger.info("[Module 4] Writing summary: %s", summary_path)
+        _write_discovery_summary(
+            summary_path, regions, region_reads, region_kmers, metrics,
+            candidate_comparison=candidate_comparison,
+            region_annotations=region_annotations,
+            dnm_evaluation=dnm_evaluation)
     logger.info("[Module 4] Output complete (%s)",
                 format_elapsed(time.monotonic() - step_start))
 
     report_path = getattr(args, "report", None)
-    if report_path:
+    if report_path and primary:
         logger.info("[Report] Generating interactive HTML report: %s",
                     report_path)
         from kmer_denovo_filter_tpu_torch.report import generate_report
@@ -1761,5 +1909,9 @@ def _run_discovery_pipeline_impl(args, device):
 
 
 def run_discovery_pipeline(args, device):
-    """Run ``kmer-discovery`` with the device work on *device*."""
-    return _run_discovery_pipeline_impl(args, eng.resolve_device(device))
+    """Run ``kmer-discovery`` with the device work on *device*; honours
+    ``KDF_PROFILE=<dir>`` with a ``torch.profiler`` trace around the
+    whole run (reference discovery/pipeline.py:1912–1926)."""
+    device = eng.resolve_device(device)
+    return run_profiled(lambda: _run_discovery_pipeline_impl(args, device),
+                        device)

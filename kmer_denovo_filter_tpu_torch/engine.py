@@ -1,26 +1,27 @@
 """Device k-mer engine of the port: counters, tables and the anchoring scan.
 
-Counterparts of :mod:`kmer_denovo_filter_tpu.engine`, single device:
+Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
 
-* :class:`KmerIndex` (:101) — the sorted canonical k-mer table, held on
+* :class:`KmerIndex` (:147) — the sorted canonical k-mer table, held on
   the device as one int64 key (or one row of int64 limbs) per k-mer
   (:mod:`.ops.keys`), with its prefix directory on the card (over limb
   0 for k > 31; :mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
-* :class:`HostKmerIndex` (:238) and :class:`HostFilteredCounter` (:1201)
+* :class:`HostKmerIndex` (:212) and :class:`HostFilteredCounter` (:549)
   — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
   host C++ hash or a numpy search (a table on a CUDA device never goes
   to the host);
-* :func:`make_membership_index` (:303) — that gate;
-* :class:`StreamCounter` (:335) — ``jellyfish count -C``: K1 window keys,
+* :func:`make_membership_index` (:350) — that gate, and the sharded
+  index for a CUDA table one card cannot hold;
+* :class:`StreamCounter` (:371) — ``jellyfish count -C``: K1 window keys,
   a device sort-count per batch, host merge of the per-batch uniques;
-* :class:`FilteredCounter` (:473) — ``jellyfish count -C --if``: a
+* :class:`FilteredCounter` (:499) — ``jellyfish count -C --if``: a
   per-table-row tally, K1 → K2 (VCF mode, :func:`make_filtered_counter`)
   or K1 → K9d segment dedup → K3 (discovery,
   :func:`make_parent_filter_counter`);
 * :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
-  (:1065, :1242) — the anchoring scan, K1 → K4.
+  (:632, :644) — the anchoring scan, K1 → K4.
 
 Host-facing keys stay the JAX package's (M, W) uint32 words, so the
 pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
@@ -29,8 +30,10 @@ k <= 31, a row of Q = ceil(k / 31) int64 limbs for k = 33..207.  The
 wide path runs K1w → K7 (tally, unweighted or weighted) and K1w → K8
 (membership, rows) where the narrow one runs K1 → K2/K3 and K1 → K4.
 The device is explicit: chosen at the entry point and passed to every
-table and counter.  Sharded counters and scanners are not ported
-(ROADMAP queue 1 item 9).
+table and counter.  With two or more local CUDA devices the factories
+below hand a table one card cannot hold, or every table under
+``KDF_SHARDED=1``, to the sharded engine (:mod:`.parallel.sharded`,
+:func:`_shard_dispatch`); a CPU entry point keeps one device.
 
 The reference's ``pad_read_batch`` (engine.py:70) has no counterpart:
 it padded every batch to bound XLA's distinct compiled shapes, and the
@@ -149,8 +152,10 @@ class KmerIndex:
     every K2 and K4 (K7 and K8) probe of the table; ``directory`` is None
     on the CPU."""
 
-    def __init__(self, keys_np, k, counts_np=None, *, device):
-        """*keys_np*: (M, W) uint32 sorted unique canonical keys."""
+    def __init__(self, keys_np, k, counts_np=None, *, device, key_tensor=None):
+        """*keys_np*: (M, W) uint32 sorted unique canonical keys;
+        *key_tensor*: their :func:`_key_tensor` form, when the caller
+        holds it already."""
         keys64.check_k(k)
         self.k = k
         self.w = enc.words_per_kmer(k)
@@ -159,7 +164,7 @@ class KmerIndex:
         self.counts_np = counts_np
         self.device = resolve_device(device)
         # (M,) int64 keys, or (M, Q) limb rows for k > 31
-        host = _key_tensor(keys_np, k)
+        host = _key_tensor(keys_np, k) if key_tensor is None else key_tensor
         self.table = host.to(self.device)
         self.directory = None
         if self.device.type == "cuda":
@@ -263,18 +268,58 @@ class HostKmerIndex:
         return np.where(found, self.counts_np[pos] if self.n else 0, 0)
 
 
-def _check_card_holds(n_bytes, device, what):
-    """Raise when CUDA *device* cannot allocate *n_bytes* for a table:
-    a table on the card never goes to the host."""
-    free = torch.cuda.mem_get_info(device)[0] + (
+def _card_free(device):
+    """Bytes CUDA *device* can still allocate (free, plus cached by
+    PyTorch's allocator)."""
+    return torch.cuda.mem_get_info(device)[0] + (
         torch.cuda.memory_reserved(device)
         - torch.cuda.memory_allocated(device))
+
+
+def _check_card_holds(n_bytes, device, what):
+    """Raise when CUDA *device* cannot allocate *n_bytes* for a table:
+    a table on the card never goes to the host.  The factories call it
+    only where the sharded engine cannot take the table instead."""
+    free = _card_free(device)
     if n_bytes > free:
         raise RuntimeError(
             f"the {what} table needs {n_bytes / 2 ** 30:.2f} GB on "
-            f"{device}, which has {free / 2 ** 30:.2f} GB free; tables "
-            "larger than one card wait for the sharded engine (ROADMAP "
-            "queue 1 item 9)")
+            f"{device}, which has {free / 2 ** 30:.2f} GB free; a table "
+            "larger than one card needs the sharded engine "
+            "(parallel.ShardedKmerIndex), which takes 2 or more cards")
+
+
+def _local_mesh(device):
+    """The devices an entry point on *device* may shard a table over:
+    every local CUDA device for a CUDA device in a single-process run;
+    the one device otherwise (a CPU entry point, or one process of a
+    multi-host run, which owns its one card)."""
+    from kmer_denovo_filter_tpu_torch.parallel import multihost
+    if device.type != "cuda" or multihost.active():
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _needs_shards(n_bytes, device):
+    """True when a CUDA table of *n_bytes* does not fit *device* but 2 or
+    more local cards can share it."""
+    return (device.type == "cuda" and len(_local_mesh(device)) >= 2
+            and n_bytes > _card_free(device))
+
+
+def _shard_dispatch(device, n_bytes=0):
+    """True when the sharded engine should serve a table of *n_bytes*
+    for an entry point on *device*: ``KDF_SHARDED=0`` turns sharding
+    off, ``KDF_SHARDED=1`` forces it over 2 or more devices
+    (:func:`_local_mesh`), and otherwise only a table the card cannot
+    hold shards.  The reference's automatic rule (above 2**20 keys,
+    engine.py:1357) is not kept: on H100s the sharded feed ran 5-7x
+    slower than one card's, whether its shards shared a card or sat on
+    four (PERF.md, the sharded feed)."""
+    mode = os.environ.get("KDF_SHARDED")
+    if mode == "0" or len(_local_mesh(device)) < 2:
+        return False
+    return mode == "1" or _needs_shards(n_bytes, device)
 
 
 def _host_resident(n, k, what):
@@ -305,9 +350,17 @@ def _table_bytes(n, k):
 def make_membership_index(keys_np, k, counts_np=None, *, device):
     """:class:`KmerIndex` on *device*.  On the CPU device a table over
     ``KDF_DEVICE_TABLE_BYTES`` becomes a :class:`HostKmerIndex`; on a
-    CUDA device one the card cannot hold raises."""
+    CUDA device one the card cannot hold is sharded over the local cards
+    (:class:`~.parallel.sharded.ShardedKmerIndex`, reference
+    engine.py:303–326), or raises with one card."""
     device = resolve_device(device)
     n = keys_np.shape[0]
+    if _needs_shards(_table_bytes(n, k), device):
+        from kmer_denovo_filter_tpu_torch.parallel import ShardedKmerIndex
+        mesh = _local_mesh(device)
+        logger.info("  reference table %d keys exceeds %s — sharded "
+                    "across %d devices", n, device, len(mesh))
+        return ShardedKmerIndex(keys_np, k, mesh)
     if device.type == "cuda":
         _check_card_holds(_table_bytes(n, k), device, "reference")
     elif _host_resident(n, k, "reference"):
@@ -362,7 +415,11 @@ class StreamCounter:
         else:
             uk, counts = dev.sort_count(win.reshape(-1))
             uk = uk.cpu().numpy()[:, None]
-        counts = counts.cpu().numpy()
+        self._add_chunk(uk, counts.cpu().numpy())
+
+    def _add_chunk(self, uk, counts):
+        """Queue one batch's sorted unique (N, Q) rows and counts, and
+        consolidate when the pending rows call for it."""
         self._chunks.append((uk, counts))
         self._pending_rows += uk.shape[0]
         self.total_windows += int(counts.sum())
@@ -405,9 +462,37 @@ class StreamCounter:
                                           device=self.device)
 
 
+class ShardedStreamCounter(StreamCounter):
+    """Mesh canonical counting (``jellyfish count -C`` over devices).
+
+    Each batch runs the sharded count (:func:`~.parallel.sharded.
+    sharded_count`: extraction data-parallel over the mesh, window keys
+    routed to their owner, an owner-side sort-count); the per-batch
+    (rows, counts) merge reuses :class:`StreamCounter`'s progressive
+    consolidation (reference engine.py:430–452).
+    """
+
+    def __init__(self, k, mesh):
+        super().__init__(k, device=mesh[0])
+        self.mesh = mesh
+
+    def feed(self, codes, lengths):
+        from kmer_denovo_filter_tpu_torch.parallel.sharded import _count_rows
+        self._add_chunk(*_count_rows(codes, lengths, self.k, self.mesh))
+
+
 def make_stream_counter(k, *, device):
-    """Single-device :class:`StreamCounter` (the sharded counter is
-    ROADMAP queue 1 item 9)."""
+    """:class:`StreamCounter` on *device*, or :class:`ShardedStreamCounter`
+    over the local CUDA devices when ``KDF_SHARDED=1`` forces it and
+    there are 2 or more (:func:`_shard_dispatch`).  The reference shards
+    automatically on a multi-chip mesh (engine.py:455–469); here the
+    count's output is on the host, so no card limits it, and the
+    sharded count sorts each batch's rows on the host."""
+    device = resolve_device(device)
+    if _shard_dispatch(device):
+        mesh = _local_mesh(device)
+        logger.info("  sharded stream counter: %d-device mesh", len(mesh))
+        return ShardedStreamCounter(k, mesh)
     return StreamCounter(k, device=device)
 
 
@@ -497,8 +582,17 @@ class HostFilteredCounter:
 
 
 def make_filtered_counter(index):
-    """VCF-mode parent scan: the plain K1 → K2 :class:`FilteredCounter`
-    (multi-device sharding is ROADMAP queue 1 item 9)."""
+    """VCF-mode parent scan: the plain K1 → K2 :class:`FilteredCounter`,
+    or the :class:`~.parallel.sharded.ShardedFilteredCounter` over the
+    local devices under ``KDF_SHARDED=1`` (:func:`_shard_dispatch`;
+    reference engine.py:1370): *index* already fits its card."""
+    if _shard_dispatch(index.device):
+        from kmer_denovo_filter_tpu_torch.parallel import (
+            ShardedFilteredCounter,
+        )
+        mesh = _local_mesh(index.device)
+        logger.info("  sharded engine: %d-device mesh", len(mesh))
+        return ShardedFilteredCounter(index.keys_np, index.k, mesh)
     return FilteredCounter(index)
 
 
@@ -506,17 +600,29 @@ def make_parent_filter_counter(keys_np, k, *, device):
     """Discovery parent filter (Module 2) built straight from host keys.
 
     The table becomes a :class:`KmerIndex` on *device* with the
-    dedup-first :class:`FilteredCounter` (reference engine.py:1401,
-    single device).  On a CUDA device it must fit the card (table and
-    accumulator) or this raises; on the CPU device a table over
+    dedup-first :class:`FilteredCounter` (reference engine.py:1401).
+    Over 2 or more local cards, a table the card cannot hold (or any
+    table under ``KDF_SHARDED=1``, :func:`_shard_dispatch`) gives the
+    dedup-first
+    :class:`~.parallel.sharded.ShardedFilteredCounter` instead.  Otherwise
+    on a CUDA device it must fit the card (table and accumulator) or
+    this raises; on the CPU device a table over
     ``KDF_DEVICE_TABLE_BYTES`` goes to :class:`HostFilteredCounter` for
     k <= 31, while a wide table stays on the device, as in the reference
     (engine.py:1437).
     """
     device = resolve_device(device)
     n = keys_np.shape[0]
+    n_bytes = _table_bytes(n, k) + 8 * n
+    if _shard_dispatch(device, n_bytes):
+        from kmer_denovo_filter_tpu_torch.parallel import (
+            ShardedFilteredCounter,
+        )
+        mesh = _local_mesh(device)
+        logger.info("  sharded engine: %d-device mesh", len(mesh))
+        return ShardedFilteredCounter(keys_np, k, mesh, dedup=True)
     if device.type == "cuda":
-        _check_card_holds(_table_bytes(n, k) + 8 * n, device, "filter")
+        _check_card_holds(n_bytes, device, "filter")
     elif (k <= keys64.NARROW_K and _host_resident(n, k, "filter")
           and native.available()):
         return HostFilteredCounter(keys_np, k)
@@ -569,8 +675,33 @@ def scan_reads_for_hits_many(index, batches):
     return out
 
 
+def _sharded_index(index):
+    """*index* itself when it is sharded, else its sharded copy when
+    ``KDF_SHARDED=1`` forces it (:func:`_shard_dispatch`), else None."""
+    from kmer_denovo_filter_tpu_torch.parallel import ShardedKmerIndex
+    if isinstance(index, ShardedKmerIndex):
+        return index
+    if not _shard_dispatch(index.device):
+        return None
+    mesh = _local_mesh(index.device)
+    logger.info("  sharded anchoring scan: %d-device mesh", len(mesh))
+    return ShardedKmerIndex(index.keys_np, index.k, mesh)
+
+
 def make_scanner(index):
-    """Anchoring-scan callable for *index* (single device)."""
+    """Anchoring-scan callable for *index*: :func:`scan_reads_for_hits`,
+    or :func:`~.parallel.sharded.sharded_scan_reads_for_hits` by the rule
+    of :func:`make_filtered_counter` (reference engine.py:1448)."""
+    sharded = _sharded_index(index)
+    if sharded is not None:
+        from kmer_denovo_filter_tpu_torch.parallel import (
+            sharded_scan_reads_for_hits,
+        )
+
+        def scan(codes, lengths):
+            return sharded_scan_reads_for_hits(sharded, codes, lengths)
+
+        return scan
 
     def scan(codes, lengths):
         return scan_reads_for_hits(index, codes, lengths)
@@ -579,7 +710,19 @@ def make_scanner(index):
 
 
 def make_scanner_many(index):
-    """Group-scan callable: list of (codes, lengths) → list of masks."""
+    """Group-scan callable: list of (codes, lengths) → list of masks; a
+    sharded index scans batch by batch (reference engine.py:1335)."""
+    sharded = _sharded_index(index)
+    if sharded is not None:
+        from kmer_denovo_filter_tpu_torch.parallel import (
+            sharded_scan_reads_for_hits,
+        )
+
+        def scan_many(batches):
+            return [sharded_scan_reads_for_hits(sharded, c, l)
+                    for c, l in batches]
+
+        return scan_many
 
     def scan_many(batches):
         return scan_reads_for_hits_many(index, batches)

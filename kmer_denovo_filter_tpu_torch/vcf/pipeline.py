@@ -10,8 +10,11 @@ K2 probe-tally against the child k-mer table.
 The host helpers below are copies of the JAX module's (cited at each),
 because that module imports ``engine`` and with it jax; the I/O, k-mer
 and report code they call is the port's own copy of the JAX package's.
-Not ported: multi-host striping and the ``KDF_PROFILE`` trace (ROADMAP
-queue 1 items 9 and 10).
+In a multi-host run (``KDF_COORDINATOR``, :mod:`.parallel.multihost`)
+each process scans its stripe of each parent BAM, the aligned tallies
+sum across processes, and process 0 alone writes the outputs.
+``KDF_PROFILE=<dir>`` wraps the run in a ``torch.profiler`` trace
+(:mod:`..profiling`).
 """
 
 import collections
@@ -21,6 +24,8 @@ import os
 import statistics
 import sys
 import time
+
+import numpy as np
 
 from kmer_denovo_filter_tpu_torch.htsio.bam import (
     BamWriter,
@@ -49,6 +54,8 @@ from kmer_denovo_filter_tpu_torch.utils import (
     validate_inputs,
 )
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch.parallel import multihost
+from kmer_denovo_filter_tpu_torch.profiling import run_profiled
 
 logger = logging.getLogger(__name__)
 _FRACTION_PRECISION = 4
@@ -344,15 +351,19 @@ def _parent_count_stats(kmer_pool, parent_found_kmers):
     return max(counts), round(statistics.mean(counts), 2), min(counts)
 
 
-def _scan_parent_device(parent_bam_path, child_index, label):
+def _scan_parent_device(parent_bam_path, child_index, label,
+                        stripe=None):
     """Step 3: filtered parent count on the child index's device.
 
-    Port of kmer_denovo_filter_tpu/vcf/pipeline.py:194 (single host).
-    Streams all primary, non-duplicate, non-supplementary parent reads
-    (flag filter 0xD00, matching ``samtools fasta -F 0xD00`` at
-    reference core/jellyfish_wrappers.py:159) through the filtered
-    counter.  Returns ``{canonical_kmer: parent_count}`` for count >= 1
-    (the ``jellyfish dump -c -L 1`` contract).
+    Port of kmer_denovo_filter_tpu/vcf/pipeline.py:194.  Streams all
+    primary, non-duplicate, non-supplementary parent reads (flag filter
+    0xD00, matching ``samtools fasta -F 0xD00`` at reference
+    core/jellyfish_wrappers.py:159) through the filtered counter.
+    Returns ``{canonical_kmer: parent_count}`` for count >= 1 (the
+    ``jellyfish dump -c -L 1`` contract).
+
+    With ``stripe=(h, n)`` each process counts its input shard of the
+    parent BAM; the aligned tallies sum across processes.
     """
     scan_start = time.monotonic()
     logger.info("Scanning parent BAM (%s): %s",
@@ -362,10 +373,14 @@ def _scan_parent_device(parent_bam_path, child_index, label):
     fc = eng.make_filtered_counter(child_index)
     n_reads = 0
     for codes, lengths in prefetch_batches(
-            packed_batches(parent_bam_path, exclude_flags=0xD00)):
+            packed_batches(parent_bam_path, exclude_flags=0xD00,
+                           stripe=stripe)):
         fc.feed(codes, lengths)
         n_reads += codes.shape[0]
     counts = fc.result()
+    if stripe is not None:
+        counts = multihost.sum_aligned(counts)
+        n_reads = int(multihost.sum_aligned(np.int64(n_reads)))
     strings = child_index.to_strings()
     found = {s: int(c) for s, c in zip(strings, counts) if c > 0}
     logger.info("  %s scan complete — %d reads, %d k-mers found (%s)",
@@ -378,8 +393,7 @@ def _run_pipeline_impl(args, device):
     """Run the five-step VCF annotation pipeline.
 
     Follows kmer_denovo_filter_tpu/vcf/pipeline.py:383–784 step for
-    step; the parent scans run on *device*.  The multi-host branches
-    (input stripes, primary-only outputs) are not ported.
+    step; the parent scans run on *device*.
     """
     pipeline_start = time.monotonic()
     logging.basicConfig(
@@ -399,6 +413,15 @@ def _run_pipeline_impl(args, device):
             sys.exit(1)
 
     validate_inputs(args)
+
+    # Multi-host deployment (KDF_COORDINATOR env / N processes): the
+    # parent scans stream per-process input stripes and merge; process
+    # 0 alone runs the optional Kraken2 stage and writes outputs.
+    stripe = multihost.stripe()
+    primary = multihost.is_primary()
+    if stripe is not None:
+        logger.info("  Multi-host run: process %d of %d (input stripe)",
+                    stripe[0], stripe[1])
 
     logger.info("=" * 60)
     logger.info("  kmer-denovo  —  pipeline starting")
@@ -450,10 +473,11 @@ def _run_pipeline_impl(args, device):
 
     if not variants:
         logger.warning("No variants found in VCF; writing empty output")
-        write_annotated_vcf(args.vcf, args.output, {}, args.proband_id)
-        if args.metrics:
-            with open(args.metrics, "w") as fh:
-                json.dump({"total_variants": 0}, fh, indent=2)
+        if primary:
+            write_annotated_vcf(args.vcf, args.output, {}, args.proband_id)
+            if args.metrics:
+                with open(args.metrics, "w") as fh:
+                    json.dump({"total_variants": 0}, fh, indent=2)
         logger.info("Pipeline finished in %s",
                     format_elapsed(time.monotonic() - pipeline_start))
         return
@@ -495,7 +519,7 @@ def _run_pipeline_impl(args, device):
         parent_start = time.monotonic()
         logger.info("[Step 3/5] ── Mother scan (1/2) ──")
         mother_kmers = _scan_parent_device(args.mother, child_index,
-                                           "Mother")
+                                           "Mother", stripe=stripe)
         parent_found_kmers.update(mother_kmers)
         logger.info(
             "[Step 3/5] Mother done — %d / %d child k-mers found in "
@@ -505,7 +529,7 @@ def _run_pipeline_impl(args, device):
         parent_start = time.monotonic()
         logger.info("[Step 3/5] ── Father scan (2/2) ──")
         father_kmers = _scan_parent_device(args.father, child_index,
-                                           "Father")
+                                           "Father", stripe=stripe)
         parent_found_kmers.update(father_kmers)
         logger.info(
             "[Step 3/5] Father done — %d / %d child k-mers found in "
@@ -597,6 +621,17 @@ def _run_pipeline_impl(args, device):
         "[Step 4/5] Annotation complete — %d likely de novo, "
         "%d inherited (%s)", likely_dnm, n_variants - likely_dnm,
         format_elapsed(time.monotonic() - step_start))
+
+    if not primary:
+        # non-primary processes contributed their parent-scan stripes;
+        # the optional Kraken2 stage and all output writing belong to
+        # process 0
+        logger.info("Pipeline finished successfully in %s "
+                    "(multi-host worker %d; outputs written by "
+                    "process 0)",
+                    format_elapsed(time.monotonic() - pipeline_start),
+                    stripe[0])
+        return
 
     # ── Kraken2 stage (optional) ───────────────────────────────────
     kraken2_result = None
@@ -762,5 +797,8 @@ def _run_pipeline_impl(args, device):
 
 
 def run_pipeline(args, device):
-    """Run ``kmer-denovo`` with the parent scans on *device*."""
-    return _run_pipeline_impl(args, eng.resolve_device(device))
+    """Run ``kmer-denovo`` with the parent scans on *device*; honours
+    ``KDF_PROFILE=<dir>`` with a ``torch.profiler`` trace around the
+    whole run (reference vcf/pipeline.py:786–800)."""
+    device = eng.resolve_device(device)
+    return run_profiled(lambda: _run_pipeline_impl(args, device), device)

@@ -89,3 +89,57 @@ def test_pipeline_shim_names_are_the_ports():
     assert tpipeline.run_pipeline is tvcf.run_pipeline
     assert tpipeline._write_bed is tdisc._write_bed
     assert len(_reference_shim_names()) == 31
+
+
+def test_report_cli_writes_the_reference_html(tmp_path, capsys):
+    """``kmer-report-torch`` on the in-repo goldens (as
+    tests/test_report.py:124 runs ``kmer-report``) writes the same HTML
+    as the JAX package's command."""
+    from kmer_denovo_filter_tpu.cli import report_main as jax_report_main
+    gold = os.path.join(REPO, "tests", "goldens")
+    inputs = ["--vcf-metrics", os.path.join(gold, "metrics.json"),
+              "--vcf-summary", os.path.join(gold, "summary.txt"),
+              "--discovery-metrics",
+              os.path.join(gold, "giab_discovery.metrics.json"),
+              "--discovery-summary",
+              os.path.join(gold, "giab_discovery.summary.txt")]
+    out = str(tmp_path / "port.html")
+    cli.report_main(["--output", out] + inputs)
+    assert f"Report written to: {out}" in capsys.readouterr().out
+    ref = str(tmp_path / "jax.html")
+    jax_report_main(["--output", ref] + inputs)
+    with open(out) as a, open(ref) as b:
+        html = a.read()
+        assert html == b.read()
+    assert "<html" in html.lower()
+
+
+def test_kdf_profile_writes_a_torch_trace(tmp_path, monkeypatch):
+    """``KDF_PROFILE=<dir>`` wraps a CPU VCF run in ``torch.profiler``:
+    a Chrome trace lands in the directory and the outputs are the
+    goldens."""
+    import gzip
+    import json
+
+    from tests.conftest import GIAB_DATA_EXISTS, GIAB_DIR
+
+    if not GIAB_DATA_EXISTS:
+        pytest.skip("GIAB data unavailable")
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("KDF_PROFILE", str(trace_dir))
+    argv = ["--child", os.path.join(GIAB_DIR, "HG002_child.bam"),
+            "--mother", os.path.join(GIAB_DIR, "HG004_mother.bam"),
+            "--father", os.path.join(GIAB_DIR, "HG003_father.bam"),
+            "--vcf", os.path.join(GIAB_DIR, "candidates.vcf.gz"),
+            "--output", str(tmp_path / "annotated.vcf.gz"),
+            "--proband-id", "HG002"]
+    cli.vcf_main(argv, device="cpu")
+    traces = [f for f in os.listdir(trace_dir)
+              if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    with open(trace_dir / traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    gold = os.path.join(REPO, "tests", "goldens", "annotated.vcf.gz")
+    with gzip.open(tmp_path / "annotated.vcf.gz") as a, gzip.open(gold) as b:
+        assert a.read() == b.read()

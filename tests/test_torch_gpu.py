@@ -1019,3 +1019,99 @@ def test_extract_stage_kernel_matches_plain(cuda, stage):
     if stage == 5:
         ref = dev.extract_canonical_windows(codes, lengths, 31)[0]
         assert torch.equal(got, ref)
+
+
+# ── the sharded engine on one card: the mesh [cuda:0] * S ─────────────
+
+
+def _sharded_case(k, seed, n_reads=512, length=152):
+    """(table words, host codes, host lengths): the distinct keys of the
+    first 64 reads plus random keys, and *n_reads* reads with N bases."""
+    codes, lengths = (t.numpy() for t in _batch(seed, n_reads, length))
+    win = eng._window_keys(codes[:64], lengths[:64], k, torch.device("cpu"))
+    flat = win.flatten(0, 1)
+    if flat.dim() == 1:
+        keys = torch.unique(flat[flat != keys64.SENTINEL])
+        words = keys64.keys64_to_words(keys, k)
+    else:
+        keys = torch.unique(flat[flat[:, 0] != keys64.SENTINEL], dim=0)
+        words = keys64.limbs_to_words(keys, k)
+    return words, codes, lengths
+
+
+def test_owner_hash_equal_on_cpu_and_card(cuda):
+    from kmer_denovo_filter_tpu_torch.parallel.sharded import hash_owner
+    gen = torch.Generator().manual_seed(0)
+    for q in (1, 3, 7):
+        keys = torch.randint(0, 1 << 62, (100_000, q), generator=gen)
+        keys[::97] = keys64.SENTINEL
+        flat = keys if q > 1 else keys[:, 0]
+        for n in (2, 3, 4, 8):
+            assert torch.equal(hash_owner(flat, n),
+                               hash_owner(flat.to(cuda), n).cpu())
+
+
+@pytest.mark.parametrize("s", [1, 3, 4])
+def test_table_owners_on_the_card_equal_the_cpu_hash(cuda, s):
+    """The sharded index hashes each slice of its table on a card: the
+    owners equal the CPU hash of the whole table, and the card sees
+    whether the rows are in order."""
+    from kmer_denovo_filter_tpu_torch.parallel.sharded import (
+        _table_owners,
+        hash_owner,
+    )
+    gen = torch.Generator().manual_seed(s)
+    for q in (1, 3):
+        keys = torch.randint(0, 1 << 62, (10_001, q), generator=gen)
+        keys = keys if q > 1 else keys[:, 0]
+        got, ordered = _table_owners(keys, [torch.device("cuda", 0)] * s)
+        assert np.array_equal(got, hash_owner(keys, s).numpy())
+        assert not ordered
+        ordered_keys = keys.sort().values if q == 1 else keys[
+            torch.from_numpy(np.lexsort(keys.numpy().T[::-1]))]
+        assert _table_owners(ordered_keys,
+                             [torch.device("cuda", 0)] * s)[1]
+
+
+@pytest.mark.parametrize("s", [1, 2, 4])
+@pytest.mark.parametrize("k", [31, 63])
+def test_sharded_engine_on_one_card_matches_one_device(cuda, k, s):
+    """Phase 8 of chip_smoke.py at a small size: every sharded result
+    equals the single-device one, and every shard launched its kernels."""
+    from kmer_denovo_filter_tpu_torch.parallel import (
+        ShardedFilteredCounter,
+        ShardedKmerIndex,
+        sharded_count,
+        sharded_scan_reads_for_hits,
+    )
+    words, codes, lengths = _sharded_case(k, 200 + k)
+    mesh = [torch.device("cuda", 0)] * s
+    index = eng.KmerIndex(words, k, device=cuda)
+    name = "launches" if k <= keys64.NARROW_K else "wide_launches"
+    for dedup in (False, True):
+        before = getattr(probe, name)
+        fc = ShardedFilteredCounter(words, k, mesh, dedup=dedup)
+        fc.feed(codes, lengths)
+        one = eng.FilteredCounter(index, dedup=dedup)
+        one.feed(codes, lengths)
+        assert np.array_equal(fc.result(), one.result())
+        if not dedup:
+            assert getattr(probe, name) >= before + s
+    q = words[::2]
+    sharded = ShardedKmerIndex(words, k, mesh)
+    assert np.array_equal(sharded.membership(q), index.membership(q))
+    assert np.array_equal(sharded_scan_reads_for_hits(sharded, codes,
+                                                      lengths),
+                          eng.scan_reads_for_hits(index, codes, lengths))
+    got_k, got_c = sharded_count(codes, lengths, k, mesh)
+    sc = eng.StreamCounter(k, device=cuda)
+    sc.feed(codes, lengths)
+    want_k, want_c = sc.result()
+    assert np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)
+    homopolymer = np.zeros((64, 80), np.uint8)
+    fc = ShardedFilteredCounter(words, k, mesh)
+    fc.feed(homopolymer, np.full(64, 80, np.int32))
+    fc.feed(codes[:0], lengths[:0])
+    one = eng.FilteredCounter(index)
+    one.feed(homopolymer, np.full(64, 80, np.int32))
+    assert np.array_equal(fc.result(), one.result())

@@ -25,6 +25,7 @@ bad += sorted(m for m in sys.modules
               or m.startswith("kmer_denovo_filter_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
 
 
@@ -32,9 +33,12 @@ def test_port_modules_import_no_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    n_modules, bad = res.stdout.split("\n")[:2]
+    n_modules, bad, names = res.stdout.split("\n")[:3]
     assert int(n_modules) >= 30  # discovery.pipeline and htsio included
     assert bad == ""
+    for name in ("parallel", "parallel.sharded", "parallel.multihost",
+                 "profiling", "experiments.multi_card"):
+        assert f"kmer_denovo_filter_tpu_torch.{name}" in names.split(","), name
 
 
 def test_no_jax_import_in_port_sources():
