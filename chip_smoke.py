@@ -126,15 +126,24 @@ any failure exits non-zero before the result line:
    ``sharded_count_multihost`` (its ``all_to_all_single`` on the card)
    and ``merge_counts_sharded`` of two halves at k = 31 and 63 equal to
    the single-process results; then ``destroy_process_group``.
-7. Experiments: every ported command of ``experiments.x_fused`` (sort,
-   prof, transposed, unroll2) and ``experiments.x_join_variants`` (v5,
-   kernel, xextract, xextract3, xmicro) once, in this process, with 3
-   timed repetitions; a false parity line fails the run.
+7. Experiments: every command of ``experiments.x_fused`` (sort, prof,
+   transposed, unroll2, anatomy, variants, steps, super, sprof) and
+   ``experiments.x_join_variants`` (v5, kernel, xextract, xextract3,
+   xmicro, sort, pieces5, prof5, xfloor, v5m, v5w) once, in this
+   process, with 3 timed repetitions (the WGS table built once for all);
+   a false parity line, or a command with none, fails the run.  The
+   phase's seconds.
+9. Entry points (``kmer_denovo_filter_tpu_torch.entry``): ``entry()``'s
+   step K1 -> K2 on the card, on its example arguments and on a table of
+   a third of the batch's window keys, equal to the same step on CPU
+   copies (the plain versions), K1 and K2 launched; then
+   ``dryrun_multichip`` over ``make_mesh()`` of every local card and,
+   with one card, over ``[cuda:0] * 4`` through ``mesh=``.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches in phases 4 and 4b (phase 4c for the wide kernels and K9dw,
 and the directory builder in 4, 4b and 4c; phases 5d and 7 for K9),
-those of phases 4d, 8 and 8b apart under ``launches_by_phase``, its
+those of phases 4d, 8, 8b and 9 apart under ``launches_by_phase``, its
 largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
 move over 3.35 TB/s and its operations over 67 T/s; the directory of a
@@ -807,6 +816,7 @@ def phase_7(reset_counts, read_counts):
         x_join_variants,
     )
     reset_counts()
+    t_phase = time.perf_counter()
     run_v5 = x_join_variants.run_v5
     reached_v5 = []
     for mod in (x_fused, x_join_variants):
@@ -839,6 +849,59 @@ def phase_7(reset_counts, read_counts):
                 fail(f"{name} {command} printed no true parity line")
             print(f"[7] {name} {command}: every parity line true, "
                   f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"[7] {sum(len(m.COMMANDS) for m in (x_fused, x_join_variants))} "
+          f"commands in {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return read_counts()
+
+
+def phase_9(cuda, reset_counts, read_counts):
+    """The port's entry points: ``entry()``'s step on the card equal to
+    the same step on CPU copies of its arguments (the plain versions),
+    on its example table and on a third of the batch's window keys, with
+    K1 and K2 launched; then ``dryrun_multichip`` over every local card
+    and, with one, over four shards of it.  Returns the phase's
+    launches."""
+    from kmer_denovo_filter_tpu_torch import entry
+    from kmer_denovo_filter_tpu_torch.ops import extract
+    from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+    reset_counts()
+    t0 = time.perf_counter()
+    fn, (table, _acc, codes, lengths) = entry.entry()
+    flat = extract.extract_canonical(codes.cpu(), lengths.cpu(),
+                                     entry.K).reshape(-1)
+    tables = {"the example table": table,
+              "a third of the windows": torch.unique(
+                  flat[flat != SENTINEL])[::3].contiguous().to(cuda)}
+    hits = {}
+    for label, t in tables.items():
+        acc = torch.zeros(t.shape[0], dtype=torch.int64, device=cuda)
+        cpu = (t.cpu(), acc.cpu(), codes.cpu(), lengths.cpu())
+        got_acc, got_n = fn(t, acc, codes, lengths)
+        ref_acc, ref_n = fn(*cpu)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_acc.cpu(), ref_acc)
+                and int(got_n) == int(ref_n)):
+            fail(f"9: entry()'s step on {label} differs on the card from "
+                 "the CPU")
+        hits[label] = int(ref_acc.sum())
+    step = read_counts()
+    for name in ("extract_canonical", "probe_tally"):
+        if step[name] <= 0:
+            fail(f"9: entry()'s step did not launch {name}")
+    n_cards = torch.cuda.device_count()
+    entry.dryrun_multichip(n_cards)
+    meshes = [f"make_mesh({n_cards})"]
+    if n_cards == 1:
+        entry.dryrun_multichip(4, mesh=[cuda] * 4)
+        meshes.append("[cuda:0] * 4")
+    launched = {name: step[name] for name in ("extract_canonical",
+                                              "probe_tally",
+                                              "build_directory")}
+    print(f"[9] entry(): the step K1 -> K2 equal on the card and the CPU "
+          f"({int(ref_n)} valid windows; hits {hits}), its launches "
+          f"{launched}; dryrun_multichip passed over "
+          f"{' and '.join(meshes)}; {time.perf_counter() - t0:.3f} s",
+          flush=True)
     return read_counts()
 
 
@@ -2017,6 +2080,9 @@ def main():
         if launches_7[name] <= 0:
             fail(f"kernel {name} was not launched by the experiments")
 
+    # ── 9. the entry points ───────────────────────────────────────
+    launches_9 = phase_9(cuda, reset_counts, read_counts)
+
     if "jax" in sys.modules or any(
             m == "kmer_denovo_filter_tpu"
             or m.startswith("kmer_denovo_filter_tpu.") for m in sys.modules):
@@ -2044,11 +2110,11 @@ def main():
                                        for run in launches_wide)
     # K9 is on no main path: its launches in 5d and 7
     launches["seg_sort"] = launches_5d["seg_sort"] + launches_7["seg_sort"]
-    # the multi-host CLIs (4d), the sharded engine on [cuda:0] * S (8)
-    # and the one-process group (8b) are other paths: their launches
-    # stand apart, a count for each
+    # the multi-host CLIs (4d), the sharded engine on [cuda:0] * S (8),
+    # the one-process group (8b) and the entry points (9) are other
+    # paths: their launches stand apart, a count for each
     other_paths = {"4d": launches_4d, "8": (launches_8,),
-                   "8b": (launches_8b,)}
+                   "8b": (launches_8b,), "9": (launches_9,)}
     wide = {name: times[(name, 63, BIG_M)]
             for name in ("probe_tally_wide", "probe_member_wide")}
     # K7 weighted on K9dw's slots: the main path's form

@@ -66,3 +66,24 @@ extern "C" int kdf_build_directory(const void* table, int row_stride,
       static_cast<int*>(dir));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The launch plan kdf_probe_tally (counts = 1) or kdf_probe_member
+// (counts = 0) takes for n keys of a table with `live` rows and a
+// directory of `bits` on the current device, under the launch override
+// (form, threads, blocks_per_sm; all 0: the plan): out[0..4] = staged,
+// blocks, threads, dynamic shared bytes, the staged budget.  Launches
+// nothing.
+extern "C" int kdf_dir_probe_plan(long long n, int live, int bits,
+                                  int counts, int form, int threads,
+                                  int blocks_per_sm, long long* out) {
+  kdf::DirLaunch launch;
+  const cudaError_t err = kdf::dir_probe_launch(
+      n, live, bits, counts != 0, {form, threads, blocks_per_sm}, &launch);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = launch.staged ? 1 : 0;
+  out[1] = launch.blocks;
+  out[2] = launch.threads;
+  out[3] = static_cast<long long>(launch.smem);
+  out[4] = static_cast<long long>(launch.budget);
+  return 0;
+}

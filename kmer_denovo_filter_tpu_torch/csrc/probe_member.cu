@@ -107,8 +107,9 @@ __global__ void __launch_bounds__(kdf::kDirStagedThreads, 2)
 }
 
 // Global form: the table and the directory through the read-only path.
-__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
-                                  kdf::kDirGlobalBlocksPerSm)
+// kThreads is 256 (the plan) or 512 (a launch override of 512 threads).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, kdf::global_min_blocks(kThreads))
     probe_member_global(const long long* __restrict__ keys, long long n,
                         bool vec, const long long* __restrict__ table,
                         const int* __restrict__ dir, int bits, int shift,
@@ -121,12 +122,17 @@ std::atomic<uint64_t> staged_opted_in{0};
 
 }  // namespace
 
+// K4 over n keys through the table's directory, in the launch plan of
+// kdf::dir_probe_launch; form, threads and blocks_per_sm are a
+// kdf::LaunchOverride (all 0: the plan).
 extern "C" int kdf_probe_member(const void* keys, long long n,
                                 const void* table, int live, const void* dir,
                                 int bits, int shift, void* found, void* rows,
+                                int form, int threads, int blocks_per_sm,
                                 void* stream) {
   kdf::DirLaunch launch;
-  cudaError_t err = kdf::dir_probe_launch(n, live, bits, false, &launch);
+  cudaError_t err = kdf::dir_probe_launch(
+      n, live, bits, false, {form, threads, blocks_per_sm}, &launch);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* k = static_cast<const long long*>(keys);
   const auto* t = static_cast<const long long*>(table);
@@ -144,9 +150,14 @@ extern "C" int kdf_probe_member(const void* keys, long long n,
     if (err != cudaSuccess) return static_cast<int>(err);
     probe_member_staged<<<launch.blocks, launch.threads, launch.smem, s>>>(
         k, n, vec, t, live, d, bits, shift, f, r);
+  } else if (launch.threads <= kdf::kDirGlobalThreads) {
+    probe_member_global<kdf::kDirGlobalThreads>
+        <<<launch.blocks, launch.threads, 0, s>>>(k, n, vec, t, d, bits,
+                                                  shift, f, r);
   } else {
-    probe_member_global<<<launch.blocks, launch.threads, 0, s>>>(
-        k, n, vec, t, d, bits, shift, f, r);
+    probe_member_global<2 * kdf::kDirGlobalThreads>
+        <<<launch.blocks, launch.threads, 0, s>>>(k, n, vec, t, d, bits,
+                                                  shift, f, r);
   }
   return static_cast<int>(cudaGetLastError());
 }

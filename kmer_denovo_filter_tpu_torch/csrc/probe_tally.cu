@@ -105,9 +105,10 @@ __global__ void __launch_bounds__(kdf::kDirStagedThreads, 2)
   }
 }
 
-// K2, global form: one global atomic per hit.
-__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
-                                  kdf::kDirGlobalBlocksPerSm)
+// K2, global form: one global atomic per hit.  kThreads is 256 (the
+// plan) or 512 (a launch override of 512 threads).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, kdf::global_min_blocks(kThreads))
     probe_tally_global(const long long* __restrict__ keys, long long n,
                        bool vec, const long long* __restrict__ table,
                        const int* __restrict__ dir, int bits, int shift,
@@ -137,8 +138,8 @@ __device__ __forceinline__ void tally_weighted_group(
 }
 
 // K3, flat: n keys, grid-stride over groups of four.
-__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
-                                  kdf::kDirGlobalBlocksPerSm)
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, kdf::global_min_blocks(kThreads))
     probe_tally_weighted_flat(const long long* __restrict__ keys,
                               const long long* __restrict__ weights,
                               long long n, bool vec,
@@ -158,8 +159,8 @@ __global__ void __launch_bounds__(kdf::kDirGlobalThreads,
 // K3 on K9d's slots: `rows` rows of 8,192, the first counts[s] of row s
 // live.  A block takes a row at a time (grid-stride over rows) and its
 // threads the row's live groups only, so no thread visits a dead slot.
-__global__ void __launch_bounds__(kdf::kDirGlobalThreads,
-                                  kdf::kDirGlobalBlocksPerSm)
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, kdf::global_min_blocks(kThreads))
     probe_tally_weighted_slots(const long long* __restrict__ keys,
                                const long long* __restrict__ weights,
                                const int* __restrict__ counts, long long rows,
@@ -185,11 +186,16 @@ std::atomic<uint64_t> staged_opted_in{0};
 
 }  // namespace
 
+// K2 over n keys through the table's directory, in the launch plan of
+// kdf::dir_probe_launch; form, threads and blocks_per_sm are a
+// kdf::LaunchOverride (all 0: the plan).
 extern "C" int kdf_probe_tally(const void* keys, long long n,
                                const void* table, int live, const void* dir,
-                               int bits, int shift, void* acc, void* stream) {
+                               int bits, int shift, void* acc, int form,
+                               int threads, int blocks_per_sm, void* stream) {
   kdf::DirLaunch launch;
-  cudaError_t err = kdf::dir_probe_launch(n, live, bits, true, &launch);
+  cudaError_t err = kdf::dir_probe_launch(
+      n, live, bits, true, {form, threads, blocks_per_sm}, &launch);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* k = static_cast<const long long*>(keys);
   const auto* t = static_cast<const long long*>(table);
@@ -203,21 +209,37 @@ extern "C" int kdf_probe_tally(const void* keys, long long n,
     if (err != cudaSuccess) return static_cast<int>(err);
     probe_tally_staged<<<launch.blocks, launch.threads, launch.smem, s>>>(
         k, n, vec, t, live, d, bits, shift, a);
+  } else if (launch.threads <= kdf::kDirGlobalThreads) {
+    probe_tally_global<kdf::kDirGlobalThreads>
+        <<<launch.blocks, launch.threads, 0, s>>>(k, n, vec, t, d, bits,
+                                                  shift, a);
   } else {
-    probe_tally_global<<<launch.blocks, launch.threads, 0, s>>>(
-        k, n, vec, t, d, bits, shift, a);
+    probe_tally_global<2 * kdf::kDirGlobalThreads>
+        <<<launch.blocks, launch.threads, 0, s>>>(k, n, vec, t, d, bits,
+                                                  shift, a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K3 over n keys (flat: keys and weights (n,); slots, counts not null:
 // (n / 8,192, 8,192) with counts (n / 8,192,) int32) through the
-// table's directory.
+// table's directory.  K3 has the global form only: form may be auto or
+// global, threads and blocks_per_sm as for K2 (0: 256 threads, at most
+// four blocks an SM).
 extern "C" int kdf_probe_tally_weighted(const void* keys, const void* weights,
                                         const void* counts, long long n,
                                         const void* table, const void* dir,
                                         int bits, int shift, void* acc,
-                                        void* stream) {
+                                        int form, int threads,
+                                        int blocks_per_sm, void* stream) {
+  const kdf::LaunchOverride o{form, threads, blocks_per_sm};
+  if (!kdf::valid_override(o) || form == kdf::kFormStaged) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int block = threads != 0 ? threads : kdf::kDirGlobalThreads;
+  const int per_sm =
+      blocks_per_sm != 0 ? blocks_per_sm : kdf::kDirGlobalBlocksPerSm;
+  const bool t512 = block > kdf::kDirGlobalThreads;
   const auto* k = static_cast<const long long*>(keys);
   const auto* w = static_cast<const long long*>(weights);
   const auto* c = static_cast<const int*>(counts);
@@ -228,19 +250,29 @@ extern "C" int kdf_probe_tally_weighted(const void* keys, const void* weights,
   const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0;
   unsigned blocks = 0;
   if (c != nullptr) {
-    // a block a row, at most the global form's blocks
+    // a block a row, at most per_sm blocks an SM
     const long long rows = n / 8192;
     const cudaError_t err =
-        kdf::global_probe_blocks(rows * kdf::kDirGlobalThreads, &blocks);
+        kdf::global_probe_blocks(rows * block, block, per_sm, &blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
-    probe_tally_weighted_slots<<<blocks, kdf::kDirGlobalThreads, 0, s>>>(
-        k, w, c, rows, vec, t, d, bits, shift, a);
+    if (t512) {
+      probe_tally_weighted_slots<2 * kdf::kDirGlobalThreads>
+          <<<blocks, block, 0, s>>>(k, w, c, rows, vec, t, d, bits, shift, a);
+    } else {
+      probe_tally_weighted_slots<kdf::kDirGlobalThreads>
+          <<<blocks, block, 0, s>>>(k, w, c, rows, vec, t, d, bits, shift, a);
+    }
   } else {
-    const cudaError_t err =
-        kdf::global_probe_blocks((n + kKeys - 1) / kKeys, &blocks);
+    const cudaError_t err = kdf::global_probe_blocks(
+        (n + kKeys - 1) / kKeys, block, per_sm, &blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
-    probe_tally_weighted_flat<<<blocks, kdf::kDirGlobalThreads, 0, s>>>(
-        k, w, n, vec, t, d, bits, shift, a);
+    if (t512) {
+      probe_tally_weighted_flat<2 * kdf::kDirGlobalThreads>
+          <<<blocks, block, 0, s>>>(k, w, n, vec, t, d, bits, shift, a);
+    } else {
+      probe_tally_weighted_flat<kdf::kDirGlobalThreads>
+          <<<blocks, block, 0, s>>>(k, w, n, vec, t, d, bits, shift, a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -75,6 +75,13 @@ constexpr int kDirStagedThreads = 512;
 constexpr int kDirGlobalThreads = 256;
 constexpr int kDirGlobalBlocksPerSm = 4;
 
+// __launch_bounds__ blocks an SM of a global-form kernel of *threads* a
+// block (256, the plan, or 512 under a launch override): the register
+// budget of kDirGlobalBlocksPerSm blocks of kDirGlobalThreads, 64 a thread.
+constexpr int global_min_blocks(int threads) {
+  return kDirGlobalThreads * kDirGlobalBlocksPerSm / threads;
+}
+
 // *p through the read-only path (kGlobal) or a plain (shared) load.
 template <bool kGlobal, typename T>
 __device__ __forceinline__ T load_ro(const T* p) {
@@ -208,6 +215,20 @@ __device__ __forceinline__ void stage_directory(
 // when the live rows (8 B each, 16 B with `counts`) and the uint16
 // directory of 2^bits + 1 entries fit the shared memory two blocks can
 // share an SM with, else global blocks of kDirGlobalThreads (four an SM).
+//
+// A LaunchOverride (the experiments' `variants` and `steps` sweeps; the
+// engine never passes one) may force the form, set the threads a block
+// (128, 256 or 512) and cap the blocks an SM; each field left 0 keeps the
+// plan above.  Forcing the staged form on a table that does not fit, or
+// any other value, gives cudaErrorInvalidValue.
+enum LaunchForm { kFormAuto = 0, kFormStaged = 1, kFormGlobal = 2 };
+
+struct LaunchOverride {
+  int form;           // LaunchForm
+  int threads;        // 0, or 128, 256 or 512
+  int blocks_per_sm;  // 0, or a cap of 1..32
+};
+
 struct DirLaunch {
   bool staged;
   unsigned blocks;
@@ -216,18 +237,31 @@ struct DirLaunch {
   size_t budget;  // staged: the shared memory two blocks an SM allow
 };
 
+inline bool valid_override(const LaunchOverride& o) {
+  return o.form >= kFormAuto && o.form <= kFormGlobal &&
+         (o.threads == 0 || o.threads == 128 || o.threads == 256 ||
+          o.threads == 512) &&
+         o.blocks_per_sm >= 0 && o.blocks_per_sm <= 32;
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
 inline cudaError_t dir_probe_launch(long long n, int live, int bits,
-                                    bool counts, DirLaunch* out) {
+                                    bool counts, const LaunchOverride& o,
+                                    DirLaunch* out) {
+  if (!valid_override(o)) return cudaErrorInvalidValue;
   int device = 0;
   int sms = 0;
   int smem_sm = 0;
   int optin = 0;
   int reserved = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(
         &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
@@ -245,33 +279,41 @@ inline cudaError_t dir_probe_launch(long long n, int live, int bits,
                          2 * ((1LL << bits) + 1);
   const long long per_block = smem_sm / 2 - reserved;
   out->budget = static_cast<size_t>(per_block < optin ? per_block : optin);
-  out->staged = smem <= static_cast<long long>(out->budget);
-  out->threads = out->staged ? kDirStagedThreads : kDirGlobalThreads;
+  const bool fits = smem <= static_cast<long long>(out->budget);
+  out->staged = o.form == kFormAuto ? fits : o.form == kFormStaged;
+  if (out->staged && !fits) return cudaErrorInvalidValue;
+  out->threads = o.threads != 0 ? o.threads
+                 : out->staged  ? kDirStagedThreads
+                                : kDirGlobalThreads;
   out->smem = out->staged ? static_cast<size_t>(smem) : 0;
   const long long groups = (n + kKeys - 1) / kKeys;
   const long long need = (groups + out->threads - 1) / out->threads;
-  const long long cap =
-      static_cast<long long>(sms) * (out->staged ? 2 : kDirGlobalBlocksPerSm);
+  const long long per_sm = o.blocks_per_sm != 0 ? o.blocks_per_sm
+                           : out->staged        ? 2
+                                                : kDirGlobalBlocksPerSm;
+  const long long cap = static_cast<long long>(sms) * per_sm;
   out->blocks = static_cast<unsigned>(need < cap ? need : cap);
   return cudaSuccess;
 }
 
-// Blocks of kDirGlobalThreads for a grid-stride over *groups* (of kKeys
-// narrow keys, or of a wide probe's rows): at most kDirGlobalBlocksPerSm
-// an SM, the global form of K2 and K4, K3's only form.
-inline cudaError_t global_probe_blocks(long long groups, unsigned* blocks) {
-  int device = 0;
+// Blocks of *threads* (default kDirGlobalThreads) for a grid-stride over
+// *groups* (of kKeys narrow keys, or of a wide probe's rows): at most
+// *per_sm* (default kDirGlobalBlocksPerSm) an SM, the global form of K2
+// and K4, K3's only form.
+inline cudaError_t global_probe_blocks(long long groups, int threads,
+                                       int per_sm, unsigned* blocks) {
   int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const long long need = (groups + kDirGlobalThreads - 1) / kDirGlobalThreads;
-  const long long cap = static_cast<long long>(sms) * kDirGlobalBlocksPerSm;
+  const long long need = (groups + threads - 1) / threads;
+  const long long cap = static_cast<long long>(sms) * per_sm;
   *blocks = static_cast<unsigned>(need < cap ? need : cap);
   return cudaSuccess;
+}
+
+inline cudaError_t global_probe_blocks(long long groups, unsigned* blocks) {
+  return global_probe_blocks(groups, kDirGlobalThreads, kDirGlobalBlocksPerSm,
+                             blocks);
 }
 
 // Opts *kernel* in to *bytes* of dynamic shared memory on the current

@@ -12,7 +12,9 @@ device work runs through the port's engine on an explicit
   subtracts the reference (K4 membership);
 * Module 2 filters by the parents: K1 → K9d segment dedup → K3 weighted
   tally on K9d's slots (k > 31: K1w → K9dw → K7 weighted on its slots);
-  over 2 or more cards the table shards (:mod:`.parallel.sharded`);
+  with 2 or more local cards, a table one card cannot hold (any table
+  under ``KDF_SHARDED=1``) shards (:mod:`.parallel.sharded`,
+  ``engine._shard_dispatch``);
 * Modules 3–4 anchor the proband-unique k-mers in the child reads:
   groups of ``NB_JOIN_MEMBER`` batches, K1 → K4 in one pass per group.
 
@@ -244,7 +246,9 @@ def _count_parent_device(parent_bam, filter_keys, kmer_size, label,
 
     Takes host-side *filter_keys*; ``engine.make_parent_filter_counter``
     builds the counter on *device* (host-resident only for a CPU-device
-    table over ``KDF_DEVICE_TABLE_BYTES``, sharded over 2 or more cards).
+    table over ``KDF_DEVICE_TABLE_BYTES``; sharded over 2 or more local
+    cards only when one card cannot hold the table, or under
+    ``KDF_SHARDED=1``: ``engine._shard_dispatch``).
     Returns int64 counts aligned with *filter_keys*.  With ``stripe=(h,
     n)`` each process counts its input shard; the aligned partial
     tallies sum across processes.

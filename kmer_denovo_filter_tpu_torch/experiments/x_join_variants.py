@@ -23,8 +23,39 @@ The JAX script's Pallas kernels and what stands for each here:
   and pack, 1 forward extract, 2 reverse complement, 3 canonical
   minimum, 4 N-in-window mask, 5 the full K1) and compares stage 5 only.
 
-The script's other commands run no Pallas kernel and are not ported
-yet (ROADMAP, queue of experiment commands).
+The script's other commands run no Pallas kernel; each asks its
+question of the port's kernels:
+
+* ``sort`` (``run_sort`` :145): whole-batch ``torch.sort`` of one
+  batch's int64 window keys, bare, stable with an int32 payload
+  gathered, and as an argsort (the member path's index), against K9 per
+  8,192-row segment with and without its payload.
+* ``pieces5`` (``run_pieces5`` :664): each piece of the segment form
+  alone: K9 (keys, then with the payload), K9d, the run starts and
+  ranks and the compaction of ``ops/device.segment_compact`` (the
+  plain stand-in for K9d's slots), and K3 on the compacted stream
+  against K3 on K9d's slots.
+* ``prof5`` (``run_prof5`` :1032): the cumulative prefixes of the
+  engine's dedup step on the WGS table: K1, + K9d, + K3 on the slots,
+  and the whole ``FilteredCounter(dedup=True).feed`` of a host batch.
+* ``xfloor`` (``run_xfloor`` :1577): an empty launch (device time, and
+  the host's launch rate apart), one elementwise pass over a (B, 167)
+  int32 tensor, and the engine's dedup-form feed at 1x, 2x and 4x a
+  batch in reads/s, each exact against the K1 -> K2 form.
+* ``v5m`` (``run_v5m`` :1629): the member scan behind a dedup, built
+  from the port's kernels (it has no such path): K9 with the window
+  index as payload -> run heads -> K4 on the heads -> each head's bit
+  spread over its run and scattered back (:func:`member_behind_seg_sort`),
+  and ``torch.unique`` -> K4 -> a gather (:func:`member_behind_unique`),
+  both exact against K4 on the raw windows.
+* ``v5w`` (``run_v5w`` :1669): at k = 63 the wide filter's three forms,
+  K1w -> K7, K1w -> K9dw -> K7 on the slots and K1w ->
+  ``dedup_windows_wide`` -> K7, on a table of random rows and every
+  fifth live row of the batch; all three exact.
+
+``extract`` (the doubling pack, which K1's packed tile is) and ``s1``
+(the sharded engine's S = 1 rate, ``chip_smoke.py`` phase 8) have
+their answers already and are not ported.
 """
 
 import sys
@@ -39,28 +70,38 @@ from kmer_denovo_filter_tpu_torch.experiments._common import (
     READ_LEN,
     V5_BATCHES,
     bound,
+    pair_order,
     parity,
     parse_args,
     read_batch,
     setup,
     synth_reads,
     timeit,
-    wgs_table,
+    wgs_index,
+    window_keys,
 )
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+from kmer_denovo_filter_tpu_torch.ops import segsort
 from kmer_denovo_filter_tpu_torch.ops.directory import build_directory
 from kmer_denovo_filter_tpu_torch.ops.extract import (
     extract_canonical,
     extract_canonical_stage,
+    extract_canonical_wide,
 )
+from kmer_denovo_filter_tpu_torch.ops.member import probe_member
 from kmer_denovo_filter_tpu_torch.ops.probe import (
     probe_tally,
     probe_tally_weighted,
     probe_tally_wide,
 )
+from kmer_denovo_filter_tpu_torch.ops.timing import timings
 
-COMMANDS = ("v5", "kernel", "xextract", "xextract3", "xmicro")
+COMMANDS = ("v5", "kernel", "xextract", "xextract3", "xmicro", "sort",
+            "pieces5", "prof5", "xfloor", "v5m", "v5w")
+K_WIDE = 63  # v5w's k, as the JAX run_v5w
+FLOOR_WIDTH = 167  # xfloor's elementwise tensor: (B, 167) int32
+FLOOR_MULTS = (1, 2, 4)  # xfloor's batch sizes, in BATCH_READS
 STAGES = ("load + pack", "+forward extract", "+reverse complement",
           "+canonical min", "+N-in-window mask", "+read length (= K1)")
 
@@ -126,9 +167,7 @@ def _sync(device):
 def run_v5(args, device, rng, genome):
     """The three parent-filter forms on the same batches, interleaved
     (A B C C B A), each exact against the others; reads/s of each."""
-    table = wgs_table(rng, genome, args.table_m, device)
-    index = eng.KmerIndex(keys64.keys64_to_words(table, K), K, device=device)
-    del table
+    index = wgs_index(args.table_m, device)
     batches = [synth_reads(rng, genome, args.reads)
                for _ in range(V5_BATCHES)]
     lens = np.full(args.reads, READ_LEN, np.int32)
@@ -173,8 +212,8 @@ def run_v5(args, device, rng, genome):
 def run_kernel(args, device, rng, genome):
     """K1 -> K2 on raw windows against K1 -> sort -> K2 on sorted ones
     (the question of the sorted-route tally kernels v3 and v4)."""
-    table = wgs_table(rng, genome, args.table_m, device)
-    directory = build_directory(table)  # once per table, as KmerIndex
+    index = wgs_index(args.table_m, device)
+    table, directory = index.table, index.directory
     codes, lengths = read_batch(rng, genome, args.reads, device)
     flat = extract_canonical(codes, lengths, K).reshape(-1)
     srt = torch.sort(flat).values
@@ -262,8 +301,297 @@ def run_xmicro(args, device, rng, genome):
                device, args.reps)
 
 
+def run_sort(args, device, rng, genome):
+    """Whole-batch sorts of one batch's window keys against K9 per
+    segment; parity of the sorted keys and of each segment's pairs."""
+    codes, lengths = read_batch(rng, genome, args.reads, device)
+    flat = window_keys(codes, lengths)
+    index = torch.arange(flat.numel(), dtype=torch.int32, device=device)
+    print(f"sort: {flat.numel()} int64 window keys", flush=True)
+    bare = torch.sort(flat).values
+    stable = torch.sort(flat, stable=True)
+    order = torch.argsort(flat, stable=True)
+    parity("whole-batch sorted keys", torch.equal(bare, stable.values)
+           and torch.equal(flat[order], bare)
+           and torch.equal(flat[index[stable.indices].long()], bare))
+    keys, pay = segsort.seg_sort(flat, index)
+    ref_keys, ref_pay = dev.segment_sort(segsort.segments(flat,
+                                                          keys64.SENTINEL),
+                                         segsort.segments(index, -1))
+    parity("K9 segment keys", torch.equal(keys, ref_keys) and torch.equal(
+        segsort.seg_sort(flat)[0], ref_keys))
+    parity("K9 segment (key, payload) pairs", all(
+        torch.equal(a, b) for a, b in zip(pair_order(keys, pay),
+                                          pair_order(ref_keys, ref_pay))))
+    reps = args.reps
+    timeit("torch.sort, whole batch", lambda: torch.sort(flat), device, reps)
+
+    def with_payload():
+        srt = torch.sort(flat, stable=True)
+        return srt.values, index[srt.indices]
+
+    timeit("torch.sort stable + int32 payload", with_payload, device, reps)
+    timeit("torch.argsort stable [member index]",
+           lambda: torch.argsort(flat, stable=True), device, reps)
+    timeit("K9 seg sort, keys", lambda: segsort.seg_sort(flat), device, reps)
+    timeit("K9 seg sort, key + payload",
+           lambda: segsort.seg_sort(flat, index), device, reps)
+
+
+def _run_heads(srt):
+    """Run starts of each row of sorted (S, 8192) keys (sentinel keys
+    start none) and each slot's rank among them (a torch compare and a
+    cumulative sum)."""
+    start = srt != keys64.SENTINEL
+    start[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    return start, start.cumsum(1)
+
+
+def run_pieces5(args, device, rng, genome):
+    """Each piece of the segment form alone; K3 on the compacted stream
+    against K3 on K9d's slots."""
+    index = wgs_index(args.table_m, device)
+    table, directory = index.table, index.directory
+    codes, lengths = read_batch(rng, genome, args.reads, device)
+    flat = window_keys(codes, lengths)
+    payload = torch.arange(flat.numel(), dtype=torch.int32, device=device)
+    slots = segsort.seg_dedup(flat)
+    keys, weights = dev.segment_compact(*slots)
+    start, rank = _run_heads(segsort.seg_sort(flat)[0])
+    live = int((flat != keys64.SENTINEL).sum())
+    print(f"pieces5: table M={table.shape[0]}, {flat.numel()} windows "
+          f"({live} live), {slots[0].shape[0]} segments, {keys.numel()} "
+          f"segment-distinct keys", flush=True)
+    parity("weights sum to the live windows", int(weights.sum()) == live)
+    parity("run starts and ranks count K9d's slots", torch.equal(
+        start.sum(1).int(), slots[2]) and torch.equal(rank[:, -1].int(),
+                                                      slots[2]))
+    acc_flat = torch.zeros(table.shape[0], dtype=torch.int64, device=device)
+    acc_slots = torch.zeros_like(acc_flat)
+    probe_tally_weighted(keys, weights, table, acc_flat, directory)
+    probe_tally_weighted(*slots[:2], table, acc_slots, directory, slots[2])
+    parity("K3 compacted vs K3 on the slots", torch.equal(acc_flat,
+                                                         acc_slots))
+    reps = args.reps
+    timeit("K9 seg sort, keys", lambda: segsort.seg_sort(flat), device, reps)
+    timeit("K9 seg sort, key + payload",
+           lambda: segsort.seg_sort(flat, payload), device, reps)
+    timeit("K9d seg dedup", lambda: segsort.seg_dedup(flat), device, reps)
+    srt = segsort.seg_sort(flat)[0]
+    timeit("run starts + ranks (torch)", lambda: _run_heads(srt), device,
+           reps)
+    timeit("compaction (segment_compact, a sync)",
+           lambda: dev.segment_compact(*slots), device, reps)
+    timeit("K3 on the compacted stream", lambda: probe_tally_weighted(
+        keys, weights, table, acc_flat, directory), device, reps)
+    timeit("K3 on K9d's slots", lambda: probe_tally_weighted(
+        *slots[:2], table, acc_slots, directory, slots[2]), device, reps)
+
+
+def run_prof5(args, device, rng, genome):
+    """Cumulative prefixes of the engine's dedup step, to the whole
+    ``FilteredCounter(dedup=True).feed`` of a host batch."""
+    index = wgs_index(args.table_m, device)
+    table, directory = index.table, index.directory
+    codes_np = synth_reads(rng, genome, args.reads)
+    lens_np = np.full(args.reads, READ_LEN, np.int32)
+    codes = torch.from_numpy(codes_np).to(device)
+    lengths = torch.from_numpy(lens_np).to(device)
+    acc = torch.zeros(table.shape[0], dtype=torch.int64, device=device)
+    counter = eng.FilteredCounter(index, dedup=True)
+    print(f"prof5: table M={table.shape[0]}, {args.reads} reads",
+          flush=True)
+
+    def step(stage, acc):
+        """The step cut after prefix *stage* (3: the engine's feed)."""
+        if stage == 3:
+            counter.feed(codes_np, lens_np)
+            return
+        flat = window_keys(codes, lengths)
+        if stage == 0:
+            return
+        slots = segsort.seg_dedup(flat)
+        if stage == 2:
+            probe_tally_weighted(*slots[:2], table, acc, directory, slots[2])
+
+    step(2, acc)
+    step(3, None)
+    flat_acc = torch.zeros_like(acc)
+    probe_tally_weighted(*dev.segment_compact(*segsort.seg_dedup(
+        window_keys(codes, lengths))), table, flat_acc, directory)
+    parity("K3 compacted vs K3 on the slots vs the engine's feed",
+           torch.equal(acc, flat_acc) and torch.equal(acc, counter.acc))
+    prev = None
+    for stage, name in enumerate(("K1", "+K9d", "+K3 on the slots",
+                                  "+host feed (FilteredCounter.feed)")):
+        ms = timeit(f"prefix {stage} {name}",
+                    lambda stage=stage: step(stage, acc), device, args.reps)
+        if prev is not None:
+            print(f"    marginal {ms - prev:+10.4f} ms", flush=True)
+        prev = ms
+
+
+def run_xfloor(args, device, rng, genome):
+    """The launch floor, one elementwise pass, and the dedup-form feed
+    rate at 1x, 2x and 4x a batch."""
+    tiny = torch.zeros((8, 128), dtype=torch.int32, device=device)
+
+    def empty():
+        return tiny[:1, :1] + 1
+
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            spun_ms, loop_ms = timings(empty, args.reps)
+        print(f"{'empty launch (device, behind the spin)':44s} "
+              f"{spun_ms:10.4f} ms", flush=True)
+        print(f"{'empty launch (host launch rate)':44s} {loop_ms:10.4f} ms "
+              f"= {1e3 / loop_ms:.0f} launches/s", flush=True)
+    else:
+        timeit("empty launch (host)", empty, device, args.reps)
+    big = torch.zeros((args.reads, FLOOR_WIDTH), dtype=torch.int32,
+                      device=device)
+    out = torch.empty_like(big)
+    ms = timeit(f"one elementwise pass {tuple(big.shape)} int32",
+                lambda: torch.mul(big, 2, out=out), device, args.reps)
+    lim = bound(2 * 4 * big.numel(), big.numel())
+    print(f"  bound {lim[0]:.4f} ms by {lim[1]} ({lim[0] / ms:.3f} of the "
+          "pass's time)", flush=True)
+    index = wgs_index(args.table_m, device)
+    print(f"xfloor: table M={index.n}", flush=True)
+    for mult in FLOOR_MULTS:
+        n = args.reads * mult
+        codes = synth_reads(rng, genome, n)
+        lens = np.full(n, READ_LEN, np.int32)
+        dedup = eng.FilteredCounter(index, dedup=True)
+        plain = eng.FilteredCounter(index)
+        dedup.feed(codes, lens)
+        plain.feed(codes, lens)
+        parity(f"{n} reads: dedup form vs K1 -> K2",
+               torch.equal(dedup.acc, plain.acc))
+        ms = timeit(f"dedup-form feed, {n} reads",
+                    lambda: dedup.feed(codes, lens), device, args.reps)
+        print(f"    = {n / ms * 1e3:.1f} reads/s", flush=True)
+
+
+def member_behind_seg_sort(flat, table, directory=None):
+    """(N,) bool: each window key of the (N,) int64 stream *flat* is in
+    *table*, probing each distinct key of a segment once: K9 sorts each
+    8,192-window segment with the window index as payload, the run heads
+    (a key unlike the one before it) go through K4 on their own, each
+    head's found bit is spread over its run and scattered back through
+    the payload.  Sentinel windows are never found."""
+    n = flat.shape[0]
+    keys, pay = segsort.seg_sort(
+        flat, torch.arange(n, dtype=torch.int32, device=flat.device))
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    found = probe_member(keys[head], table, directory)[
+        head.reshape(-1).cumsum(0) - 1]
+    # padding slots (payload -1) land in a spare last entry
+    pay = pay.reshape(-1).long()
+    out = torch.zeros(n + 1, dtype=torch.bool, device=flat.device)
+    out[torch.where(pay >= 0, pay, n)] = found
+    return out[:n]
+
+
+def member_behind_unique(flat, table, directory=None):
+    """:func:`member_behind_seg_sort` by a whole-batch ``torch.unique``:
+    K4 on the distinct keys, gathered back by the inverse index."""
+    uniq, inverse = torch.unique(flat, return_inverse=True)
+    return probe_member(uniq, table, directory)[inverse]
+
+
+def run_v5m(args, device, rng, genome):
+    """The member scan behind a dedup, two ways, against K4 on the raw
+    windows; the dedup tally step timed in the same run."""
+    index = wgs_index(args.table_m, device)
+    table, directory = index.table, index.directory
+    codes, lengths = read_batch(rng, genome, args.reads, device)
+    flat = window_keys(codes, lengths)
+    raw = probe_member(flat, table, directory)
+    heads = int((segsort.seg_dedup(flat)[2]).sum())
+    print(f"v5m: table M={table.shape[0]}, {flat.numel()} windows, "
+          f"{heads} segment-distinct keys, "
+          f"{torch.unique(flat).numel()} of the batch, {int(raw.sum())} "
+          "found", flush=True)
+    parity("member behind K9 vs K4 raw", torch.equal(
+        member_behind_seg_sort(flat, table, directory), raw))
+    parity("member behind torch.unique vs K4 raw", torch.equal(
+        member_behind_unique(flat, table, directory), raw))
+    reps = args.reps
+    timeit("K4 on the raw windows",
+           lambda: probe_member(flat, table, directory), device, reps)
+    timeit("K9 -> heads -> K4 -> spread + scatter",
+           lambda: member_behind_seg_sort(flat, table, directory), device,
+           reps)
+    timeit("torch.unique -> K4 -> gather",
+           lambda: member_behind_unique(flat, table, directory), device,
+           reps)
+    acc = torch.zeros(table.shape[0], dtype=torch.int64, device=device)
+
+    def tally():
+        slots = segsort.seg_dedup(flat)
+        probe_tally_weighted(*slots[:2], table, acc, directory, slots[2])
+
+    timeit("tally K9d -> K3 (same run)", tally, device, reps)
+
+
+def wide_table(rng, flat, m, k, device):
+    """Sorted unique (M', Q) limb-row table on *device*: *m* random rows
+    and every fifth live row of the window rows *flat* (the recipe of
+    ``run_v5w`` :1669)."""
+    rand = torch.from_numpy(np.stack([
+        rng.integers(0, 4 ** nb, m, dtype=np.int64)
+        for nb in keys64.limb_bases(k)], 1)).to(device)
+    live = flat[flat[:, 0] != keys64.SENTINEL]
+    return dev.unique_rows(torch.cat([rand, live[::5]]))[0]
+
+
+def run_v5w(args, device, rng, genome):
+    """The wide filter's three forms at k = 63, exact against each
+    other."""
+    k = K_WIDE
+    codes, lengths = read_batch(rng, genome, args.reads, device)
+    table = wide_table(rng, extract_canonical_wide(codes, lengths,
+                                                   k).flatten(0, 1),
+                       args.table_m, k, device)
+    directory = build_directory(table)  # once per table, as KmerIndex
+    accs = {}
+
+    def plain(acc):
+        flat = extract_canonical_wide(codes, lengths, k).flatten(0, 1)
+        probe_tally_wide(flat, table, acc, directory=directory)
+
+    def segment(acc):
+        flat = extract_canonical_wide(codes, lengths, k).flatten(0, 1)
+        keys, weights, counts = segsort.seg_dedup_wide(flat)
+        probe_tally_wide(keys, table, acc, weights, directory, counts)
+
+    def batch(acc):
+        flat = extract_canonical_wide(codes, lengths, k).flatten(0, 1)
+        keys, weights = dev.dedup_windows_wide(flat)
+        probe_tally_wide(keys, table, acc, weights, directory)
+
+    forms = {"K1w -> K7": plain, "K1w -> K9dw -> K7 slots": segment,
+             "K1w -> dedup_windows_wide -> K7": batch}
+    for name, form in forms.items():
+        accs[name] = torch.zeros(table.shape[0], dtype=torch.int64,
+                                 device=device)
+        form(accs[name])
+    ref = accs["K1w -> K7"]
+    print(f"v5w: k={k}, table M={table.shape[0]} x {table.shape[1]} limbs, "
+          f"{int(ref.sum())} hits", flush=True)
+    for name, acc in accs.items():
+        parity(f"wide {name} tally", torch.equal(acc, ref))
+    for name, form in forms.items():
+        timeit(f"step {name}", lambda form=form, name=name: form(accs[name]),
+               device, args.reps)
+
+
 RUNS = {"v5": run_v5, "kernel": run_kernel, "xextract": run_xextract,
-        "xextract3": run_xextract3, "xmicro": run_xmicro}
+        "xextract3": run_xextract3, "xmicro": run_xmicro, "sort": run_sort,
+        "pieces5": run_pieces5, "prof5": run_prof5, "xfloor": run_xfloor,
+        "v5m": run_v5m, "v5w": run_v5w}
 
 
 def main(argv=None):

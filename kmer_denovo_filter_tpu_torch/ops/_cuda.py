@@ -121,14 +121,18 @@ def lib():
             so.kdf_build_directory.argtypes = [ptr, i32, i32, i32, i32, ptr,
                                                ptr]
             so.kdf_build_directory.restype = i32
+            so.kdf_dir_probe_plan.argtypes = [i64, i32, i32, i32, i32, i32,
+                                              i32, ptr]
+            so.kdf_dir_probe_plan.restype = i32
             so.kdf_probe_tally.argtypes = [ptr, i64, ptr, i32, ptr, i32, i32,
-                                           ptr, ptr]
+                                           ptr, i32, i32, i32, ptr]
             so.kdf_probe_tally.restype = i32
             so.kdf_probe_tally_weighted.argtypes = [ptr, ptr, ptr, i64, ptr,
-                                                    ptr, i32, i32, ptr, ptr]
+                                                    ptr, i32, i32, ptr, i32,
+                                                    i32, i32, ptr]
             so.kdf_probe_tally_weighted.restype = i32
             so.kdf_probe_member.argtypes = [ptr, i64, ptr, i32, ptr, i32, i32,
-                                            ptr, ptr, ptr]
+                                            ptr, ptr, i32, i32, i32, ptr]
             so.kdf_probe_member.restype = i32
             so.kdf_extract_canonical_wide.argtypes = [ptr, ptr, ptr, i32,
                                                       i32, i32, ptr]

@@ -19,6 +19,15 @@ directory, a third of the L2); past it ``ceil(log2(live)) - 2``, about
 2-4 rows (one 32-byte sector) a bucket and 1 B a row.  The staged form
 of K2 and K4 copies this directory into shared memory.
 
+K2, K3 and K4 launch in a plan that ``kdf::dir_probe_launch``
+(``csrc/sorted_table.cuh``) picks from the table and the card: the
+staged form of K2 and K4 in 512-thread blocks, two an SM, where the
+table fits, else the global form in 256-thread blocks, four an SM.  A
+:class:`Launch` override sets the form, the threads a block and a cap
+on the blocks an SM (the experiments ``x_fused variants`` and ``steps``
+sweep them); the engine never passes one.  :func:`launch_plan` reads
+the plan without launching.
+
 A directory belongs to a table: the engine builds it once per table
 (``KmerIndex``), never per batch.  :func:`build_directory` launches
 ``kdf_build_directory`` (``csrc/directory.cu``) for a CUDA table and
@@ -27,6 +36,7 @@ counterpart is ``kmer_denovo_filter_tpu/ops/device.py``
 ``build_bucket_offsets`` (:572), host-built for ``lookup_bucketed``.
 """
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -135,3 +145,63 @@ def directory_for(table, directory):
             or not 0 <= directory.live <= table.shape[0]):
         raise ValueError("the directory does not belong to this table")
     return directory
+
+
+# the forms of a directory probe, as the C entry points number them
+FORMS = {"auto": 0, "staged": 1, "global": 2}
+THREADS = (128, 256, 512)  # the block sizes a launch override may set
+MAX_BLOCKS_PER_SM = 32
+
+
+class Launch(NamedTuple):
+    """A launch override of K2, K3 or K4: *form* ``"auto"`` (the plan),
+    ``"staged"`` (K2 and K4 only, where the table fits) or ``"global"``;
+    *threads* a block, one of :data:`THREADS`; *blocks_per_sm*, a cap
+    of 1..32 on the grid's blocks an SM.  0 keeps the plan's value."""
+    form: str = "auto"
+    threads: int = 0
+    blocks_per_sm: int = 0
+
+
+class Plan(NamedTuple):
+    """A directory probe's launch: *staged* form or not, *blocks*,
+    *threads* a block, dynamic *smem* bytes a block (0 in the global
+    form) and the staged form's shared-memory *budget* a block."""
+    staged: bool
+    blocks: int
+    threads: int
+    smem: int
+    budget: int
+
+
+def launch_args(launch):
+    """*launch* (a :class:`Launch` or None) as the C entry points'
+    (form, threads, blocks_per_sm) ints, (0, 0, 0) for None; raises
+    ``ValueError`` for a value the kernels do not take."""
+    if launch is None:
+        return 0, 0, 0
+    form, threads, per_sm = launch
+    if (form not in FORMS or threads not in (0,) + THREADS
+            or not 0 <= per_sm <= MAX_BLOCKS_PER_SM):
+        raise ValueError(f"launch override {launch!r}: form in "
+                         f"{tuple(FORMS)}, threads 0 or in {THREADS}, "
+                         f"blocks_per_sm in 0..{MAX_BLOCKS_PER_SM}")
+    return FORMS[form], threads, per_sm
+
+
+def launch_plan(n, live, bits, counts, launch=None):
+    """The :class:`Plan` of K2 (*counts* True: 8 more bytes a staged
+    row) or K4 over *n* keys of a table with *live* rows and a directory
+    of *bits*, on the current CUDA device, under *launch*.  Raises
+    ``ValueError`` when *launch* asks for the staged form of a table
+    that does not fit."""
+    args = launch_args(launch)
+    if args[0] == FORMS["staged"] and not launch_plan(
+            n, live, bits, counts, launch._replace(form="auto")).staged:
+        raise ValueError(f"the staged form holds no table of {live} live "
+                         "rows on this card (over the staged edge)")
+    out = (ctypes.c_longlong * 5)()
+    _cuda.check(_cuda.lib().kdf_dir_probe_plan(n, live, bits, int(counts),
+                                               *args, out),
+                "dir_probe_plan")
+    return Plan(bool(out[0]), *out[1:])

@@ -38,31 +38,36 @@ launches = 0       # K4
 wide_launches = 0  # K8
 
 
-def probe_member(keys, table, directory=None):
+def probe_member(keys, table, directory=None, launch=None):
     """(N,) bool: ``keys[i]`` is in *table*; sentinel keys are never found.
 
     *keys*: (N,) int64.  *table*: (M,) int64 sorted ascending, unique
     apart from trailing sentinel rows.  *directory*: the table's
-    :class:`~.directory.Directory`, or None.  A CUDA tensor launches the
-    kernel (building the directory first when none is given); a CPU
-    tensor runs the plain version, which needs no directory.
+    :class:`~.directory.Directory`, or None.  *launch*: a
+    :class:`~.directory.Launch` override of the kernel's launch plan,
+    or None (the plan); the result does not depend on it.  A CUDA
+    tensor launches the kernel (building the directory first when none
+    is given); a CPU tensor runs the plain version, which needs no
+    directory and takes no launch.
     """
+    tdir.launch_args(launch)  # raises for a value the kernel does not take
     if check_probe_args(keys, table, []) == "cpu":
         return dev.member(table, keys)
-    return _launch(keys, table, directory, torch.bool)
+    return _launch(keys, table, directory, torch.bool, launch)
 
 
 def probe_rows(keys, table, directory=None):
     """(N,) int64: the row of ``keys[i]`` in *table*, or -1 where it is
     absent or a sentinel; arguments as for :func:`probe_member`.  The
-    same kernel K4, writing rows instead of found bytes."""
+    same kernel K4, writing rows instead of found bytes, in its plan."""
     if check_probe_args(keys, table, []) == "cpu":
         return dev.find_rows(table, keys)
     return _launch(keys, table, directory, torch.int64)
 
 
-def _launch(keys, table, directory, dtype):
-    """K4 over checked CUDA tensors: found bytes (bool) or rows (int64)."""
+def _launch(keys, table, directory, dtype, launch=None):
+    """K4 over checked CUDA tensors: found bytes (bool) or rows (int64),
+    under the launch override *launch* (None: the plan)."""
     global launches
     n, m = keys.shape[0], table.shape[0]
     if m == 0:
@@ -75,9 +80,12 @@ def _launch(keys, table, directory, dtype):
     found, rows = ((out.data_ptr(), None) if dtype == torch.bool
                    else (None, out.data_ptr()))
     with torch.cuda.device(keys.device):
+        if launch is not None:  # raises for the staged form over its edge
+            tdir.launch_plan(n, d.live, d.bits, False, launch)
         err = _cuda.lib().kdf_probe_member(
             keys.data_ptr(), n, table.data_ptr(), d.live,
             d.offsets.data_ptr(), d.bits, d.shift, found, rows,
+            *tdir.launch_args(launch),
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_member")
     launches += 1

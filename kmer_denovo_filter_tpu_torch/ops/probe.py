@@ -81,17 +81,21 @@ def _check_tensors(keys, table, others):
     return keys.device.type
 
 
-def probe_tally(keys, table, acc, directory=None):
+def probe_tally(keys, table, acc, directory=None, launch=None):
     """``acc[j] += #{i : keys[i] == table[j]}``, in place; returns *acc*.
 
     *keys*: (N,) int64, sentinel entries skipped.  *table*: (M,) int64
     sorted ascending, unique apart from trailing sentinel rows (which
     count 0).  *acc*: (M,) int64.  *directory*: the table's
-    :class:`~.directory.Directory`, or None.  A CUDA tensor launches the
-    kernel (building the directory first when none is given); a CPU
-    tensor runs the plain version, which needs no directory.
+    :class:`~.directory.Directory`, or None.  *launch*: a
+    :class:`~.directory.Launch` override of the kernel's launch plan,
+    or None (the plan); the result does not depend on it.  A CUDA
+    tensor launches the kernel (building the directory first when none
+    is given); a CPU tensor runs the plain version, which needs no
+    directory and takes no launch.
     """
     global launches
+    args = tdir.launch_args(launch)
     if check_probe_args(keys, table, [("acc", acc, table.shape)]) == "cpu":
         acc += dev.small_table_tally(table, keys)
         return acc
@@ -100,9 +104,11 @@ def probe_tally(keys, table, acc, directory=None):
         return acc
     d = tdir.directory_for(table, directory)
     with torch.cuda.device(keys.device):
+        if launch is not None:  # raises for the staged form over its edge
+            tdir.launch_plan(n, d.live, d.bits, True, launch)
         err = _cuda.lib().kdf_probe_tally(
             keys.data_ptr(), n, table.data_ptr(), d.live,
-            d.offsets.data_ptr(), d.bits, d.shift, acc.data_ptr(),
+            d.offsets.data_ptr(), d.bits, d.shift, acc.data_ptr(), *args,
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally")
     launches += 1
@@ -110,7 +116,7 @@ def probe_tally(keys, table, acc, directory=None):
 
 
 def probe_tally_weighted(keys, weights, table, acc, directory=None,
-                         counts=None):
+                         counts=None, launch=None):
     """``acc[j] += sum(weights[i] : keys[i] == table[j])``, in place;
     returns *acc*.
 
@@ -118,12 +124,16 @@ def probe_tally_weighted(keys, weights, table, acc, directory=None,
     multiplicities (:func:`.device.dedup_windows`); or, with *counts*,
     kernel K9d's (S, 8192) slots and (S,) int32 counts
     (:func:`.segsort.seg_dedup`), of which only the first counts[s] of
-    row s are read.  Sentinel keys are skipped.  *table*, *acc* and
-    *directory* as for :func:`probe_tally`.  A CUDA tensor launches
-    kernel K3 (building the directory first when none is given); a CPU
-    tensor runs the plain version, which needs no directory.
+    row s are read.  Sentinel keys are skipped.  *table*, *acc*,
+    *directory* and *launch* as for :func:`probe_tally`; K3 has no
+    staged form.  A CUDA tensor launches kernel K3 (building the
+    directory first when none is given); a CPU tensor runs the plain
+    version, which needs no directory.
     """
     global weighted_launches
+    args = tdir.launch_args(launch)
+    if args[0] == tdir.FORMS["staged"]:
+        raise ValueError("K3 has no staged form")
     flat_keys, flat_weights = keys, weights
     if counts is not None:
         if (keys.dim() != 2 or keys.shape[1] != SEGMENT
@@ -156,7 +166,7 @@ def probe_tally_weighted(keys, weights, table, acc, directory=None,
             flat_keys.data_ptr(), flat_weights.data_ptr(),
             None if counts is None else counts.data_ptr(), n,
             table.data_ptr(), d.offsets.data_ptr(), d.bits, d.shift,
-            acc.data_ptr(), _cuda.stream_of(keys))
+            acc.data_ptr(), *args, _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally_weighted")
     weighted_launches += 1
     return acc

@@ -13,8 +13,11 @@ choice by shared-memory bytes, the groups of four keys padded with the
 sentinel, the bounded lower-bound search of one bucket (every probe
 inside the bucket, at most bitlen(bucket rows) of them) and K2's
 block-private counts flushed once per block and row.  The model is on
-no path.  Last, ``directory_for`` refuses a directory built from
-another table.
+no path.  The launch plan under a launch override (``LaunchOverride``:
+the form, threads a block, a cap on blocks an SM) is pinned with it:
+the default is the plan of an H100 SXM, number for number, and the
+wrappers validate an override on the CPU and give the plain result.
+Last, ``directory_for`` refuses a directory built from another table.
 """
 
 import functools
@@ -26,6 +29,11 @@ import torch
 from kmer_denovo_filter_tpu_torch.ops import device as tdev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+from kmer_denovo_filter_tpu_torch.ops.member import probe_member
+from kmer_denovo_filter_tpu_torch.ops.probe import (
+    probe_tally,
+    probe_tally_weighted,
+)
 
 # csrc/sorted_table.cuh
 KEYS = 4
@@ -34,6 +42,8 @@ STAGED_THREADS, GLOBAL_THREADS, GLOBAL_BLOCKS_PER_SM = 512, 256, 4
 # block by opt-in, reserved a block; multiprocessors
 SMEM_PER_SM, SMEM_OPTIN, SMEM_RESERVED, SMS = 233472, 232448, 1024, 132
 STAGED_LIMIT_K4, STAGED_LIMIT_K2 = 10367, 6207  # the header notes' limits
+FORM_AUTO, FORM_STAGED, FORM_GLOBAL = 0, 1, 2  # kdf::LaunchForm
+N_BATCH = 32768 * 122  # the k = 31 windows of a 32,768 x 152 bp batch
 KS = (15, 17, 21, 31)
 TABLES = ("1", "2", "4095", "4096", "6144", "6145", "6207", "6208", "10367",
           "10368", "all-sentinel", "trailing-sentinels", "poly-A")
@@ -97,16 +107,24 @@ def directory_shape(live, max_key):
     return bits, shift
 
 
-def launch(n, live, bits, counts):
+def launch(n, live, bits, counts, form=FORM_AUTO, threads=0, per_sm=0):
     """``kdf::dir_probe_launch``: (staged, blocks, threads, shared
-    bytes)."""
+    bytes), under a launch override (*form*, *threads*, *per_sm*; 0
+    keeps the plan's value).  Raises ``ValueError`` where the C code
+    returns cudaErrorInvalidValue."""
+    if not (FORM_AUTO <= form <= FORM_GLOBAL
+            and threads in (0, 128, 256, 512) and 0 <= per_sm <= 32):
+        raise ValueError("not a launch override")
     smem = live * (16 if counts else 8) + 2 * ((1 << bits) + 1)
     budget = min(SMEM_PER_SM // 2 - SMEM_RESERVED, SMEM_OPTIN)
-    staged = smem <= budget
-    threads = STAGED_THREADS if staged else GLOBAL_THREADS
+    fits = smem <= budget
+    staged = fits if form == FORM_AUTO else form == FORM_STAGED
+    if staged and not fits:
+        raise ValueError("the staged form does not hold this table")
+    threads = threads or (STAGED_THREADS if staged else GLOBAL_THREADS)
+    per_sm = per_sm or (2 if staged else GLOBAL_BLOCKS_PER_SM)
     groups = -(-n // KEYS)
-    blocks = min(-(-groups // threads),
-                 SMS * (2 if staged else GLOBAL_BLOCKS_PER_SM))
+    blocks = min(-(-groups // threads), SMS * per_sm)
     return staged, blocks, threads, smem if staged else 0
 
 
@@ -301,6 +319,103 @@ def test_staged_limit_is_the_shared_memory_budget(counts, limit):
     assert launched(1)[0] and launched(4096)[0]
     assert not launched(1 << 20)[0]
     assert 0 < launched(limit)[3] <= 115712
+
+
+@pytest.mark.parametrize("counts,live,n,want", [
+    (True, 1, N_BATCH, (True, 264, 512, 16 + 2 * 2)),
+    (True, 4096, N_BATCH, (True, 264, 512, 4096 * 16 + 2 * 4097)),
+    (True, 6207, N_BATCH, (True, 264, 512, 6207 * 16 + 2 * 8193)),
+    (True, 6208, N_BATCH, (False, 528, 256, 0)),
+    (False, 10367, N_BATCH, (True, 264, 512, 10367 * 8 + 2 * 16385)),
+    (False, 10368, N_BATCH, (False, 528, 256, 0)),
+    (True, 1 << 24, N_BATCH, (False, 528, 256, 0)),
+    (False, 4096, 100, (True, 1, 512, 4096 * 8 + 2 * 4097)),
+    (True, 262144, 100, (False, 1, 256, 0))])
+def test_default_launch_plan_is_unchanged(counts, live, n, want):
+    """With no override the plan is the one K2 and K4 always had on an
+    H100 SXM: staged 512-thread blocks, two an SM, or global 256-thread
+    blocks, four an SM (132 SMs)."""
+    assert launch(n, live, directory_bits(live), counts) == want
+    assert launch(n, live, directory_bits(live), counts, FORM_AUTO, 0,
+                  0) == want
+
+
+def test_launch_override_plans():
+    """The form, the threads and the cap each replace one value of the
+    plan; the staged form of a table that does not fit, and any value
+    the kernels do not take, are refused."""
+    small, large = (4096, directory_bits(4096)), (262144,
+                                                  directory_bits(262144))
+    smem = 4096 * 16 + 2 * 4097
+    assert launch(N_BATCH, *small, True, FORM_GLOBAL) == (False, 528, 256, 0)
+    assert launch(N_BATCH, *small, True, FORM_STAGED) == (True, 264, 512,
+                                                          smem)
+    assert launch(N_BATCH, *small, True, FORM_AUTO, 128, 1) == (
+        True, 132, 128, smem)
+    assert launch(N_BATCH, *large, True, FORM_AUTO, 512, 1) == (
+        False, 132, 512, 0)
+    assert launch(100, *large, False, FORM_AUTO, 128, 4) == (False, 1, 128,
+                                                             0)
+    for bad in ((STAGED_LIMIT_K2 + 1, True), (STAGED_LIMIT_K4 + 1, False)):
+        with pytest.raises(ValueError):
+            launch(N_BATCH, bad[0], directory_bits(bad[0]), bad[1],
+                   FORM_STAGED)
+    for form, threads, per_sm in ((3, 0, 0), (0, 384, 0), (0, 1024, 0),
+                                  (0, 0, 33), (0, 0, -1)):
+        with pytest.raises(ValueError):
+            launch(N_BATCH, *small, True, form, threads, per_sm)
+
+
+def _override_case():
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(np.unique(rng.integers(0, 1 << 40, 500)))
+    keys = torch.cat([table[::3], table[::7],
+                      torch.from_numpy(rng.integers(0, 1 << 40, 300)),
+                      torch.full((5,), SENTINEL)])
+    return table, keys
+
+
+@pytest.mark.parametrize("launch_", [
+    tdir.Launch("staged"), tdir.Launch("global", 512, 1),
+    tdir.Launch("auto", 128, 4), tdir.Launch(threads=256)])
+def test_launch_override_leaves_the_results_on_the_cpu(launch_):
+    """On a CPU tensor a valid override changes nothing: K2, K4 and (but
+    for the staged form, which it has not) K3 give the plain results."""
+    table, keys = _override_case()
+
+    def tally(launch=None):
+        acc = torch.zeros(table.shape[0], dtype=torch.int64)
+        return probe_tally(keys, table, acc, None, launch)
+
+    assert torch.equal(tally(launch_), tally())
+    assert (tally() > 1).any()
+    assert torch.equal(probe_member(keys, table, None, launch_),
+                       tdev.member(table, keys))
+    weights = torch.arange(keys.shape[0], dtype=torch.int64)
+    acc = torch.zeros(table.shape[0], dtype=torch.int64)
+    if launch_.form == "staged":
+        with pytest.raises(ValueError, match="no staged form"):
+            probe_tally_weighted(keys, weights, table, acc, None, None,
+                                 launch_)
+        return
+    assert torch.equal(
+        probe_tally_weighted(keys, weights, table, acc, None, None, launch_),
+        tdev.weighted_tally(table, keys, weights,
+                            torch.zeros_like(acc)))
+
+
+@pytest.mark.parametrize("bad", [
+    tdir.Launch("fast"), tdir.Launch("auto", 384), tdir.Launch("auto", 1024),
+    tdir.Launch("auto", 0, 33), tdir.Launch("global", 0, -1)])
+def test_launch_override_refuses_what_the_kernels_do_not_take(bad):
+    table, keys = _override_case()
+    acc = torch.zeros(table.shape[0], dtype=torch.int64)
+    for call in (lambda: probe_tally(keys, table, acc, None, bad),
+                 lambda: probe_member(keys, table, None, bad),
+                 lambda: probe_tally_weighted(keys, torch.ones_like(keys),
+                                              table, acc, None, None, bad)):
+        with pytest.raises(ValueError, match="launch override"):
+            call()
 
 
 def test_poly_a_bucket_is_searched_exactly():

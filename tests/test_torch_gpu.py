@@ -17,7 +17,14 @@ from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import extract, member, probe, segsort
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
-from tests.test_torch_directory import TABLES, make_table, queries
+from tests.test_torch_directory import (
+    N_BATCH,
+    SMS,
+    TABLES,
+    launch,
+    make_table,
+    queries,
+)
 from tests.test_torch_directory_wide import (
     BITS_EDGE,
     make_table_wide,
@@ -345,6 +352,81 @@ def test_probes_refuse_another_tables_directory(cuda):
         with pytest.raises(ValueError, match="does not belong"):
             call()
     assert (member.launches, probe.launches) == counts
+
+
+@pytest.mark.parametrize("counts", [True, False], ids=["K2", "K4"])
+@pytest.mark.parametrize("live", [1, 4096, 6207, 6208, 10367, 10368,
+                                  262_144, 1 << 24])
+@pytest.mark.parametrize("n", [100, N_BATCH])
+def test_default_launch_plan_is_the_models(cuda, counts, live, n):
+    """With no launch override, ``kdf::dir_probe_launch`` gives the CPU
+    model's plan, the one K2 and K4 had before overrides existed (an
+    H100 SXM's: 132 SMs, 115,712 bytes of staged budget a block)."""
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != SMS:
+        pytest.skip("the model's plan is an H100 SXM's")
+    bits = tdir.directory_bits(live)
+    plan = tdir.launch_plan(n, live, bits, counts)
+    assert (plan.staged, plan.blocks, plan.threads, plan.smem) == launch(
+        n, live, bits, counts)
+    assert plan.budget == 115712
+
+
+@pytest.mark.parametrize("m", [4096, 6208, 10368, 262_144])
+def test_launch_overrides_match_the_plan(cuda, m):
+    """K2, K4 and K3 (on K9d's slots) under each launch override equal
+    their default launch and the plain versions, one launch each; the
+    staged form over its edge raises before launching."""
+    codes, lengths = _batch(11)
+    # a quarter of the reads twice, so K2's counts repeat
+    codes, lengths = (torch.cat([t, t[:512]]).to(cuda)
+                      for t in (codes, lengths))
+    flat = extract.extract_canonical(codes, lengths, 31).reshape(-1)
+    live = torch.unique(flat[flat != keys64.SENTINEL]).cpu().numpy()
+    rng = np.random.default_rng(m)
+    table_np = np.unique(np.concatenate([
+        rng.choice(live, min(m // 2, live.size), replace=False),
+        rng.integers(0, 4 ** 31, m, dtype=np.int64)]))[:m]
+    table = torch.from_numpy(table_np).to(cuda)
+    d = tdir.build_directory(table)
+    slots = segsort.seg_dedup(flat)
+    ref_acc = dev.small_table_tally(table, flat)
+    ref_found = dev.member(table, flat)
+    ref_w = dev.weighted_tally(table, *dev.segment_compact(*slots),
+                               torch.zeros_like(ref_acc))
+    overrides = [tdir.Launch("global"), tdir.Launch("auto", 128, 1),
+                 tdir.Launch("auto", 512, 2), tdir.Launch("global", 512, 4),
+                 tdir.Launch("auto", 256, 1)]
+    for name, counts in (("K2", True), ("K4", False)):
+        fits = tdir.launch_plan(flat.numel(), d.live, d.bits, counts).staged
+        staged = tdir.Launch("staged")
+        if not fits:
+            before = (probe.launches, member.launches)
+            with pytest.raises(ValueError, match="staged edge"):
+                if counts:
+                    probe.probe_tally(flat, table, torch.zeros_like(ref_acc),
+                                      d, staged)
+                else:
+                    member.probe_member(flat, table, d, staged)
+            assert (probe.launches, member.launches) == before
+        for o in overrides + ([staged] if fits else []):
+            before = (probe.launches, member.launches)
+            if counts:
+                acc = torch.zeros_like(ref_acc)
+                probe.probe_tally(flat, table, acc, d, o)
+                torch.cuda.synchronize()
+                assert torch.equal(acc, ref_acc), (name, o)
+                assert probe.launches == before[0] + 1
+            else:
+                got = member.probe_member(flat, table, d, o)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref_found), (name, o)
+                assert member.launches == before[1] + 1
+    for o in overrides:
+        acc = torch.zeros_like(ref_acc)
+        probe.probe_tally_weighted(*slots[:2], table, acc, d, slots[2], o)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref_w), ("K3", o)
+    assert (ref_acc > 1).any() and ref_found.any()
 
 
 @pytest.mark.parametrize("m", [4096, 10367, 10368, 262_144])

@@ -10,6 +10,9 @@ at a small size.
   ``join_tally_step_v5``, whose four-part metadata it takes) against the
   port's segment-form tally, K1 -> K9d -> K3 on the slots (plain paths),
   through the tile permutation.
+* ``super``'s stacked-group tally (one K1 -> K9d -> K3 pass over the
+  group) against the JAX ``FilteredCounter`` (engine.py:473) fed the
+  same batches one by one.
 
 Pallas runs in interpret mode: a fixture forces ``interpret=True`` on
 every ``pallas_call``, since the script wrappers take no such argument.
@@ -25,6 +28,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from kmer_denovo_filter_tpu import engine as jeng
 from kmer_denovo_filter_tpu.ops import pallas_join as pj
 from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.experiments import _common as common
@@ -34,6 +38,7 @@ from kmer_denovo_filter_tpu_torch.experiments.x_join_variants import (
 )
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops import segsort
+from kmer_denovo_filter_tpu_torch.ops.extract import extract_canonical
 from tests.test_torch_weighted_tally import _case, _from_tiles
 
 _SCRIPTS = os.path.join(os.path.dirname(__file__), "..", "scripts")
@@ -142,3 +147,33 @@ def test_port_command_runs_on_the_cpu(command, capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "parity: True" in out and "parity: False" not in out
     assert "device: cpu" in out
+
+
+def test_group_tally_matches_jax_filtered_counter():
+    """One pass over a stacked group of three ragged batches with N
+    bases counts what the JAX counter counts batch by batch, exactly."""
+    k, nb, b, length = 31, 3, 120, 152
+    rng = np.random.default_rng(31)
+    codes = rng.integers(0, 4, (nb, b, length), dtype=np.uint8)
+    codes[1, :40] = codes[0, :40]  # reads repeated across batches
+    codes[rng.random(codes.shape) < 0.01] = 4
+    lengths = np.full((nb, b), length, np.int32)
+    lengths[:, ::5] = 90
+    lengths[2, 3] = 10
+    flat = extract_canonical(torch.from_numpy(codes.reshape(nb * b, -1)),
+                             torch.from_numpy(lengths.reshape(-1)),
+                             k).reshape(-1)
+    live = torch.unique(flat[flat != keys64.SENTINEL])
+    rand = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 4 ** k, 3000, dtype=np.int64))
+    table = torch.unique(torch.cat([live[::3], rand]))
+    jfc = jeng.FilteredCounter(jeng.KmerIndex(
+        keys64.keys64_to_words(table, k), k))
+    for i in range(nb):
+        jfc.feed(codes[i], lengths[i])
+    want = np.asarray(jfc.result()).astype(np.int64)
+    acc = torch.zeros(table.shape[0], dtype=torch.int64)
+    port_x_fused.group_tally(torch.from_numpy(codes),
+                             torch.from_numpy(lengths), table, acc)
+    assert (want > 1).any()
+    assert np.array_equal(acc.numpy(), want)

@@ -12,6 +12,10 @@ counterparts in the port, on the CPU, and the port's
   ``_make_extract_stage`` against the mixed words (``mix_keys_np``) of
   the port's K1 keys, the sentinel pinned to the all-ones pair.  The
   stage cuts 0-4 are timing probes and are not compared.
+* ``v5m``'s two member scans behind a dedup (K9 -> heads -> K4 -> spread
+  and scatter; ``torch.unique`` -> K4 -> gather) against the JAX
+  ``engine.scan_reads_for_hits`` (engine.py:1065), on a batch with
+  duplicated reads, N bases and sentinel windows.
 
 Pallas runs in interpret mode: a fixture forces ``interpret=True`` on
 every ``pallas_call``, since several script wrappers take no such
@@ -31,6 +35,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from kmer_denovo_filter_tpu import engine as jeng
 from kmer_denovo_filter_tpu.ops import pallas_join as pj
 from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.experiments import _common as common
@@ -240,3 +245,29 @@ def test_port_command_runs_on_the_cpu(command, capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "parity: True" in out and "parity: False" not in out
     assert "device: cpu" in out
+
+
+def test_v5m_member_scans_match_jax_scan():
+    """Both expansions give the JAX scan's window mask, exactly."""
+    rng = np.random.default_rng(21)
+    n, length = 300, 152
+    codes = rng.integers(0, 4, (n, length), dtype=np.uint8)
+    codes[100:200] = codes[:100]  # duplicated reads
+    codes[rng.random(codes.shape) < 0.01] = 4
+    lengths = np.full(n, length, np.int32)
+    lengths[::7] = 100
+    lengths[5] = 20  # shorter than k: every window a sentinel
+    flat = extract_canonical(torch.from_numpy(codes),
+                             torch.from_numpy(lengths), K).reshape(-1)
+    assert flat.numel() % 8192 and (flat == keys64.SENTINEL).any()
+    live = torch.unique(flat[flat != keys64.SENTINEL])
+    rand = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 4 ** K, 2000, dtype=np.int64))
+    table = torch.unique(torch.cat([live[::3], rand]))
+    want = jeng.scan_reads_for_hits(
+        jeng.KmerIndex(keys64.keys64_to_words(table, K), K), codes, lengths)
+    assert want.any() and not want.all()
+    for expand in (port_xjv.member_behind_seg_sort,
+                   port_xjv.member_behind_unique):
+        got = expand(flat, table).reshape(n, -1).numpy()
+        assert np.array_equal(got, want), expand.__name__
