@@ -33,13 +33,13 @@ any failure exits non-zero before the result line:
    search-only yardstick (not the same function) for both.
 4. Main path, VCF mode: ``kmer-denovo-torch`` (``cli.vcf_main``) on the
    GIAB mini trio in ``tests/data/giab``; the three VCF-mode outputs
-   must equal ``tests/goldens`` byte for byte, and K1 and K2 must have
-   been launched during that run.
+   must equal ``tests/goldens`` byte for byte, and K1, K2 and K11 (the
+   tables' words to keys) must have been launched during that run.
 4b. Main path, discovery: ``kmer-discovery-torch``
    (``cli.discovery_main``) on the same trio with the golden fixture's
    flags; the six text outputs must equal ``tests/goldens/giab_discovery.*``
-   byte for byte, K1, K9d, K3 and K4 must have been launched during
-   that run, and nothing may be written into ``tests/data/giab``.
+   byte for byte, K1, K9d, K3, K4 and K11 must have been launched
+   during that run, and nothing may be written into ``tests/data/giab``.
 5. Scale: ``FilteredCounter`` on cuda over 16 batches x 32,768 reads x
    152 bp (synthetic 40x-coverage reads, 0.3 % error, seed 0) against
    4,096- and 262,144-key tables; counts must equal the plain path on
@@ -73,6 +73,15 @@ any failure exits non-zero before the result line:
    dedup both ways (Q stable sorts and ``torch.unique(dim=0)``); the
    step K1w -> K9dw -> K7 on the slots once with CUDA sync debugging set
    to raise (no host sync).  Exact; CUDA events.
+3r. K10 (``route.route``, the sharded engine's route) against its plain
+   version (order, sizes, routed rows) on rows of 1..7 limbs at N = 0,
+   1, 4,097, 8,193 and 2**20, random, one key and all sentinels, to 1..
+   1,023 shards with the sentinel bucket and 4 and 1,024 without, a
+   strided view and the K1 / K1w keys of a batch; K11
+   (``convert.words_to_keys``) against its plain version and the numpy
+   conversion at every odd k 3..207 (also from a view one word into its
+   storage, and no row), timed at 2**24 keys, k = 31 and 63, beside the
+   words' pageable upload.  Exact.
 4c. Main path, wide: ``kmer-denovo-torch`` and ``kmer-discovery-torch``
    with ``--kmer-size 63`` on the GIAB trio, each on a copy of
    ``mini_ref.fa`` (Module 0 counts the FASTA at k > 31 and caches it
@@ -115,12 +124,16 @@ any failure exits non-zero before the result line:
    included), ``sharded_scan_reads_for_hits`` to ``scan_reads_for_hits``
    (8,192 reads), ``sharded_count`` to ``StreamCounter`` (a batch), on a
    homopolymer batch (one owner takes every key) and an empty batch;
-   each shard's launches counted exactly.  Reads/s of both forms at
-   S = 1, 2, 4 beside the single-device form's, interleaved, and the
-   routing share of a batch's feed.  The stream count over 2 and 4
-   shards equal to ``StreamCounter``'s, with both rates.  The sharded
-   index's build time at M = 2**20, 2**22, 2**24 (k = 31) and 2**20,
-   2**22 (k = 63), S = 4, and its host steps timed alone.
+   each shard's launches counted exactly (K10 a source and a table
+   slice, K11 a slice and a query).  Reads/s of both forms at S = 1, 2, 4
+   beside the single-device form's, interleaved, and the routing share
+   of a batch's feed; the route of one batch split into the plain
+   version's steps, beside K10 and the library pair (``argsort`` +
+   ``bincount``).  The stream count over 2 and 4 shards equal to
+   ``StreamCounter``'s, with both rates.  The index's build time, one
+   device and S = 4, at M = 2**20, 2**22, 2**24 (k = 31) and 2**20,
+   2**22 (k = 63), and its steps timed alone (the words' upload, K11,
+   the table routed, the host gather of the shards' words).
 8b. A one-process NCCL group (``multihost.initialize``, tcp://127.0.0.1,
    world size 1): ``sum_aligned`` on a CUDA tensor,
    ``sharded_count_multihost`` (its ``all_to_all_single`` on the card)
@@ -142,7 +155,8 @@ any failure exits non-zero before the result line:
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches in phases 4 and 4b (phase 4c for the wide kernels and K9dw,
-and the directory builder in 4, 4b and 4c; phases 5d and 7 for K9),
+the directory builder and K11 in 4, 4b and 4c; phases 5d and 7 for K9;
+phases 8 and 8b for K10, whose path is the sharded engine),
 those of phases 4d, 8, 8b and 9 apart under ``launches_by_phase``, its
 largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
@@ -754,6 +768,112 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
               f"{dedup_lim[0]:.4f} ms by {dedup_lim[1]}", flush=True)
 
 
+def phase_3r(rng, cuda, check, times):
+    """K10 (``route.route``) and K11 (``convert.words_to_keys``) against
+    their plain versions on the card, exact.  K10: (N, Q) rows of Q = 1..7
+    limbs (flat keys at Q = 1) at N = 0, 1, 4,097, 8,193 and 2**20,
+    random (every 13th row a sentinel row), one key in every row and
+    all sentinel rows, to S = 1, 2, 3, 4, 7, 64 and 1,023 shards with the
+    sentinel bucket and to 4 and 1,024 without it; a strided view; the
+    K1 / K1w keys of a random 32,768 x 152 bp batch at k = 31 and 63 to
+    S = 1, 2, 4: order, sizes and routed rows.  K11: 4,097 random rows
+    of words (every 5th the sentinel) at every odd k 3..207, also read
+    from a view one word into its storage, and no row; then timed at
+    2**24 keys, k = 31 and 63, beside its plain version and the words'
+    pageable upload."""
+    from kmer_denovo_filter_tpu_torch.ops import convert, extract, route
+    from kmer_denovo_filter_tpu_torch.ops import encode as enc
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+
+    def rows_of(n, q, kind):
+        if kind == "homopolymer":
+            rows = np.full((n, q), 12345, np.int64)
+        elif kind == "sentinel":
+            rows = np.full((n, q), keys64.SENTINEL, np.int64)
+        else:
+            rows = rng.integers(0, 1 << 62, (n, q), dtype=np.int64)
+            rows[::13] = keys64.SENTINEL
+        keys = torch.from_numpy(rows).to(cuda)
+        return keys[:, 0].contiguous() if q == 1 else keys
+
+    def check_route(keys, s, sentinel, what):
+        got = route.route(keys, s, sentinel)
+        ref = route.plain_route(keys, s, sentinel)
+        for part, g, r in zip(("order", "sizes", "routed"), got, ref):
+            check("route", g, r, f"{what}, S={s}, sentinel bucket "
+                  f"{sentinel}: {part}")
+
+    cases = 0
+    for q in range(1, 8):
+        for n in (0, 1, 4097, 8193, 1 << 20):
+            for kind in ("random", "homopolymer", "sentinel"):
+                keys = rows_of(n, q, kind)
+                for s in (1, 2, 3, 4, 7, 64, 1023):
+                    check_route(keys, s, True, f"Q={q} N={n} {kind}")
+                for s in (4, 1024):
+                    check_route(keys, s, False, f"Q={q} N={n} {kind}")
+                cases += 9
+        check_route(rows_of(2 * 8193, q, "random")[::2], 4, True,
+                    f"Q={q} a strided view")
+        cases += 1
+    codes, lengths = (torch.from_numpy(a).to(cuda)
+                      for a in random_batch(rng))
+    for k in (31, 63):
+        win = (extract.extract_canonical(codes, lengths, k) if k <= 31 else
+               extract.extract_canonical_wide(codes, lengths, k))
+        for s in (1, 2, 4):
+            check_route(win.flatten(0, 1), s, True, f"k={k} batch")
+            cases += 1
+    print(f"[3r] K10 equal to its plain version in {cases} cases (order, "
+          "sizes, routed rows)", flush=True)
+    for k in range(3, keys64.MAX_K + 1, 2):
+        w = enc.words_per_kmer(k)
+        words = rng.integers(0, 1 << 32, (4097, w), dtype=np.uint64).astype(
+            np.uint32)
+        words[:, -1] &= np.uint32((0xFFFFFFFF << (32 * w - 2 * k))
+                                  & 0xFFFFFFFF)
+        words[::5] = keys64.SENTINEL32
+        on_card = convert.words_tensor(words).to(cuda)
+        got = convert.words_to_keys(on_card, k)
+        check("words_to_keys", got, convert.plain_words_to_keys(on_card, k),
+              f"k={k}")
+        want = (keys64.words_to_keys64(words, k) if k <= 31
+                else keys64.words_to_limbs(words, k))
+        check("words_to_keys", got.cpu(), want, f"k={k}, numpy")
+        store = torch.empty(on_card.numel() + 1, dtype=torch.int32,
+                            device=cuda)
+        view = store[1:].view(on_card.shape)
+        view.copy_(on_card)
+        check("words_to_keys", convert.words_to_keys(view, k), got,
+              f"k={k}, a view one word into its storage")
+        if convert.words_to_keys(on_card[:0], k).shape != want[:0].shape:
+            fail(f"words_to_keys: k={k}, no row: wrong shape")
+    print("[3r] K11 equal to its plain version and to the numpy "
+          "conversion at every odd k 3..207", flush=True)
+    m = BIG_M
+    for k in (31, 63):
+        w, q = enc.words_per_kmer(k), keys64.limbs_per_kmer(k)
+        words = rng.integers(0, 1 << 32, (m, w), dtype=np.uint64).astype(
+            np.uint32)
+        host = convert.words_tensor(words)
+        upload_ms = wall_ms(lambda: host.to(cuda), reps=3)
+        on_card = host.to(cuda)
+        got = convert.words_to_keys(on_card, k)
+        check("words_to_keys", got, convert.plain_words_to_keys(on_card, k),
+              f"k={k}, M={m}")
+        ms = device_ms(lambda: convert.words_to_keys(on_card, k))
+        plain_ms = device_ms(
+            lambda: convert.plain_words_to_keys(on_card, k), reps=3)
+        # words read once, limbs written once; ~8 operations a limb
+        lim = bound(m * (4 * w + 8 * q), 8 * m * q)
+        times[("words_to_keys", k)] = (ms, plain_ms, lim, upload_ms)
+        print(f"[3r] K11 k={k} M={m}: equal; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {lim[0]:.4f} ms by {lim[1]}; the "
+              f"words' pageable upload {upload_ms:.4f} ms", flush=True)
+        del words, host, on_card, got
+
+
 def phase_3s_wide(rng, cuda, check, times):
     """K9dw against its plain version at k = 63 and 201, on a random and
     a 40x batch, timed beside the whole-batch dedups."""
@@ -979,8 +1099,10 @@ def phase_4c(cuda, reset_counts, read_counts):
     for name, launches in (("extract_canonical_wide", launches_vcf),
                            ("build_directory", launches_vcf),
                            ("probe_tally_wide", launches_vcf),
+                           ("words_to_keys", launches_vcf),
                            ("extract_canonical_wide", launches_disc),
                            ("build_directory", launches_disc),
+                           ("words_to_keys", launches_disc),
                            ("probe_tally_wide_weighted", launches_disc),
                            ("seg_dedup_wide", launches_disc),
                            ("probe_member_wide", launches_disc)):
@@ -1094,7 +1216,7 @@ def table_words(rng, flat, m, k, cuda):
         make_table(rng, flat, m, k, keys64.SENTINEL, cuda), k)
 
 
-def phase_8(batches, cuda, card, reset_counts, read_counts):
+def phase_8(batches, cuda, card, reset_counts, read_counts, times):
     """The sharded engine on one card, mesh [cuda:0] * S, S = 1, 2, 4, at
     k = 31 and 63 against an M = 2**20 table on the phase-5 batches: every
     sharded result equal to its single-device counterpart, every shard's
@@ -1184,8 +1306,10 @@ def phase_8(batches, cuda, card, reset_counts, read_counts):
                 if not np.array_equal(fc.result(), singles[dedup]):
                     fail(f"8: k={k} S={s} ShardedFilteredCounter "
                          f"(dedup={dedup}) differs from FilteredCounter")
+                # the build: K11 and K10 a slice; the feed: K10 a source
                 want = {extract_name: s * len(batches),
-                        "build_directory": s}
+                        "build_directory": s, "words_to_keys": s,
+                        "route": s * len(batches) + s}
                 if dedup:
                     want.update({dedup_name: s * len(batches),
                                  weighted_name: s * len(batches)})
@@ -1196,6 +1320,11 @@ def phase_8(batches, cuda, card, reset_counts, read_counts):
                         fail(f"8: k={k} S={s} dedup={dedup}: {name} "
                              f"launched {got[name]} times, not {n}")
             sharded, got = counted(lambda: ShardedKmerIndex(words, k, mesh))
+            for name, n in (("words_to_keys", s), ("route", s),
+                            ("build_directory", s)):
+                if got[name] != n:
+                    fail(f"8: k={k} S={s} build: {name} launched "
+                         f"{got[name]} times, not {n}")
             member, got_m = counted(lambda: sharded.membership(q_words))
             if not np.array_equal(member, q_member):
                 fail(f"8: k={k} S={s} ShardedKmerIndex.membership differs")
@@ -1209,17 +1338,20 @@ def phase_8(batches, cuda, card, reset_counts, read_counts):
                     and np.array_equal(counts_s, count_ref[1])):
                 fail(f"8: k={k} S={s} sharded_count differs from "
                      "StreamCounter")
-            for name, n in ((member_name, s), (extract_name, 0)):
+            for name, n in ((member_name, s), (extract_name, 0),
+                            ("words_to_keys", 1), ("route", 1)):
                 if got_m[name] != n:
                     fail(f"8: k={k} S={s} membership: {name} launched "
                          f"{got_m[name]} times, not {n}")
-            for name, n in ((member_name, s), (extract_name, s)):
+            for name, n in ((member_name, s), (extract_name, s),
+                            ("route", s)):
                 if got_s[name] != n:
                     fail(f"8: k={k} S={s} scan: {name} launched "
                          f"{got_s[name]} times, not {n}")
-            if got_c[extract_name] != s:
-                fail(f"8: k={k} S={s} sharded_count: {extract_name} "
-                     f"launched {got_c[extract_name]} times, not {s}")
+            for name in (extract_name, "route"):
+                if got_c[name] != s:
+                    fail(f"8: k={k} S={s} sharded_count: {name} launched "
+                         f"{got_c[name]} times, not {s}")
             fc, _ = counted(lambda: ShardedFilteredCounter(words, k, mesh))
             counted(lambda: fc.feed(homopolymer, hlens))
             counted(lambda: fc.feed(homopolymer[:0], hlens[:0]))
@@ -1292,9 +1424,86 @@ def phase_8(batches, cuda, card, reset_counts, read_counts):
                   f"{walls['feed']:.3f}; routing share {share:.4f} ({card})",
                   flush=True)
         del index
+    phase_8_route_split(batches[0], lens, cuda, card, times)
     phase_8_stream_count(batches[:4], lens, cuda, card)
     phase_8_build(batches[0], lens, rng, cuda, card)
     return total
+
+
+def wall_ms(run, reps=5):
+    """Best host milliseconds of *run* over *reps* calls, each between
+    two synchronizations."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return min(walls)
+
+
+def phase_8_route_split(codes, lens, cuda, card, times):
+    """The routing of one phase-5 batch to the mesh [cuda:0] * S, S = 1,
+    2, 4, at k = 31 and 63: K10 (``route.route``) beside its plain
+    version, split into its steps, each timed alone (the owner hash, the
+    sentinel bucket's ``torch.where``, the stable ``argsort``,
+    ``bincount`` with ``.tolist()``: host wall, it syncs; the gather and
+    ``split``; the ``.to(d)`` copies), and beside the library pair
+    ``argsort(stable=True)`` + ``bincount`` of the owners; then one
+    source's whole route with its sizes' sync (``_gather_by_owner``,
+    host wall).  K10 must equal the plain version.  Device times by
+    ``ops.timing.device_ms``."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    from kmer_denovo_filter_tpu_torch.ops import route
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+    from kmer_denovo_filter_tpu_torch.parallel import sharded
+    for k in (31, 63):
+        keys = eng._window_keys(codes, lens, k, cuda).flatten(0, 1)
+        first = keys if keys.dim() == 1 else keys[:, 0]
+        for s in (1, 2, 4):
+            mesh = [cuda] * s
+            got = route.route(keys, s)
+            ref = route.plain_route(keys, s)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                fail(f"8: route k={k} S={s} differs from its plain version")
+            owner = route.hash_owner(keys, s)
+            owner = torch.where(first != keys64.SENTINEL, owner, s)
+            order = torch.argsort(owner, stable=True)
+            sizes = torch.bincount(owner, minlength=s + 1).tolist()
+            parts = keys[order].split(sizes)
+            split = {
+                "K10": device_ms(lambda: route.route(keys, s)),
+                "plain": device_ms(lambda: route.plain_route(keys, s)),
+                "library": device_ms(lambda: (
+                    torch.argsort(owner, stable=True),
+                    torch.bincount(owner, minlength=s + 1))),
+                "hash_owner": device_ms(
+                    lambda: route.hash_owner(keys, s)),
+                "where": device_ms(lambda: torch.where(
+                    first != keys64.SENTINEL, owner, s)),
+                "argsort": device_ms(
+                    lambda: torch.argsort(owner, stable=True)),
+                "bincount_tolist": wall_ms(lambda: torch.bincount(
+                    owner, minlength=s + 1).tolist()),
+                "gather_split": device_ms(
+                    lambda: keys[order].split(sizes)),
+                "copies": device_ms(
+                    lambda: [p.to(d) for p, d in zip(parts, mesh)]),
+                "gather_by_owner": wall_ms(
+                    lambda: sharded._gather_by_owner([keys], mesh)),
+            }
+            # rows read once, routed rows and their indices written once
+            lim = bound(16 * keys.numel() + 8 * keys.shape[0], 0)
+            times[("route", k, s)] = (split["K10"], split["plain"],
+                                      split["library"], lim)
+            print(f"[8] route k={k} S={s}, {keys.shape[0]} rows: equal; "
+                  + ", ".join(f"{name} {ms:.4f}"
+                              for name, ms in split.items())
+                  + f" ms; bound {lim[0]:.4f} ms by {lim[1]} ({card})",
+                  flush=True)
 
 
 def phase_8_stream_count(batches, lens, cuda, card):
@@ -1330,22 +1539,20 @@ def phase_8_stream_count(batches, lens, cuda, card):
 
 
 def phase_8_build(codes, lens, rng, cuda, card):
-    """The sharded index's build against the table's size: one device
-    and S = 4 on the card, k = 31 up to 2**24 keys and k = 63 up to
-    2**22, and the build's host steps timed alone (best of two)."""
+    """The index's build against the table's size: one device and the
+    sharded index at S = 4 on the card, k = 31 up to 2**24 keys and
+    k = 63 up to 2**22, and the build's steps timed alone (best of two):
+    the words' pageable upload, K11 on them, the table routed slice by
+    slice (``_route_table``: K11 and K10 a slice, one copy back) and the
+    host gather of each shard's words."""
     from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.ops import convert
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
     from kmer_denovo_filter_tpu_torch.parallel import ShardedKmerIndex
-    from kmer_denovo_filter_tpu_torch.parallel.sharded import _table_owners
+    from kmer_denovo_filter_tpu_torch.parallel.sharded import _route_table
 
     def best_ms(run):
-        walls = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-        return min(walls)
+        return wall_ms(run, reps=2)
 
     mesh = [cuda] * 4
     for k, sizes in ((31, (1 << 20, 1 << 22, 1 << 24)),
@@ -1359,19 +1566,23 @@ def phase_8_build(codes, lens, rng, cuda, card):
             del index
             one = best_ms(lambda: eng.KmerIndex(words, k, device=cuda))
             sharded = best_ms(lambda: ShardedKmerIndex(words, k, mesh))
-            convert = best_ms(lambda: eng._key_tensor(words, k))
-            host = eng._key_tensor(words, k)
-            owners = best_ms(lambda: _table_owners(host, mesh))
-            owner, ordered = _table_owners(host, mesh)
+            host = convert.words_tensor(words)
+            upload = best_ms(lambda: host.to(cuda))
+            on_card = host.to(cuda)
+            k11 = device_ms(lambda: convert.words_to_keys(on_card, k),
+                            reps=5)
+            routed = best_ms(lambda: _route_table(words, k, mesh))
+            _tables, rows, ordered = _route_table(words, k, mesh)
             if not ordered:
                 fail(f"8: k={k} M={m} a sorted table seen as unsorted")
-            group = best_ms(lambda: np.argsort(owner, kind="stable"))
+            gather = best_ms(lambda: [words[r] for r in rows])
             print(f"[8] build k={k} M={m}: one device {one:.1f} ms, "
                   f"S=4 {sharded:.1f} ms ({1e6 * sharded / m:.1f} ns a "
-                  f"key); alone: key conversion {convert:.1f}, owners "
-                  f"and order check on the card {owners:.1f}, grouping "
-                  f"{group:.1f} ({card})", flush=True)
-            del words, host, owner
+                  f"key); alone: the words' upload {upload:.1f}, K11 "
+                  f"{k11:.4f}, the table routed {routed:.1f}, the "
+                  f"shards' host word gather {gather:.1f} ({card})",
+                  flush=True)
+            del words, host, on_card, rows, _tables
 
 
 def phase_8b(batches, cuda, reset_counts, read_counts):
@@ -1420,7 +1631,7 @@ def phase_8b(batches, cuda, reset_counts, read_counts):
         multihost.shutdown()
     if torch.distributed.is_initialized():
         fail("8b: the process group outlived destroy_process_group")
-    for name in ("extract_canonical", "extract_canonical_wide"):
+    for name in ("extract_canonical", "extract_canonical_wide", "route"):
         if launches[name] <= 0:
             fail(f"8b: kernel {name} was not launched")
     print(f"[8b] one-process NCCL group: sum_aligned, "
@@ -1595,9 +1806,11 @@ def main():
     )
     from kmer_denovo_filter_tpu_torch.ops import (
         _cuda,
+        convert,
         extract,
         member,
         probe,
+        route,
         segsort,
     )
     from kmer_denovo_filter_tpu_torch.ops import device as dev
@@ -1620,6 +1833,8 @@ def main():
                 "seg_sort": (segsort, "launches"),
                 "seg_dedup": (segsort, "dedup_launches"),
                 "seg_dedup_wide": (segsort, "dedup_wide_launches"),
+                "route": (route, "launches"),
+                "words_to_keys": (convert, "launches"),
                 # K1 cut at a stage (the xmicro probes); not in the JSON
                 "extract_canonical_stage": (extract, "stage_launches")}
 
@@ -1797,6 +2012,9 @@ def main():
     # ── 3w. wide kernels against their plain versions ──────────────
     phase_3w(rng, cuda, check, times)
 
+    # ── 3r. K10 and K11 against their plain versions ───────────────
+    phase_3r(rng, cuda, check, times)
+
     # ── 4. main path, VCF mode: kmer-denovo-torch on the GIAB trio ──
     giab = os.path.join(REPO, "tests", "data", "giab")
     goldens = os.path.join(REPO, "tests", "goldens")
@@ -1833,7 +2051,8 @@ def main():
                     fail(f"{name} differs from tests/goldens")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    for name in ("extract_canonical", "probe_tally", "build_directory"):
+    for name in ("extract_canonical", "probe_tally", "build_directory",
+                 "words_to_keys"):
         if launches_vcf[name] <= 0:
             fail(f"kernel {name} was not launched on the VCF main path")
     print(f"[4] kmer-denovo-torch: 3 goldens byte-equal in {wall:.3f} s; "
@@ -1872,7 +2091,7 @@ def main():
     finally:
         shutil.rmtree(out, ignore_errors=True)
     for name in ("extract_canonical", "seg_dedup", "probe_tally_weighted",
-                 "probe_member", "build_directory"):
+                 "probe_member", "build_directory", "words_to_keys"):
         if launches_disc[name] <= 0:
             fail(f"kernel {name} was not launched on the discovery path")
     if sorted(os.listdir(giab)) != giab_files:
@@ -2069,7 +2288,8 @@ def main():
         profile_loop(label, n_batches, run, wall, card)
 
     # ── 8, 8b. the sharded engine on one card; a one-process group ─
-    launches_8 = phase_8(batches, cuda, card, reset_counts, read_counts)
+    launches_8 = phase_8(batches, cuda, card, reset_counts, read_counts,
+                         times)
     launches_8b = phase_8b(batches, cuda, reset_counts, read_counts)
     del batches
 
@@ -2105,9 +2325,11 @@ def main():
                  "probe_tally_wide_weighted", "probe_member_wide",
                  "seg_dedup_wide"):
         launches[name] = sum(run[name] for run in launches_wide)
-    # the directory: narrow tables in 4 and 4b, wide ones in 4c
-    launches["build_directory"] += sum(run["build_directory"]
-                                       for run in launches_wide)
+    # the directory and K11: narrow tables in 4 and 4b, wide ones in 4c
+    for name in ("build_directory", "words_to_keys"):
+        launches[name] += sum(run[name] for run in launches_wide)
+    # K10's path is the sharded engine: its launches in 8 and 8b
+    launches["route"] = launches_8["route"] + launches_8b["route"]
     # K9 is on no main path: its launches in 5d and 7
     launches["seg_sort"] = launches_5d["seg_sort"] + launches_7["seg_sort"]
     # the multi-host CLIs (4d), the sharded engine on [cuda:0] * S (8),
@@ -2197,6 +2419,23 @@ def main():
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": lim[0], "bound_by": lim[1],
             "library_ms": library_ms})
+    route_ms, route_plain, route_lib, route_lim = times[("route", 31, 4)]
+    k11_ms, k11_plain, k11_lim, _upload = times[("words_to_keys", 31)]
+    report["kernels"] += [
+        {"name": "route", "route": "cuda",
+         "source": "kmer_denovo_filter_tpu_torch/csrc/route.cu",
+         "replaces": "kmer_denovo_filter_tpu/parallel/sharded.py:61",
+         "launches": launches["route"], "max_abs_err": err["route"],
+         "ms": route_ms, "plain_ms": route_plain,
+         "bound_ms": route_lim[0], "bound_by": route_lim[1],
+         "library_ms": route_lib},
+        {"name": "words_to_keys", "route": "cuda",
+         "source": "kmer_denovo_filter_tpu_torch/csrc/words_to_keys.cu",
+         "replaces": "kmer_denovo_filter_tpu_torch/ops/keys.py:85",
+         "launches": launches["words_to_keys"],
+         "max_abs_err": err["words_to_keys"], "ms": k11_ms,
+         "plain_ms": k11_plain, "bound_ms": k11_lim[0],
+         "bound_by": k11_lim[1], "library_ms": None}]
     for entry in report["kernels"]:
         entry["launches_by_phase"] = {
             phase: sum(run.get(entry["name"], 0) for run in runs)

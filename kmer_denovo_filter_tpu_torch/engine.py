@@ -2,31 +2,33 @@
 
 Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
 
-* :class:`KmerIndex` (:147) — the sorted canonical k-mer table, held on
+* :class:`KmerIndex` (:175) — the sorted canonical k-mer table, held on
   the device as one int64 key (or one row of int64 limbs) per k-mer
   (:mod:`.ops.keys`), with its prefix directory on the card (over limb
   0 for k > 31; :mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
-* :class:`HostKmerIndex` (:212) and :class:`HostFilteredCounter` (:549)
+* :class:`HostKmerIndex` (:237) and :class:`HostFilteredCounter` (:574)
   — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
   host C++ hash or a numpy search (a table on a CUDA device never goes
   to the host);
-* :func:`make_membership_index` (:350) — that gate, and the sharded
+* :func:`make_membership_index` (:375) — that gate, and the sharded
   index for a CUDA table one card cannot hold;
-* :class:`StreamCounter` (:371) — ``jellyfish count -C``: K1 window keys,
+* :class:`StreamCounter` (:396) — ``jellyfish count -C``: K1 window keys,
   a device sort-count per batch, host merge of the per-batch uniques;
-* :class:`FilteredCounter` (:499) — ``jellyfish count -C --if``: a
+* :class:`FilteredCounter` (:524) — ``jellyfish count -C --if``: a
   per-table-row tally, K1 → K2 (VCF mode, :func:`make_filtered_counter`)
   or K1 → K9d segment dedup → K3 (discovery,
   :func:`make_parent_filter_counter`);
 * :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
-  (:632, :644) — the anchoring scan, K1 → K4.
+  (:657, :669) — the anchoring scan, K1 → K4.
 
 Host-facing keys stay the JAX package's (M, W) uint32 words, so the
 pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
 become int64 at this boundary (:mod:`.ops.keys`): one int64 per key for
-k <= 31, a row of Q = ceil(k / 31) int64 limbs for k = 33..207.  The
+k <= 31, a row of Q = ceil(k / 31) int64 limbs for k = 33..207.  For a
+CUDA device the words go up as they are and kernel K11 converts them
+there (:func:`_key_tensor`, :mod:`.ops.convert`).  The
 wide path runs K1w → K7 (tally, unweighted or weighted) and K1w → K8
 (membership, rows) where the narrow one runs K1 → K2/K3 and K1 → K4.
 The device is explicit: chosen at the entry point and passed to every
@@ -56,6 +58,11 @@ from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+from kmer_denovo_filter_tpu_torch.ops.convert import (
+    plain_words_to_keys,
+    words_tensor,
+    words_to_keys,
+)
 from kmer_denovo_filter_tpu_torch.ops.extract import (
     extract_canonical,
     extract_canonical_wide,
@@ -74,6 +81,8 @@ from kmer_denovo_filter_tpu_torch.ops.probe import (
 from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup, seg_dedup_wide
 
 logger = logging.getLogger(__name__)
+
+CPU = torch.device("cpu")
 
 
 def resolve_device(device):
@@ -106,12 +115,31 @@ def _window_keys(codes, lengths, k, device):
     return extract(*_to_device(codes, lengths, device), k)
 
 
-def _key_tensor(keys_np, k):
+def _key_tensor(keys_np, k, device=CPU):
     """Host (N, W) uint32 words → (N,) int64 keys, or (N, Q) limb rows
-    for k > 31 (CPU tensor)."""
+    for k > 31, on *device*: on a CUDA device the words go up as they
+    are and K11 (:func:`~.ops.convert.words_to_keys`) makes the keys
+    there; on the CPU the numpy conversion of :mod:`.ops.keys`, which
+    K11's plain version repeats in torch, makes them."""
+    if torch.device(device).type == "cuda":
+        return words_to_keys(words_tensor(keys_np).to(device), k)
     if k <= keys64.NARROW_K:
         return keys64.words_to_keys64(keys_np, k)
     return keys64.words_to_limbs(keys_np, k)
+
+
+def _live_rows(keys_np, k):
+    """(live rows, the last live key) of a sorted (M, W) word table: the
+    rows before its trailing all-ones (sentinel) rows, and limb 0 of the
+    last of them (0 when none is live), from the host words through
+    K11's plain version."""
+    live = keys_np.shape[0]
+    while live and (keys_np[live - 1] == keys64.SENTINEL32).all():
+        live -= 1
+    if not live:
+        return 0, 0
+    last = plain_words_to_keys(words_tensor(keys_np[live - 1:live]), k)
+    return live, int(last.reshape(-1)[0])
 
 
 def _member(keys, index):
@@ -163,19 +191,16 @@ class KmerIndex:
         self.keys_np = keys_np
         self.counts_np = counts_np
         self.device = resolve_device(device)
-        # (M,) int64 keys, or (M, Q) limb rows for k > 31
-        host = _key_tensor(keys_np, k) if key_tensor is None else key_tensor
-        self.table = host.to(self.device)
+        # (M,) int64 keys, or (M, Q) limb rows for k > 31: on a card made
+        # there from the words (K11)
+        self.table = (_key_tensor(keys_np, k, self.device)
+                      if key_tensor is None else key_tensor.to(self.device))
         self.directory = None
         if self.device.type == "cuda":
-            # live rows (sentinel rows trail) and the last live key (limb
-            # 0 of the last live row) from the host copy: no sync
-            first = host if host.dim() == 1 else host[:, 0]
-            live = self.n
-            while live and int(first[live - 1]) == keys64.SENTINEL:
-                live -= 1
-            self.directory = tdir.build_directory(
-                self.table, live, int(first[live - 1]) if live else 0)
+            # live rows (sentinel rows trail) and the last live key from
+            # the host words: no sync
+            self.directory = tdir.build_directory(self.table,
+                                                  *_live_rows(keys_np, k))
 
     @classmethod
     def from_strings(cls, kmers, k, *, device):
@@ -194,18 +219,18 @@ class KmerIndex:
     def membership(self, query_keys_np):
         """bool array: which (N, W) query rows are in the table (K4, or
         K8 for k > 31); sentinel rows are never found."""
-        q = _key_tensor(query_keys_np, self.k)
-        return _member(q.to(self.device), self).cpu().numpy()
+        q = _key_tensor(query_keys_np, self.k, self.device)
+        return _member(q, self).cpu().numpy()
 
     def counts_of(self, query_keys_np):
         """int64 counts per query row (0 when absent): K4 (K8) finds each
         row's table row on the device, the host gathers its count."""
         if self.counts_np is None:
             raise ValueError("index has no counts")
-        q = _key_tensor(query_keys_np, self.k)
+        q = _key_tensor(query_keys_np, self.k, self.device)
         if self.n == 0:
             return np.zeros(q.shape[0], dtype=np.int64)
-        rows = _rows(q.to(self.device), self).cpu().numpy()
+        rows = _rows(q, self).cpu().numpy()
         return np.where(rows >= 0, self.counts_np[np.maximum(rows, 0)], 0)
 
 

@@ -44,7 +44,17 @@ so two checkouts compare under one timer::
         [--root CHECKOUT] [--tag NAME] [--kernels K1,K3,...]
 
 ``--kernels`` keeps only the named groups (K1, K1w, K2, K3, K4, K7, K8,
-K9, K9d, K9dw, step, wstep, dir; default all).
+K9, K9d, K9dw, step, wstep, dir, K10, K11; default all).
+
+K10 (where the checkout has ``ops/route.py``) routes the k = 31 and
+k = 63 keys of the random batch to S = 1, 2 and 4 shards; ``K10 route``
+times the checkout's whole route of that one source,
+``parallel.sharded._gather_by_owner`` with its sizes' host sync (the
+parent's ``_dispatch``: hash, stable argsort, bincount).  K11 (where the
+checkout has ``ops/convert.py``) converts 2**20, 2**22 and 2**24 words on
+the card at k = 31 and 63; ``K11 keys`` times the checkout's
+``engine._key_tensor`` of the host words to keys on the card (the
+parent's: numpy on the host, then the copy up).
 
 Run it as a file: *CHECKOUT* (default: the one that holds this file) goes
 first on ``sys.path`` and its package is imported.  Every output is
@@ -67,7 +77,9 @@ PROBE_MS = (4096, 262144, 1 << 20, 1 << 24)
 WIDE_MS = {63: (2048, 4096, 262144, 1 << 24), 201: (1024, 4096, 1 << 22)}
 GROUP, GROUP_B = 8, 4096
 GROUPS = ("K1", "K1w", "K2", "K3", "K4", "K7", "K8", "K9", "K9d", "K9dw",
-          "step", "wstep", "dir")
+          "step", "wstep", "dir", "K10", "K11")
+ROUTE_SHARDS = (1, 2, 4)
+K11_MS = (1 << 20, 1 << 22, 1 << 24)
 STEP_M = 1 << 24
 WSTEP_M = {63: 1 << 24, 201: 1 << 22}
 
@@ -375,6 +387,51 @@ def main(argv=None):
 
     has_k9dw = hasattr(segsort, "seg_dedup_wide")
 
+    def k10(k, flat):
+        """K10 and the whole route of one source, as the module says."""
+        from kmer_denovo_filter_tpu_torch.parallel import sharded
+        try:
+            from kmer_denovo_filter_tpu_torch.ops import route
+        except ImportError:  # a checkout from before K10
+            route = None
+        for s in ROUTE_SHARDS:
+            shape = f"k={k} S={s}"
+            if route is not None:
+                for part, g, r in zip(("order", "sizes", "rows"),
+                                      route.route(flat, s),
+                                      route.plain_route(flat, s)):
+                    check(f"K10 {shape} {part}", g, r)
+                time_it("K10", shape, lambda: route.route(flat, s))
+            time_it("K10 route", shape, lambda: sharded._gather_by_owner(
+                [flat], [cuda] * s))
+
+    def k11(k):
+        """K11 and the checkout's host words to keys on the card."""
+        from kmer_denovo_filter_tpu_torch import engine as eng
+        try:
+            from kmer_denovo_filter_tpu_torch.ops import convert
+        except ImportError:  # a checkout from before K11
+            convert = None
+        on_card = "device" in inspect.signature(eng._key_tensor).parameters
+        w = -(-k // 16)
+        for m in K11_MS:
+            words = rng.integers(0, 1 << 32, (m, w), dtype=np.uint64)
+            words = words.astype(np.uint32)
+            shape = f"k={k} M={m}"
+            if convert is not None:
+                dev_words = convert.words_tensor(words).to(cuda)
+                check(f"K11 {shape}", convert.words_to_keys(dev_words, k),
+                      convert.plain_words_to_keys(dev_words, k))
+                time_it("K11", shape,
+                        lambda: convert.words_to_keys(dev_words, k))
+                del dev_words
+            if on_card:
+                time_it("K11 keys", shape,
+                        lambda: eng._key_tensor(words, k, cuda))
+            else:
+                time_it("K11 keys", shape,
+                        lambda: eng._key_tensor(words, k).to(cuda))
+
     def k9dw(label, k, flat):
         """K9dw on the (N, Q) rows *flat*, where the checkout has it,
         checked against its plain version; the whole-batch dedups."""
@@ -450,8 +507,8 @@ def main(argv=None):
     row = (torch.from_numpy(row_np).to(cuda),
            torch.tensor([ROW], dtype=torch.int32, device=cuda))
 
-    narrow = {"K1", "K2", "K3", "K4", "K9", "K9d", "step"}
-    wide = {"K1w", "K7", "K8", "K9dw", "wstep", "dir"}
+    narrow = {"K1", "K2", "K3", "K4", "K9", "K9d", "step", "K10", "K11"}
+    wide = {"K1w", "K7", "K8", "K9dw", "wstep", "dir", "K10", "K11"}
     for k in (31, 33, 63, 127, 151, 201):
         if not wanted & (narrow if k <= 31 else wide):
             continue
@@ -484,6 +541,10 @@ def main(argv=None):
                 k9("random", got.reshape(-1))
         if k in WIDE_MS and wanted & {"K7", "K8", "dir"}:
             wide_probes(k, got.flatten(0, 1))
+        if k in (31, 63) and "K10" in wanted:
+            k10(k, got.flatten(0, 1) if got.dim() == 3 else got.reshape(-1))
+        if k in (31, 63) and "K11" in wanted:
+            k11(k)
         if k in WSTEP_M and "K9dw" in wanted:
             k9dw("random", k, got.flatten(0, 1))
         if k in WSTEP_M and "wstep" in wanted:

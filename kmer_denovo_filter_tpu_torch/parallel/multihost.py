@@ -38,7 +38,7 @@ from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
-from kmer_denovo_filter_tpu_torch.parallel.sharded import hash_owner
+from kmer_denovo_filter_tpu_torch.ops.route import route
 
 logger = logging.getLogger(__name__)
 
@@ -316,20 +316,19 @@ def sum_aligned(values):
 
 def _exchange(keys):
     """Route flat live (N,) or (N, Q) keys on this process's device to
-    their owner processes (:func:`~.sharded.hash_owner` over the world
-    size): one ``all_to_all_single`` of the bucket sizes, one with
-    variable splits of the keys.  Returns the keys this process owns."""
+    their owner processes (:func:`~..ops.route.hash_owner` over the world
+    size; K10 on a card, with no sentinel bucket): one
+    ``all_to_all_single`` of the bucket sizes, one with variable splits
+    of the keys.  Returns the keys this process owns."""
     n = dist.get_world_size()
     group = _group_for(keys)
-    owner = hash_owner(keys, n)
-    order = torch.argsort(owner, stable=True)
-    send_sizes = torch.bincount(owner, minlength=n)
+    _order, send_sizes, routed = route(keys, n, sentinel=False)
     recv_sizes = torch.empty_like(send_sizes)
     dist.all_to_all_single(recv_sizes, send_sizes, group=group)
     recv_split = recv_sizes.tolist()
     recv = keys.new_empty((sum(recv_split),) + tuple(keys.shape[1:]))
-    dist.all_to_all_single(recv, keys[order].contiguous(), recv_split,
-                           send_sizes.tolist(), group=group)
+    dist.all_to_all_single(recv, routed, recv_split, send_sizes.tolist(),
+                           group=group)
     return recv
 
 

@@ -5,16 +5,18 @@ process.  The mesh is an explicit list of ``torch.device``s
 (:func:`make_mesh`: every local CUDA device); a device may repeat, so
 ``[cuda:0] * 4`` is four shards on one card and ``[cpu] * S`` is the CPU
 tests' mesh.  The canonical k-mer table is partitioned by
-:func:`hash_owner`, so every distinct k-mer lives on exactly one shard:
+:func:`~..ops.route.hash_owner`, so every distinct k-mer lives on
+exactly one shard:
 
 * each shard is a :class:`~kmer_denovo_filter_tpu_torch.engine.KmerIndex`
   on its device, with its own prefix directory on a card;
 * reads split data-parallel across the mesh: the rows of a batch go in
   contiguous chunks, one a device, through K1 (K1w for k > 31) there;
-* every window key goes to its owner: a stable sort by owner and a
-  bincount give variable-size buckets, so there is no capacity, no
-  overflow flag and no replay (the JAX ``_bucketize`` capacity and its
-  slack retry bound XLA's static shapes, and have no counterpart);
+* every window key goes to its owner: K10 (:func:`~..ops.route.route`,
+  a stable counting sort by owner) gives variable-size buckets, so
+  there is no capacity, no overflow flag and no replay (the JAX
+  ``_bucketize`` capacity and its slack retry bound XLA's static
+  shapes, and have no counterpart);
 * on the keys it receives each shard runs the single-device kernels by
   the single-device rule: tally K2, or K9d -> K3 with ``dedup=True``
   (for k > 31 K7, or K9dw -> K7), membership K4 (K8), and the
@@ -24,11 +26,13 @@ tests' mesh.  The canonical k-mer table is partitioned by
   current streams, and their later work after it (``copy_`` in
   ``aten/src/ATen/native/cuda/Copy.cu``), so no event is recorded here.
 
-The bucket sizes come to the host once a batch and source (a
-``bincount(...).tolist()``): the one host sync routing adds.  A shard
-on a CUDA device launches its kernels or raises, as the single-device
-wrappers do.  The TPU lane-tile counters (``parallel/tile_sharded.py``)
-are not ported.
+Every source's route is launched before any bucket size is read; the
+sizes then come to the host in one copy a device: the one host sync
+routing adds to a batch.  A table is built on the mesh as it is
+queried: slice i of its words goes up to ``mesh[i]``, becomes keys there
+(K11) and is routed there (K10).  A shard on a CUDA device launches its
+kernels or raises, as the single-device wrappers do.  The TPU lane-tile
+counters (``parallel/tile_sharded.py``) are not ported.
 """
 
 import numpy as np
@@ -38,12 +42,8 @@ from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+from kmer_denovo_filter_tpu_torch.ops.route import route
 from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup, seg_dedup_wide
-
-_MASK32 = 0xFFFFFFFF
-# a 32-bit value times this (< 2**27) stays below 2**59: no int64 overflow
-_MUL = 0x045D9F3B
-_SEED = 0x811C9DC5
 
 
 def make_mesh(n_devices=None):
@@ -58,36 +58,6 @@ def make_mesh(n_devices=None):
     return devices if n_devices is None else devices[:n_devices]
 
 
-def _mix32(h):
-    """A 32-bit avalanche of int64 *h* in [0, 2**32), exact in int64."""
-    h = ((h >> 16) ^ h) * _MUL & _MASK32
-    h = ((h >> 16) ^ h) * _MUL & _MASK32
-    return (h >> 16) ^ h
-
-
-def hash_owner(keys, n_shards):
-    """(N,) int64 owner shard of each (N,) int64 key or (N, Q) limb row:
-    uniform even for biased DNA keys.
-
-    Each limb (non-negative, below 2**63) folds in as its low and high 32
-    bits through :func:`_mix32`; every product is masked to 32 bits, so
-    the same int64 operations give the same owner on the CPU and on the
-    card.  The owner is the hash's fixed-point scale to *n_shards*."""
-    limbs = keys.unsqueeze(1) if keys.dim() == 1 else keys
-    h = torch.full((limbs.shape[0],), _SEED, dtype=torch.int64,
-                   device=keys.device)
-    for j in range(limbs.shape[1]):
-        limb = limbs[:, j]
-        h = _mix32(h ^ (limb & _MASK32))
-        h = _mix32(h ^ (limb >> 32))
-    return (h * n_shards) >> 32
-
-
-def _live(keys):
-    """(N,) bool: the keys (limb rows) that are no sentinel."""
-    return (keys if keys.dim() == 1 else keys[:, 0]) != keys64.SENTINEL
-
-
 def _device(device):
     """*device* as a ``torch.device`` with its CUDA index filled in, so
     that it compares equal to a tensor's device."""
@@ -98,47 +68,74 @@ def _device(device):
 
 
 def _dispatch(keys, mesh):
-    """Route a flat (N,) or (N, Q) key tensor to its owners.
-
-    Returns ``(order, sizes, parts)``: the stable order of *keys* by
-    owner (sentinels last), the bucket sizes (one a shard, then the
-    sentinels'), and the live keys of shard d on ``mesh[d]``."""
-    n_shards = len(mesh)
-    owner = torch.where(_live(keys), hash_owner(keys, n_shards), n_shards)
-    order = torch.argsort(owner, stable=True)
-    sizes = torch.bincount(owner, minlength=n_shards + 1).tolist()
-    parts = keys[order].split(sizes)
-    return order, sizes, [p.to(d) for p, d in zip(parts, mesh)]
+    """Launch the route of a flat (N,) or (N, Q) key tensor to its owners
+    on *mesh* (K10 on a card): ``(order, sizes, routed)`` on the keys'
+    device, with the sentinel rows' bucket last; no host sync."""
+    return route(keys, len(mesh))
 
 
-def _table_owners(keys, mesh):
-    """Hash a host table on the mesh: the (N,) int16 numpy owner of each
-    key (limb row) of *keys*, and whether its rows are in order.  The
-    table goes in ``len(mesh)`` contiguous slices, slice i (with the last
-    row of slice i - 1, so that the rows where two slices meet are
-    compared too) to ``mesh[i]``, which hashes and checks only that."""
-    n = len(mesh)
-    per = -(-keys.shape[0] // n)
-    owners, ordered = [np.zeros(0, np.int16)], True
-    for i, device in enumerate(mesh):
-        start = max(i * per - 1, 0)
-        part = keys[start:(i + 1) * per].to(device)
-        ordered = ordered and _rows_sorted(part)
-        owners.append(hash_owner(part[i * per - start:], n)
-                      .to(torch.int16).cpu().numpy())
-    return np.concatenate(owners), ordered
+def _to_host(tensors):
+    """Each (n_i,) int64 tensor of *tensors* as a host numpy array, in
+    one copy a device: the tensors of one device are concatenated
+    first."""
+    by_device = {}
+    for i, t in enumerate(tensors):
+        by_device.setdefault(t.device, []).append(i)
+    out = [None] * len(tensors)
+    for idx in by_device.values():
+        flat = torch.cat([tensors[i] for i in idx]).cpu().numpy()
+        ends = np.cumsum([tensors[i].shape[0] for i in idx])
+        for i, part in zip(idx, np.split(flat, ends[:-1])):
+            out[i] = part
+    return out
 
 
-def _rows_sorted(keys):
-    """True when (N,) int64 keys or (N, Q) limb rows are in ascending
-    (lexicographic) order, the order of their uint32 words."""
+def _in_order(keys):
+    """0-dim bool tensor on the keys' device, no sync: (N,) int64 keys or
+    (N, Q) limb rows in ascending (lexicographic) order, the order of
+    their uint32 words."""
     a, b = keys[:-1], keys[1:]
     if keys.dim() == 1:
-        return bool((a <= b).all())
+        return (a <= b).all()
     differ = a != b
     first = differ.to(torch.uint8).argmax(dim=1, keepdim=True)
     less = (a.gather(1, first) < b.gather(1, first)).squeeze(1)
-    return bool((~differ.any(dim=1) | less).all())
+    return (~differ.any(dim=1) | less).all()
+
+
+def _route_table(keys_np, k, mesh):
+    """Route a host (M, W) word table on *mesh*: slice i of ``len(mesh)``
+    contiguous slices goes up to ``mesh[i]`` as words (with the last row
+    of slice i - 1, so that the rows where two slices meet are compared
+    too), becomes keys there (K11) and is routed there (K10, every row
+    hashed).  Returns, for each shard d, its keys on ``mesh[d]`` (the
+    slices' parts for d, in slice order, so a sorted table's stay
+    sorted) and their (N_d,) int64 rows of *keys_np*, and whether the
+    table's rows are in order.  The sizes, order checks and row numbers
+    of all slices come to the host in one copy a device."""
+    n, m = len(mesh), keys_np.shape[0]
+    per = -(-m // n)
+    routes, packets = [], []
+    for i, device in enumerate(mesh):
+        lo, hi = min(i * per, m), min((i + 1) * per, m)
+        start = max(lo - 1, 0)
+        keys = eng._key_tensor(keys_np[start:hi], k, device)
+        order, sizes, routed = route(keys[lo - start:], n, sentinel=False)
+        routes.append(routed)
+        packets.append(torch.cat([sizes, _in_order(keys).view(1).long(),
+                                  order + lo]))
+    ordered = True
+    shard_keys = [[] for _ in mesh]
+    shard_rows = [[] for _ in mesh]
+    for routed, packet in zip(routes, _to_host(packets)):
+        sizes, ordered = packet[:n].tolist(), ordered and bool(packet[n])
+        ends = np.cumsum(sizes)
+        for d, (part, rows_d) in enumerate(zip(
+                routed.split(sizes), np.split(packet[n + 1:], ends[:-1]))):
+            shard_keys[d].append(part.to(mesh[d]))
+            shard_rows[d].append(rows_d)
+    return ([torch.cat(p) for p in shard_keys],
+            [np.concatenate(r) for r in shard_rows], ordered)
 
 
 def _split_reads(codes, lengths, n):
@@ -162,9 +159,14 @@ def _window_keys_by_source(codes, lengths, k, mesh):
 
 def _gather_by_owner(key_batches, mesh):
     """Route each flat key tensor of *key_batches* (one a source, each on
-    its own device) to its owners.  Returns the routes (order, sizes,
-    parts) of each batch and, for each shard, the parts it received."""
-    routes = [_dispatch(keys, mesh) for keys in key_batches]
+    its own device) to its owners: every source's route is launched
+    before the bucket sizes come to the host, together.  Returns the
+    routes (order, sizes, parts) of each batch and, for each shard, the
+    parts it received."""
+    pending = [_dispatch(keys, mesh) for keys in key_batches]
+    sizes = [sz.tolist() for sz in _to_host([p[1] for p in pending])]
+    routes = [(order, sz, [p.to(d) for p, d in zip(rows.split(sz), mesh)])
+              for (order, _sizes, rows), sz in zip(pending, sizes)]
     received = [[route[2][d] for route in routes] for d in range(len(mesh))]
     return routes, received
 
@@ -172,7 +174,7 @@ def _gather_by_owner(key_batches, mesh):
 class ShardedKmerIndex:
     """A canonical k-mer table sharded across a mesh of devices.
 
-    Shard d holds the keys :func:`hash_owner` gives it, lexicographically
+    Shard d holds the keys ``hash_owner`` gives it, lexicographically
     sorted, as a :class:`~kmer_denovo_filter_tpu_torch.engine.KmerIndex`
     on ``mesh[d]``; ``global_index_of[d]`` maps its rows back to rows of
     *keys_np*, and ``tallies[d]`` is its int64 filtered count."""
@@ -188,21 +190,17 @@ class ShardedKmerIndex:
         self.n_shards = len(self.mesh)
         self.keys_np = keys_np
         self.n = keys_np.shape[0]
-        host = eng._key_tensor(keys_np, k)
-        owner, presorted = _table_owners(host, self.mesh)
-        # one stable radix pass groups the rows by owner; a sorted table
-        # leaves every group sorted, so only an unsorted one is sorted
-        by_owner = np.argsort(owner, kind="stable")
-        ends = np.cumsum(np.bincount(owner, minlength=self.n_shards))
+        tables, rows_of, presorted = _route_table(keys_np, k, self.mesh)
         self.shards = []
         self.global_index_of = []
-        for device, rows in zip(self.mesh, np.split(by_owner, ends[:-1])):
+        for device, table, rows in zip(self.mesh, tables, rows_of):
             if not presorted:
+                # an unsorted table: each shard sorts its own rows
                 rows = rows[enc.lexsort_keys(keys_np[rows])]
+                table = None
             self.global_index_of.append(rows)
-            self.shards.append(eng.KmerIndex(
-                keys_np[rows], k, device=device,
-                key_tensor=host[torch.from_numpy(rows)]))
+            self.shards.append(eng.KmerIndex(keys_np[rows], k, device=device,
+                                             key_tensor=table))
         self.tallies = [torch.zeros(s.n, dtype=torch.int64, device=s.device)
                         for s in self.shards]
 
@@ -250,14 +248,14 @@ class ShardedKmerIndex:
         there, routed back; sentinel rows are never found."""
         if query_keys_np.shape[0] == 0:
             return np.zeros(0, dtype=bool)
-        q = eng._key_tensor(query_keys_np, self.k)
-        return self._member_many([q])[0].numpy()
+        q = eng._key_tensor(query_keys_np, self.k, self.mesh[0])
+        return self._member_many([q])[0].cpu().numpy()
 
     def tally_batch(self, flat_keys_np):
         """Accumulate filtered counts for a batch of (N, W) window keys."""
         if flat_keys_np.shape[0] == 0:
             return
-        q = eng._key_tensor(flat_keys_np, self.k)
+        q = eng._key_tensor(flat_keys_np, self.k, self.mesh[0])
         self._tally_received(_gather_by_owner([q], self.mesh)[1])
 
     def tally_result(self):

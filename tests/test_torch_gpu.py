@@ -1122,7 +1122,7 @@ def _sharded_case(k, seed, n_reads=512, length=152):
 
 
 def test_owner_hash_equal_on_cpu_and_card(cuda):
-    from kmer_denovo_filter_tpu_torch.parallel.sharded import hash_owner
+    from kmer_denovo_filter_tpu_torch.ops.route import hash_owner
     gen = torch.Generator().manual_seed(0)
     for q in (1, 3, 7):
         keys = torch.randint(0, 1 << 62, (100_000, q), generator=gen)
@@ -1135,24 +1135,30 @@ def test_owner_hash_equal_on_cpu_and_card(cuda):
 
 @pytest.mark.parametrize("s", [1, 3, 4])
 def test_table_owners_on_the_card_equal_the_cpu_hash(cuda, s):
-    """The sharded index hashes each slice of its table on a card: the
-    owners equal the CPU hash of the whole table, and the card sees
-    whether the rows are in order."""
-    from kmer_denovo_filter_tpu_torch.parallel.sharded import (
-        _table_owners,
-        hash_owner,
-    )
-    gen = torch.Generator().manual_seed(s)
-    for q in (1, 3):
-        keys = torch.randint(0, 1 << 62, (10_001, q), generator=gen)
-        keys = keys if q > 1 else keys[:, 0]
-        got, ordered = _table_owners(keys, [torch.device("cuda", 0)] * s)
-        assert np.array_equal(got, hash_owner(keys, s).numpy())
+    """The sharded index routes each slice of its table on a card (K11,
+    K10): each shard holds the rows the CPU hash of the whole table gives
+    it, in table order, and the card sees whether the rows are in
+    order."""
+    from kmer_denovo_filter_tpu_torch.ops import encode as enc
+    from kmer_denovo_filter_tpu_torch.ops.route import hash_owner
+    from kmer_denovo_filter_tpu_torch.parallel.sharded import _route_table
+    rng = np.random.default_rng(s)
+    mesh = [torch.device("cuda", 0)] * s
+    for k in (31, 63):
+        w = enc.words_per_kmer(k)
+        words = rng.integers(0, 1 << 32, (10_001, w), dtype=np.uint64)
+        words = words.astype(np.uint32)
+        words[:, -1] &= np.uint32((0xFFFFFFFF << (32 * w - 2 * k))
+                                  & 0xFFFFFFFF)
+        host = eng._key_tensor(words, k)
+        owner = hash_owner(host, s).numpy()
+        tables, rows, ordered = _route_table(words, k, mesh)
         assert not ordered
-        ordered_keys = keys.sort().values if q == 1 else keys[
-            torch.from_numpy(np.lexsort(keys.numpy().T[::-1]))]
-        assert _table_owners(ordered_keys,
-                             [torch.device("cuda", 0)] * s)[1]
+        for d in range(s):
+            assert np.array_equal(rows[d], np.flatnonzero(owner == d))
+            assert torch.equal(tables[d].cpu(),
+                               host[torch.from_numpy(rows[d])])
+        assert _route_table(words[enc.lexsort_keys(words)], k, mesh)[2]
 
 
 @pytest.mark.parametrize("s", [1, 2, 4])
@@ -1197,3 +1203,111 @@ def test_sharded_engine_on_one_card_matches_one_device(cuda, k, s):
     one = eng.FilteredCounter(index)
     one.feed(homopolymer, np.full(64, 80, np.int32))
     assert np.array_equal(fc.result(), one.result())
+
+
+# ── K10, the route, and K11, words to keys ───────────────────────────
+
+
+def _route_rows(n, q, kind, seed):
+    """(n,) keys (q = 1) or (n, q) limb rows on the CPU: random with every
+    13th row a sentinel row, one key in every row, or all sentinels."""
+    rng = np.random.default_rng(seed)
+    if kind == "homopolymer":
+        rows = np.full((n, q), 12345, np.int64)
+    elif kind == "sentinel":
+        rows = np.full((n, q), keys64.SENTINEL, np.int64)
+    else:
+        rows = rng.integers(0, 1 << 62, (n, q), dtype=np.int64)
+        rows[::13] = keys64.SENTINEL
+    keys = torch.from_numpy(rows)
+    return keys[:, 0].contiguous() if q == 1 else keys
+
+
+def _route_matches_plain(keys, s, sentinel=True):
+    from kmer_denovo_filter_tpu_torch.ops import route
+    before = route.launches
+    got = route.route(keys, s, sentinel)
+    ref = route.plain_route(keys.cpu(), s, sentinel)
+    torch.cuda.synchronize()
+    assert route.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.is_cuda and torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("kind", ["random", "homopolymer", "sentinel"])
+@pytest.mark.parametrize("q", [1, 2, 3, 7])
+@pytest.mark.parametrize("n", [0, 1, 4097, 8193, 100_000])
+def test_route_kernel_matches_plain(cuda, n, q, kind):
+    """K10 against its plain version: order, sizes and routed rows, to
+    1 .. 1,023 shards (the histogram spans warps past 32 bins), with
+    and without the sentinel bucket."""
+    keys = _route_rows(n, q, kind, seed=n + q).to(cuda)
+    for s in (1, 2, 3, 4, 7, 64, 1023):
+        _route_matches_plain(keys, s)
+    for s in (4, 1024):
+        _route_matches_plain(keys, s, sentinel=False)
+
+
+def test_route_kernel_takes_views_and_batch_keys(cuda):
+    """A strided view, a gather of rows, and the flat K1 / K1w keys of a
+    batch."""
+    rows = _route_rows(20_000, 3, "random", seed=1).to(cuda)
+    _route_matches_plain(rows[::2], 4)
+    _route_matches_plain(rows[torch.arange(0, 20_000, 3, device=cuda)], 5)
+    codes, lengths = (t.to(cuda) for t in _batch(7))
+    _route_matches_plain(extract.extract_canonical(codes, lengths, 31)
+                         .flatten(), 4)
+    _route_matches_plain(extract.extract_canonical_wide(codes, lengths, 63)
+                         .flatten(0, 1), 4)
+
+
+def test_route_kernel_refuses_too_many_buckets(cuda):
+    from kmer_denovo_filter_tpu_torch.ops import route
+    keys = torch.zeros(10, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="buckets"):
+        route.route(keys, route.MAX_BINS)
+
+
+@pytest.mark.parametrize("k", list(range(3, keys64.MAX_K + 1, 2)))
+def test_words_to_keys_kernel_matches_plain(cuda, k):
+    """K11 against its plain version and the numpy conversion, with
+    sentinel rows, from a view one word into its storage, and with no
+    row (no launch)."""
+    from kmer_denovo_filter_tpu_torch.ops import convert
+    from kmer_denovo_filter_tpu_torch.ops import encode as enc
+    rng = np.random.default_rng(k)
+    w = enc.words_per_kmer(k)
+    words = rng.integers(0, 1 << 32, (3001, w), dtype=np.uint64).astype(
+        np.uint32)
+    words[:, -1] &= np.uint32((0xFFFFFFFF << (32 * w - 2 * k)) & 0xFFFFFFFF)
+    words[::5] = keys64.SENTINEL32
+    on_card = convert.words_tensor(words).to(cuda)
+    before = convert.launches
+    got = convert.words_to_keys(on_card, k)
+    torch.cuda.synchronize()
+    assert convert.launches == before + 1
+    assert torch.equal(got.cpu(), eng._key_tensor(words, k))
+    assert torch.equal(got, convert.plain_words_to_keys(on_card, k))
+    store = torch.empty(on_card.numel() + 1, dtype=torch.int32, device=cuda)
+    view = store[1:].view(on_card.shape)
+    view.copy_(on_card)
+    assert torch.equal(convert.words_to_keys(view, k), got)
+    assert convert.words_to_keys(on_card[:0], k).shape == got[:0].shape
+    assert convert.launches == before + 2
+
+
+def test_cuda_index_converts_its_words_on_the_card(cuda):
+    """A CUDA KmerIndex and its queries launch K11; the sharded build
+    launches K11 and K10 a slice, its queries K11 and K10 once."""
+    from kmer_denovo_filter_tpu_torch.ops import convert, route
+    from kmer_denovo_filter_tpu_torch.parallel import ShardedKmerIndex
+
+    words, _codes, _lengths = _sharded_case(31, 5)
+    ref = eng.KmerIndex(words, 31, device="cpu").membership(words[::3])
+    before, routes = convert.launches, route.launches
+    index = eng.KmerIndex(words, 31, device=cuda)
+    assert np.array_equal(index.membership(words[::3]), ref)
+    sharded = ShardedKmerIndex(words, 31, [torch.device("cuda", 0)] * 3)
+    assert np.array_equal(sharded.membership(words[::3]), ref)
+    assert convert.launches == before + 2 + 3 + 1
+    assert route.launches == routes + 3 + 1

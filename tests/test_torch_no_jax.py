@@ -37,7 +37,8 @@ def test_port_modules_import_no_jax():
     assert int(n_modules) >= 30  # discovery.pipeline and htsio included
     assert bad == ""
     for name in ("parallel", "parallel.sharded", "parallel.multihost",
-                 "profiling", "experiments.multi_card", "entry"):
+                 "profiling", "experiments.multi_card", "entry",
+                 "ops.route", "ops.convert"):
         assert f"kmer_denovo_filter_tpu_torch.{name}" in names.split(","), name
 
 

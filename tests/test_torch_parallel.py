@@ -17,6 +17,7 @@ from kmer_denovo_filter_tpu import parallel as jpar
 from kmer_denovo_filter_tpu.ops import encode as jenc
 from kmer_denovo_filter_tpu_torch import engine as eng
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+from kmer_denovo_filter_tpu_torch.ops.route import hash_owner
 from kmer_denovo_filter_tpu_torch.parallel import (
     ShardedFilteredCounter,
     ShardedKmerIndex,
@@ -24,9 +25,8 @@ from kmer_denovo_filter_tpu_torch.parallel import (
     sharded_scan_reads_for_hits,
 )
 from kmer_denovo_filter_tpu_torch.parallel.sharded import (
-    _rows_sorted,
-    _table_owners,
-    hash_owner,
+    _in_order,
+    _route_table,
 )
 from tests.test_engine import pack_reads, random_reads
 
@@ -229,26 +229,30 @@ def test_an_unsorted_table(k):
 def test_rows_sorted(rows, want):
     """Limb rows in lexicographic order, and their first limbs alone."""
     limbs = torch.tensor(rows, dtype=torch.int64).reshape(-1, 2)
-    assert _rows_sorted(limbs) is want
+    assert bool(_in_order(limbs)) is want
     first = limbs[:, 0]
-    assert _rows_sorted(first) is bool((first[1:] >= first[:-1]).all())
+    assert bool(_in_order(first)) is bool((first[1:] >= first[:-1]).all())
 
 
 @pytest.mark.parametrize("s", [1, 2, 3, 5])
 @pytest.mark.parametrize("k", [31, 63])
 def test_table_owners_in_slices(k, s):
-    """Hashed slice by slice, the owners equal the whole table's hash,
-    and the order check sees a swap where two slices meet."""
+    """Routed slice by slice, each shard holds the rows the whole
+    table's hash gives it, in table order, and the order check sees a
+    swap where two slices meet."""
     keys, _ = _case(k, 110 + k)
-    host = eng._key_tensor(keys, k)
-    owner, ordered = _table_owners(host, [CPU] * s)
+    tables, rows, ordered = _route_table(keys, k, [CPU] * s)
     assert ordered
-    assert np.array_equal(owner, hash_owner(host, s).numpy())
-    per = -(-host.shape[0] // s)
-    cut = per if s > 1 else host.shape[0] // 2
-    swapped = host.clone()
-    swapped[[cut - 1, cut]] = host[[cut, cut - 1]]
-    assert not _table_owners(swapped, [CPU] * s)[1]
+    host = eng._key_tensor(keys, k)
+    owner = hash_owner(host, s).numpy()
+    for d in range(s):
+        assert np.array_equal(rows[d], np.flatnonzero(owner == d))
+        assert torch.equal(tables[d], host[torch.from_numpy(rows[d])])
+    per = -(-keys.shape[0] // s)
+    cut = per if s > 1 else keys.shape[0] // 2
+    swapped = keys.copy()
+    swapped[[cut - 1, cut]] = keys[[cut, cut - 1]]
+    assert not _route_table(swapped, k, [CPU] * s)[2]
 
 
 @pytest.mark.parametrize("k", [31, 63])
