@@ -38,8 +38,9 @@ any failure exits non-zero before the result line:
 4b. Main path, discovery: ``kmer-discovery-torch``
    (``cli.discovery_main``) on the same trio with the golden fixture's
    flags; the six text outputs must equal ``tests/goldens/giab_discovery.*``
-   byte for byte, K1, K9d, K3, K4 and K11 must have been launched
-   during that run, and nothing may be written into ``tests/data/giab``.
+   byte for byte, K1, K9d, K3, K4, K11 and K12 (the child count) must
+   have been launched during that run, and nothing may be written into
+   ``tests/data/giab``.
 5. Scale: ``FilteredCounter`` on cuda over 16 batches x 32,768 reads x
    152 bp (synthetic 40x-coverage reads, 0.3 % error, seed 0) against
    4,096- and 262,144-key tables; counts must equal the plain path on
@@ -82,12 +83,22 @@ any failure exits non-zero before the result line:
    conversion at every odd k 3..207 (also from a view one word into its
    storage, and no row), timed at 2**24 keys, k = 31 and 63, beside the
    words' pageable upload.  Exact.
+3c. K12 (``sortcount.sort_count`` / ``sort_count_wide``, the stream
+   count's sort-count: K9d or K9dw, then a stable radix sort and a run
+   combine) against its plain version (``torch.unique``; Q stable
+   sorts): the phase-3 random batch and a 40x batch at k = 15 and 31,
+   random batches at k = 33, 63, 127, 201, 207 (256 bp from k = 201) and
+   40x batches at k = 63 and 201, the (1, 2**20) row at k = 31 and 63,
+   N = 0, 1 and 8,193, one key repeated, all sentinels, 2**20 distinct
+   keys.  Timed at k = 31, 63 and 201 (the call with its one sync, and
+   its launches alone) beside the plain version and ``torch.unique``
+   (``dim=0`` for rows).  Exact.
 4c. Main path, wide: ``kmer-denovo-torch`` and ``kmer-discovery-torch``
    with ``--kmer-size 63`` on the GIAB trio, each on a copy of
    ``mini_ref.fa`` (Module 0 counts the FASTA at k > 31 and caches it
    beside it); the same pipelines on ``device="cpu"`` (the plain
    versions) must give byte-equal outputs (3 + 6), and K1w, the
-   directory builder, K7 in both forms, K9dw and K8 must have been
+   directory builder, K7 in both forms, K9dw, K8 and K12 must have been
    launched during the card runs.
 4d. Both CLIs as one process of a multi-host run: ``KDF_COORDINATOR``
    (127.0.0.1, a free port), ``KDF_NUM_PROCESSES=1``,
@@ -130,7 +141,16 @@ any failure exits non-zero before the result line:
    of a batch's feed; the route of one batch split into the plain
    version's steps, beside K10 and the library pair (``argsort`` +
    ``bincount``).  The stream count over 2 and 4 shards equal to
-   ``StreamCounter``'s, with both rates.  The index's build time, one
+   ``StreamCounter``'s, with both rates; K12 launched by every shard of
+   a batch's ``sharded_count``.  The stream count's split
+   (``phase_8_stream_split``, after 8b): ``StreamCounter`` over the 16
+   phase-5 batches at k = 31 and 63 and 3 batches of 256 bp at k = 201,
+   fed step by step (upload, K1 / K1w, the device sort-count, the call
+   with its sync, DtoH, ``_add_chunk``, each merge with its rows,
+   ``result()`` and its conversion to words), with the parent's step
+   (the plain version) and with K12, at the 2**24 merge floor and at
+   2**21, each equal to the engine's own loop, whose reads/s it prints.
+   The index's build time, one
    device and S = 4, at M = 2**20, 2**22, 2**24 (k = 31) and 2**20,
    2**22 (k = 63), and its steps timed alone (the words' upload, K11,
    the table routed, the host gather of the shards' words).
@@ -138,7 +158,8 @@ any failure exits non-zero before the result line:
    world size 1): ``sum_aligned`` on a CUDA tensor,
    ``sharded_count_multihost`` (its ``all_to_all_single`` on the card)
    and ``merge_counts_sharded`` of two halves at k = 31 and 63 equal to
-   the single-process results; then ``destroy_process_group``.
+   the single-process results, K12 launched; then
+   ``destroy_process_group``.
 7. Experiments: every command of ``experiments.x_fused`` (sort, prof,
    transposed, unroll2, anatomy, variants, steps, super, sprof) and
    ``experiments.x_join_variants`` (v5, kernel, xextract, xextract3,
@@ -155,7 +176,8 @@ any failure exits non-zero before the result line:
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches in phases 4 and 4b (phase 4c for the wide kernels and K9dw,
-the directory builder and K11 in 4, 4b and 4c; phases 5d and 7 for K9;
+the directory builder, K11 and K12 in 4, 4b and 4c; phases 5d and 7
+for K9;
 phases 8 and 8b for K10, whose path is the sharded engine),
 those of phases 4d, 8, 8b and 9 apart under ``launches_by_phase``, its
 largest deviation from the plain version, its time beside the plain
@@ -924,6 +946,107 @@ def phase_3s_wide(rng, cuda, check, times):
                   flush=True)
 
 
+def phase_3c(rng, codes, lengths, cuda, check, times):
+    """K12 (``sortcount.sort_count`` / ``sort_count_wide``) against its
+    plain version, exact: the phase-3 random batch and a 40x batch at
+    k = 15 and 31; random batches at k = 33, 63, 127, 201 and 207 (256
+    bp from k = 201) and 40x batches at k = 63 and 201; the (1, 2**20)
+    contig row at k = 31 and 63; N = 0, 1 and 8,193 random keys; one key
+    repeated; all sentinels; 2**20 distinct keys (K9d's hash gives up).
+    Timed on the 40x and random batches at k = 31, 63 and 201: the call
+    (its one sync included) and its launches alone (no sync), beside the
+    plain version and ``torch.unique`` (``dim=0`` for rows)."""
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract, sortcount
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+
+    def window_rows(c, l, k):
+        if k <= keys64.NARROW_K:
+            return extract.extract_canonical(c, l, k).reshape(-1)
+        return extract.extract_canonical_wide(c, l, k).flatten(0, 1)
+
+    def check_case(label, flat, k, timed=False):
+        wide = flat.dim() == 2
+        fn = sortcount.sort_count_wide if wide else sortcount.sort_count
+        plain = dev.sort_count_wide if wide else dev.sort_count
+        got, ref = fn(flat, k), plain(flat)
+        check("sort_count", got[0], ref[0], f"{label}: keys")
+        check("sort_count", got[1], ref[1], f"{label}: counts")
+        if not timed:
+            return
+        n, q = flat.shape[0], 1 if not wide else flat.shape[1]
+        distinct = ref[0].shape[0]
+        ms = device_ms(lambda: fn(flat, k))
+        launch_ms = device_ms(lambda: sortcount.launch(flat, k))
+        plain_ms = device_ms(lambda: plain(flat), reps=5)
+        unique = ((lambda: torch.unique(flat, dim=0, sorted=True,
+                                        return_counts=True)) if wide else
+                  (lambda: torch.unique(flat, sorted=True,
+                                        return_counts=True)))
+        lib_ms = device_ms(unique, reps=5)
+        # the keys read once, each distinct row and its count written once
+        lim = bound(8 * q * n + (8 * q + 8) * distinct, 0)
+        times[("sort_count", label)] = (ms, plain_ms, lib_ms, lim, launch_ms)
+        print(f"[3c] K12 {label}: equal ({n} rows, {distinct} distinct); "
+              f"the call {ms:.4f} ms, its launches alone {launch_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, torch.unique {lib_ms:.4f} ms, "
+              f"bound {lim[0]:.4f} ms by {lim[1]}", flush=True)
+
+    cases = 0
+    for k in (15, 31):
+        for label, (c, l) in (("random", (codes, lengths)),
+                              ("40x", codes_40x(cuda))):
+            check_case(f"k={k} {label} batch", window_rows(c, l, k), k,
+                       timed=k == 31)
+            cases += 1
+    for k in (33, 63, 127, 201, 207):
+        length = L_K201 if k >= 201 else L
+        c, l = (torch.from_numpy(a).to(cuda)
+                for a in random_batch(rng, length))
+        check_case(f"k={k} random batch", window_rows(c, l, k), k,
+                   timed=k in (63, 201))
+        cases += 1
+        if k in (63, 201):
+            check_case(f"k={k} 40x batch",
+                       window_rows(*codes_40x(cuda, length), k), k,
+                       timed=True)
+            cases += 1
+    row = torch.from_numpy(rng.integers(0, 4, (1, ROW), dtype=np.uint8)
+                           ).to(cuda)
+    row_len = torch.tensor([ROW], dtype=torch.int32, device=cuda)
+    for k in (31, 63):
+        check_case(f"k={k} the (1, 2**20) row", window_rows(row, row_len, k),
+                   k)
+        cases += 1
+    for k in (31, 63):
+        q = keys64.limbs_per_kmer(k)
+
+        def keys_of(n, repeats=None, k=k, q=q):
+            """n random keys at k (drawn from *repeats* keys if given),
+            every 7th a sentinel when repeated."""
+            tops = [1 << (2 * nb) for nb in keys64.limb_bases(k)]
+            m = n if repeats is None else repeats
+            rows = np.stack([rng.integers(0, top, m, dtype=np.int64)
+                             for top in tops], axis=1)
+            if repeats is not None:
+                rows = rows[rng.integers(0, m, n)]
+                rows[::7] = keys64.SENTINEL
+            t = torch.from_numpy(rows).to(cuda)
+            return t[:, 0].contiguous() if q == 1 else t
+
+        for n in (0, 1, 8193):
+            check_case(f"k={k} N={n}", keys_of(n, repeats=3000), k)
+        check_case(f"k={k} one key", keys_of(1 << 20, repeats=1), k)
+        sentinels = keys_of(1 << 16)
+        sentinels.fill_(keys64.SENTINEL)
+        check_case(f"k={k} all sentinels", sentinels, k)
+        check_case(f"k={k} 2**20 distinct keys", keys_of(1 << 20), k)
+        cases += 6
+    print(f"[3c] K12 equal to its plain version in {cases} cases",
+          flush=True)
+
+
 def phase_7(reset_counts, read_counts):
     """Every ported experiment command once; returns the launch counts
     of the whole phase.  ``x_fused transposed`` and ``unroll2`` run
@@ -1105,6 +1228,7 @@ def phase_4c(cuda, reset_counts, read_counts):
                            ("words_to_keys", launches_disc),
                            ("probe_tally_wide_weighted", launches_disc),
                            ("seg_dedup_wide", launches_disc),
+                           ("sort_count", launches_disc),
                            ("probe_member_wide", launches_disc)):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the k=63 main path")
@@ -1348,7 +1472,7 @@ def phase_8(batches, cuda, card, reset_counts, read_counts, times):
                 if got_s[name] != n:
                     fail(f"8: k={k} S={s} scan: {name} launched "
                          f"{got_s[name]} times, not {n}")
-            for name in (extract_name, "route"):
+            for name in (extract_name, "route", "sort_count"):
                 if got_c[name] != s:
                     fail(f"8: k={k} S={s} sharded_count: {name} launched "
                          f"{got_c[name]} times, not {s}")
@@ -1538,6 +1662,138 @@ def phase_8_stream_count(batches, lens, cuda, card):
               f"result: reads/s {line}; equal ({card})", flush=True)
 
 
+STREAM_SPLIT_FLOOR = 1 << 21  # a merge floor the 16 batches cross
+
+
+def stream_split(k, batches, floor, sort_count, cuda):
+    """The engine's stream count (``StreamCounter(k, device=cuda)``)
+    over *batches*, its feed taken apart step by step, with the merge
+    floor *floor* and the device sort-count *sort_count(flat, k)*.
+    Returns ({step: [ms a batch]}, [(merge ms, rows merged)], result ms,
+    conversion ms, the result)."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.ops import extract
+    from kmer_denovo_filter_tpu_torch.ops import keys as keys64
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+    wide = k > keys64.NARROW_K
+    extract_fn = (extract.extract_canonical_wide if wide
+                  else extract.extract_canonical)
+    lens = np.full(B, batches[0].shape[1], np.int32)
+    sc = eng.StreamCounter(k, device=cuda)
+    sc._merge_floor = floor
+    merges = []
+    consolidate = sc._consolidate
+
+    def timed_consolidate():
+        rows = sum(c[0].shape[0] for c in sc._chunks) + (
+            sc._merged[0].shape[0] if sc._merged is not None else 0)
+        t = time.perf_counter()
+        consolidate()
+        merges.append(((time.perf_counter() - t) * 1e3, rows))
+
+    sc._consolidate = timed_consolidate
+    steps = {name: [] for name in ("upload", "K1", "sort_count", "wall",
+                                   "dtoh", "add_chunk")}
+
+    def clock(name, run):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        steps[name].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for c in batches:
+        codes, lengths = clock("upload", lambda: eng._to_device(c, lens,
+                                                                cuda))
+        steps["K1"].append(device_ms(lambda: extract_fn(codes, lengths, k),
+                                     reps=3))
+        win = extract_fn(codes, lengths, k)
+        flat = win.flatten(0, 1) if wide else win.reshape(-1)
+        steps["sort_count"].append(device_ms(lambda: sort_count(flat, k),
+                                             reps=3))
+        uk, counts = clock("wall", lambda: sort_count(flat, k))
+        uk, counts = clock("dtoh", lambda: (uk.cpu().numpy(),
+                                            counts.cpu().numpy()))
+        n_merges = len(merges)
+        clock("add_chunk", lambda: sc._add_chunk(
+            uk if wide else uk[:, None], counts))
+        steps["add_chunk"][-1] -= sum(ms for ms, _ in merges[n_merges:])
+        del codes, lengths, win, flat
+    t = time.perf_counter()
+    result = sc.result()
+    result_ms = (time.perf_counter() - t) * 1e3
+    merged = sc._merged[0]
+    t = time.perf_counter()
+    if wide:
+        keys64.limbs_to_words(merged, k)
+    else:
+        keys64.keys64_to_words(merged[:, 0], k)
+    convert_ms = (time.perf_counter() - t) * 1e3
+    return steps, merges, result_ms, convert_ms, result
+
+
+def phase_8_stream_split(genome, batches, cuda, card, forms):
+    """The stream count's split, step by step a batch, at k = 31 and 63
+    (the phase-5 batches) and k = 201 (3 batches of 256 bp): the
+    pageable upload (host wall), K1 / K1w and the device sort-count
+    (``ops.timing.device_ms``), one sort-count call between two syncs
+    (host wall: the device work and the sync that reads its size), the
+    pageable DtoH of the unique rows and counts, ``_add_chunk`` (host,
+    merges apart), each ``_consolidate`` (host ms and rows merged) and
+    ``result()`` with its conversion to words timed alone; beside it the
+    engine's own loop (``StreamCounter.feed`` batch by batch, then
+    ``result()``), reads/s.  At the default merge floor
+    (``KDF_MERGE_ROWS``, 2**24 rows) and, where the batches do not
+    cross it, at :data:`STREAM_SPLIT_FLOOR`.  *forms*: {label:
+    sort_count(flat, k)}; every form's result must equal the engine's."""
+    from kmer_denovo_filter_tpu_torch import engine as eng
+    rng = np.random.default_rng(201)
+    sets = {31: batches, 63: batches,
+            201: [synth_reads(rng, genome, B, L_K201)
+                  for _ in range(WIDE_BATCHES[201])]}
+    for k, batches_k in sets.items():
+        lens = np.full(B, batches_k[0].shape[1], np.int32)
+        n_reads = len(batches_k) * B
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sc = eng.StreamCounter(k, device=cuda)
+        for c in batches_k:
+            sc.feed(c, lens)
+        want = sc.result()
+        engine_rate = n_reads / (time.perf_counter() - t)
+        del sc
+        floors = [1 << 24]
+        for floor in floors:
+            for label, sort_count in forms.items():
+                steps, merges, result_ms, convert_ms, got = stream_split(
+                    k, batches_k, floor, sort_count, cuda)
+                if not (np.array_equal(got[0], want[0])
+                        and np.array_equal(got[1], want[1])):
+                    fail(f"8: the stream split k={k} {label} differs from "
+                         "StreamCounter")
+                if not merges[:-1] and len(floors) == 1:
+                    floors.append(STREAM_SPLIT_FLOOR)
+                total = (sum(sum(v) for name, v in steps.items()
+                             if name not in ("K1", "sort_count"))
+                         + sum(ms for ms, _ in merges[:-1]) + result_ms)
+                per = {name: sum(v) / len(v) for name, v in steps.items()}
+                feed_merges = [(round(ms, 3), r) for ms, r in merges[:-1]]
+                print(f"[8] stream split k={k} {label}, {len(batches_k)} "
+                      f"batches, floor {floor}: ms a batch upload "
+                      f"{per['upload']:.4f}, K1 {per['K1']:.4f}, device "
+                      f"sort-count {per['sort_count']:.4f}, one call with "
+                      f"its sync {per['wall']:.4f}, DtoH {per['dtoh']:.4f}, "
+                      f"_add_chunk {per['add_chunk']:.4f}; merges in the "
+                      f"feed (ms, rows) {feed_merges}; "
+                      f"result() {result_ms:.3f} ms (its merge of "
+                      f"{merges[-1][1]} rows {merges[-1][0]:.3f}, words "
+                      f"{convert_ms:.3f}); {got[0].shape[0]} keys; the "
+                      f"split's host wall {total:.3f} ms; the engine's "
+                      f"loop {engine_rate / 1e6:.4f}M reads/s ({card})",
+                      flush=True)
+
+
 def phase_8_build(codes, lens, rng, cuda, card):
     """The index's build against the table's size: one device and the
     sharded index at S = 4 on the card, k = 31 up to 2**24 keys and
@@ -1631,7 +1887,8 @@ def phase_8b(batches, cuda, reset_counts, read_counts):
         multihost.shutdown()
     if torch.distributed.is_initialized():
         fail("8b: the process group outlived destroy_process_group")
-    for name in ("extract_canonical", "extract_canonical_wide", "route"):
+    for name in ("extract_canonical", "extract_canonical_wide", "route",
+                 "sort_count"):
         if launches[name] <= 0:
             fail(f"8b: kernel {name} was not launched")
     print(f"[8b] one-process NCCL group: sum_aligned, "
@@ -1812,6 +2069,7 @@ def main():
         probe,
         route,
         segsort,
+        sortcount,
     )
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import directory as tdir
@@ -1835,6 +2093,7 @@ def main():
                 "seg_dedup_wide": (segsort, "dedup_wide_launches"),
                 "route": (route, "launches"),
                 "words_to_keys": (convert, "launches"),
+                "sort_count": (sortcount, "launches"),
                 # K1 cut at a stage (the xmicro probes); not in the JSON
                 "extract_canonical_stage": (extract, "stage_launches")}
 
@@ -2015,6 +2274,9 @@ def main():
     # ── 3r. K10 and K11 against their plain versions ───────────────
     phase_3r(rng, cuda, check, times)
 
+    # ── 3c. K12 against its plain version ──────────────────────────
+    phase_3c(rng, codes, lengths, cuda, check, times)
+
     # ── 4. main path, VCF mode: kmer-denovo-torch on the GIAB trio ──
     giab = os.path.join(REPO, "tests", "data", "giab")
     goldens = os.path.join(REPO, "tests", "goldens")
@@ -2091,7 +2353,8 @@ def main():
     finally:
         shutil.rmtree(out, ignore_errors=True)
     for name in ("extract_canonical", "seg_dedup", "probe_tally_weighted",
-                 "probe_member", "build_directory", "words_to_keys"):
+                 "probe_member", "build_directory", "words_to_keys",
+                 "sort_count"):
         if launches_disc[name] <= 0:
             fail(f"kernel {name} was not launched on the discovery path")
     if sorted(os.listdir(giab)) != giab_files:
@@ -2291,6 +2554,13 @@ def main():
     launches_8 = phase_8(batches, cuda, card, reset_counts, read_counts,
                          times)
     launches_8b = phase_8b(batches, cuda, reset_counts, read_counts)
+    phase_8_stream_split(genome, batches, cuda, card, {
+        "plain (the parent's step)": lambda flat, k: (
+            dev.sort_count_wide(flat) if flat.dim() == 2
+            else dev.sort_count(flat)),
+        "K12": lambda flat, k: (
+            sortcount.sort_count_wide(flat, k) if flat.dim() == 2
+            else sortcount.sort_count(flat, k))})
     del batches
 
     # ── 7. the ported experiment commands ─────────────────────────
@@ -2325,8 +2595,9 @@ def main():
                  "probe_tally_wide_weighted", "probe_member_wide",
                  "seg_dedup_wide"):
         launches[name] = sum(run[name] for run in launches_wide)
-    # the directory and K11: narrow tables in 4 and 4b, wide ones in 4c
-    for name in ("build_directory", "words_to_keys"):
+    # the directory and K11: narrow tables in 4 and 4b, wide ones in 4c;
+    # K12: the child count of 4b (k = 31) and 4c (k = 63)
+    for name in ("build_directory", "words_to_keys", "sort_count"):
         launches[name] += sum(run[name] for run in launches_wide)
     # K10's path is the sharded engine: its launches in 8 and 8b
     launches["route"] = launches_8["route"] + launches_8b["route"]
@@ -2420,6 +2691,9 @@ def main():
             "bound_ms": lim[0], "bound_by": lim[1],
             "library_ms": library_ms})
     route_ms, route_plain, route_lib, route_lim = times[("route", 31, 4)]
+    # K12 on the 40x batch at k = 31, the call with its sync
+    k12_ms, k12_plain, k12_lib, k12_lim, _launch_ms = times[(
+        "sort_count", "k=31 40x batch")]
     k11_ms, k11_plain, k11_lim, _upload = times[("words_to_keys", 31)]
     report["kernels"] += [
         {"name": "route", "route": "cuda",
@@ -2435,7 +2709,14 @@ def main():
          "launches": launches["words_to_keys"],
          "max_abs_err": err["words_to_keys"], "ms": k11_ms,
          "plain_ms": k11_plain, "bound_ms": k11_lim[0],
-         "bound_by": k11_lim[1], "library_ms": None}]
+         "bound_by": k11_lim[1], "library_ms": None},
+        {"name": "sort_count", "route": "cuda",
+         "source": "kmer_denovo_filter_tpu_torch/csrc/sort_count.cu",
+         "replaces": "kmer_denovo_filter_tpu/ops/device.py:121",
+         "launches": launches["sort_count"],
+         "max_abs_err": err["sort_count"], "ms": k12_ms,
+         "plain_ms": k12_plain, "bound_ms": k12_lim[0],
+         "bound_by": k12_lim[1], "library_ms": k12_lib}]
     for entry in report["kernels"]:
         entry["launches_by_phase"] = {
             phase: sum(run.get(entry["name"], 0) for run in runs)

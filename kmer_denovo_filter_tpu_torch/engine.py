@@ -2,26 +2,27 @@
 
 Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
 
-* :class:`KmerIndex` (:175) — the sorted canonical k-mer table, held on
+* :class:`KmerIndex` (:179) — the sorted canonical k-mer table, held on
   the device as one int64 key (or one row of int64 limbs) per k-mer
   (:mod:`.ops.keys`), with its prefix directory on the card (over limb
   0 for k > 31; :mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
-* :class:`HostKmerIndex` (:237) and :class:`HostFilteredCounter` (:574)
+* :class:`HostKmerIndex` (:241) and :class:`HostFilteredCounter` (:579)
   — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
   host C++ hash or a numpy search (a table on a CUDA device never goes
   to the host);
-* :func:`make_membership_index` (:375) — that gate, and the sharded
+* :func:`make_membership_index` (:379) — that gate, and the sharded
   index for a CUDA table one card cannot hold;
-* :class:`StreamCounter` (:396) — ``jellyfish count -C``: K1 window keys,
-  a device sort-count per batch, host merge of the per-batch uniques;
-* :class:`FilteredCounter` (:524) — ``jellyfish count -C --if``: a
+* :class:`StreamCounter` (:400) — ``jellyfish count -C``: K1 window keys,
+  a device sort-count per batch (K12), host merge of the per-batch
+  uniques;
+* :class:`FilteredCounter` (:529) — ``jellyfish count -C --if``: a
   per-table-row tally, K1 → K2 (VCF mode, :func:`make_filtered_counter`)
   or K1 → K9d segment dedup → K3 (discovery,
   :func:`make_parent_filter_counter`);
 * :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
-  (:657, :669) — the anchoring scan, K1 → K4.
+  (:662, :674) — the anchoring scan, K1 → K4.
 
 Host-facing keys stay the JAX package's (M, W) uint32 words, so the
 pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
@@ -54,7 +55,6 @@ import numpy as np
 import torch
 
 from kmer_denovo_filter_tpu_torch.htsio import native
-from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
@@ -79,6 +79,10 @@ from kmer_denovo_filter_tpu_torch.ops.probe import (
     probe_tally_weighted,
 )
 from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup, seg_dedup_wide
+from kmer_denovo_filter_tpu_torch.ops.sortcount import (
+    sort_count,
+    sort_count_wide,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -396,13 +400,14 @@ def make_membership_index(keys_np, k, counts_np=None, *, device):
 class StreamCounter:
     """Canonical k-mer counting over streamed (codes, lengths) batches.
 
-    Each batch: K1 (K1w) window keys → device sort-count → host
-    (keys, counts) chunk.  The chunks consolidate progressively exactly
-    as in the reference (engine.py:358–389): whenever the pending chunks
-    hold at least as many rows as the consolidated array (and at least
-    ``KDF_MERGE_ROWS``), everything merges by ``enc.unique_with_counts``
-    — here over (N, Q) int64 limb rows (Q = 1 for k <= 31), converted
-    to words in :meth:`result`.
+    Each batch: K1 (K1w) window keys → K12 sort-count on the device
+    (:mod:`.ops.sortcount`: K9d / K9dw, a radix sort, one host sync) →
+    host (keys, counts) chunk.  The chunks consolidate progressively
+    exactly as in the reference (engine.py:358–389): whenever the pending
+    chunks hold at least as many rows as the consolidated array (and at
+    least ``KDF_MERGE_ROWS``), everything merges by
+    ``enc.unique_with_counts`` — here over (N, Q) int64 limb rows (Q = 1
+    for k <= 31), converted to words in :meth:`result`.
     """
 
     def __init__(self, k, *, device):
@@ -435,10 +440,10 @@ class StreamCounter:
         if win is None:
             return
         if win.dim() == 3:
-            uk, counts = dev.sort_count_wide(win.flatten(0, 1))
+            uk, counts = sort_count_wide(win.flatten(0, 1), self.k)
             uk = uk.cpu().numpy()
         else:
-            uk, counts = dev.sort_count(win.reshape(-1))
+            uk, counts = sort_count(win.reshape(-1), self.k)
             uk = uk.cpu().numpy()[:, None]
         self._add_chunk(uk, counts.cpu().numpy())
 

@@ -44,7 +44,7 @@ so two checkouts compare under one timer::
         [--root CHECKOUT] [--tag NAME] [--kernels K1,K3,...]
 
 ``--kernels`` keeps only the named groups (K1, K1w, K2, K3, K4, K7, K8,
-K9, K9d, K9dw, step, wstep, dir, K10, K11; default all).
+K9, K9d, K9dw, step, wstep, dir, K10, K11, K12; default all).
 
 K10 (where the checkout has ``ops/route.py``) routes the k = 31 and
 k = 63 keys of the random batch to S = 1, 2 and 4 shards; ``K10 route``
@@ -54,7 +54,12 @@ parent's ``_dispatch``: hash, stable argsort, bincount).  K11 (where the
 checkout has ``ops/convert.py``) converts 2**20, 2**22 and 2**24 words on
 the card at k = 31 and 63; ``K11 keys`` times the checkout's
 ``engine._key_tensor`` of the host words to keys on the card (the
-parent's: numpy on the host, then the copy up).
+parent's: numpy on the host, then the copy up).  K12 (where the
+checkout has ``ops/sortcount.py``) sort-counts the window keys of the
+random and the 40x batch at k = 31, 63 and 201, the call with its host
+sync; ``K12 plain`` times the plain version on the same keys
+(``torch.unique``, or Q stable sorts for rows), the parent's device step
+of ``StreamCounter.feed``.
 
 Run it as a file: *CHECKOUT* (default: the one that holds this file) goes
 first on ``sys.path`` and its package is imported.  Every output is
@@ -77,7 +82,7 @@ PROBE_MS = (4096, 262144, 1 << 20, 1 << 24)
 WIDE_MS = {63: (2048, 4096, 262144, 1 << 24), 201: (1024, 4096, 1 << 22)}
 GROUP, GROUP_B = 8, 4096
 GROUPS = ("K1", "K1w", "K2", "K3", "K4", "K7", "K8", "K9", "K9d", "K9dw",
-          "step", "wstep", "dir", "K10", "K11")
+          "step", "wstep", "dir", "K10", "K11", "K12")
 ROUTE_SHARDS = (1, 2, 4)
 K11_MS = (1 << 20, 1 << 22, 1 << 24)
 STEP_M = 1 << 24
@@ -432,6 +437,24 @@ def main(argv=None):
                 time_it("K11 keys", shape,
                         lambda: eng._key_tensor(words, k).to(cuda))
 
+    def k12(label, k, flat):
+        """K12 on the keys (rows) *flat*, where the checkout has it,
+        checked against its plain version, and the plain version."""
+        try:
+            from kmer_denovo_filter_tpu_torch.ops import sortcount
+        except ImportError:  # a checkout from before K12
+            sortcount = None
+        wide = flat.dim() == 2
+        plain = dev.sort_count_wide if wide else dev.sort_count
+        shape = f"k={k} {label}"
+        if sortcount is not None:
+            fn = sortcount.sort_count_wide if wide else sortcount.sort_count
+            for part, g, r in zip(("keys", "counts"), fn(flat, k),
+                                  plain(flat)):
+                check(f"K12 {shape} {part}", g, r)
+            time_it("K12", shape, lambda: fn(flat, k))
+        time_it("K12 plain", shape, lambda: plain(flat))
+
     def k9dw(label, k, flat):
         """K9dw on the (N, Q) rows *flat*, where the checkout has it,
         checked against its plain version; the whole-batch dedups."""
@@ -507,8 +530,9 @@ def main(argv=None):
     row = (torch.from_numpy(row_np).to(cuda),
            torch.tensor([ROW], dtype=torch.int32, device=cuda))
 
-    narrow = {"K1", "K2", "K3", "K4", "K9", "K9d", "step", "K10", "K11"}
-    wide = {"K1w", "K7", "K8", "K9dw", "wstep", "dir", "K10", "K11"}
+    narrow = {"K1", "K2", "K3", "K4", "K9", "K9d", "step", "K10", "K11",
+              "K12"}
+    wide = {"K1w", "K7", "K8", "K9dw", "wstep", "dir", "K10", "K11", "K12"}
     for k in (31, 33, 63, 127, 151, 201):
         if not wanted & (narrow if k <= 31 else wide):
             continue
@@ -545,6 +569,9 @@ def main(argv=None):
             k10(k, got.flatten(0, 1) if got.dim() == 3 else got.reshape(-1))
         if k in (31, 63) and "K11" in wanted:
             k11(k)
+        if k in (31, 63, 201) and "K12" in wanted:
+            k12("random", k,
+                got.flatten(0, 1) if got.dim() == 3 else got.reshape(-1))
         if k in WSTEP_M and "K9dw" in wanted:
             k9dw("random", k, got.flatten(0, 1))
         if k in WSTEP_M and "wstep" in wanted:
@@ -559,7 +586,10 @@ def main(argv=None):
                None)
     if "K9" in wanted:
         k9("40x", extract.extract_canonical(codes, lengths, 31).reshape(-1))
-    if wanted & {"K9dw", "wstep"}:
+    if "K12" in wanted:
+        k12("40x", 31,
+            extract.extract_canonical(codes, lengths, 31).reshape(-1))
+    if wanted & {"K9dw", "wstep", "K12"}:
         codes_256 = torch.from_numpy(
             synth_reads(rng_40x, genome, B, L_K201)).to(cuda)
         lengths_256 = torch.full((B,), L_K201, dtype=torch.int32,
@@ -571,6 +601,9 @@ def main(argv=None):
                     c, l, k).flatten(0, 1))
             if "wstep" in wanted:
                 wide_step("40x", k, c, l)
+            if "K12" in wanted:
+                k12("40x", k,
+                    extract.extract_canonical_wide(c, l, k).flatten(0, 1))
     print(json.dumps({"timer_ab": args.tag, "rows": rows}), flush=True)
 
 

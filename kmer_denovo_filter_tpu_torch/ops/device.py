@@ -6,11 +6,12 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.ops.device`
 ``small_tally_step`` :337, ``small_tally_steps`` :351,
 ``small_scan_hits_step`` :368, ``lookup_sorted`` :657).  They run on
 any device: the kernel wrappers (:mod:`.extract`, :mod:`.probe`,
-:mod:`.member`, :mod:`.segsort`) use them for CPU tensors, the CPU
-tests hold them against the JAX functions, and ``chip_smoke.py`` holds
-the CUDA kernels against them on the card.  :func:`sort_count` and
-:func:`dedup_windows` are no kernel's plain version: the engine calls
-them on every device.
+:mod:`.member`, :mod:`.segsort`, :mod:`.sortcount`) use them for CPU
+tensors, the CPU tests hold them against the JAX functions, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
+:func:`dedup_windows` is no kernel's plain version: the whole-batch
+dedup form of the experiments (``BatchDedupCounter``) calls it on every
+device.
 
 Keys are the right-aligned int64 form of :mod:`.keys`; invalid windows
 hold :data:`~.keys.SENTINEL`, which is never found and never tallied.
@@ -84,7 +85,8 @@ def _valid_windows(bad, lengths, k):
 def sort_count(flat):
     """Distinct live keys of a flat (N,) int64 window stream, ascending,
     and their int64 counts; the sentinel is dropped (JAX ``sort_count``
-    plus the StreamCounter's sentinel mask, engine.py:381)."""
+    plus the StreamCounter's sentinel mask, engine.py:381).  The plain
+    version of kernel K12 (``sortcount.sort_count``)."""
     keys, counts = dedup_windows(flat)
     if keys.numel() and bool(keys[-1] == SENTINEL):
         keys, counts = keys[:-1], counts[:-1]
@@ -339,7 +341,9 @@ def segment_runs_wide(rows):
 def sort_count_wide(flat):
     """Distinct live rows of a flat (N, Q) window stream, ascending,
     and their int64 counts; the sentinel row is dropped (JAX
-    ``sort_count`` for W >= 3 plus the StreamCounter's sentinel mask)."""
+    ``sort_count`` for W >= 3 plus the StreamCounter's sentinel mask).
+    The plain version of kernel K12 on rows
+    (``sortcount.sort_count_wide``)."""
     keys, counts = dedup_windows_wide(flat)
     if keys.shape[0] and bool(keys[-1, 0] == SENTINEL):
         keys, counts = keys[:-1], counts[:-1]

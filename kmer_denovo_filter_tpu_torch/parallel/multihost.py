@@ -35,10 +35,13 @@ import torch
 import torch.distributed as dist
 
 from kmer_denovo_filter_tpu_torch import engine as eng
-from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.route import route
+from kmer_denovo_filter_tpu_torch.ops.sortcount import (
+    sort_count,
+    sort_count_wide,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -340,10 +343,11 @@ def sharded_count_multihost(codes, lengths, k, per_process=False,
     k > 31) on *device* (by default the device it joined with, else
     CUDA), routes every live key to its owner process
     (``all_to_all_single`` with variable splits: NCCL on the card, gloo
-    on the CPU), and sort-counts what it receives, as ``StreamCounter``
-    does.  With ``per_process=True`` it returns only its own disjoint
-    shard (sorted (N, W) uint32 keys, int64 counts); otherwise the
-    shards gather on the host to the global result on every process.
+    on the CPU), and sort-counts what it receives (K12 on the card), as
+    ``StreamCounter`` does.  With ``per_process=True`` it returns only
+    its own disjoint shard (sorted (N, W) uint32 keys, int64 counts);
+    otherwise the shards gather on the host to the global result on
+    every process.
     """
     device = eng.resolve_device(device or _RUNTIME.get("device", "cuda"))
     win = eng._window_keys(codes, lengths, k, device)
@@ -355,8 +359,8 @@ def sharded_count_multihost(codes, lengths, k, per_process=False,
                 != keys64.SENTINEL]
     if joined():
         live = _exchange(live)
-    uk, counts = (dev.sort_count_wide(live) if live.dim() == 2
-                  else dev.sort_count(live))
+    uk, counts = (sort_count_wide(live, k) if live.dim() == 2
+                  else sort_count(live, k))
     counts = counts.cpu().numpy()
     words = (keys64.limbs_to_words(uk, k) if k > keys64.NARROW_K
              else keys64.keys64_to_words(uk, k))

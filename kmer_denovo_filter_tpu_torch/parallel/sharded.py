@@ -20,7 +20,7 @@ exactly one shard:
 * on the keys it receives each shard runs the single-device kernels by
   the single-device rule: tally K2, or K9d -> K3 with ``dedup=True``
   (for k > 31 K7, or K9dw -> K7), membership K4 (K8), and the
-  ``StreamCounter`` sort-count for :func:`sharded_count`;
+  ``StreamCounter`` sort-count K12 for :func:`sharded_count`;
 * a copy between two cards is a plain ``Tensor.to``: PyTorch runs a
   copy between CUDA devices after the work queued on both devices'
   current streams, and their later work after it (``copy_`` in
@@ -39,11 +39,14 @@ import numpy as np
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
-from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.route import route
 from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup, seg_dedup_wide
+from kmer_denovo_filter_tpu_torch.ops.sortcount import (
+    sort_count,
+    sort_count_wide,
+)
 
 
 def make_mesh(n_devices=None):
@@ -316,8 +319,8 @@ def sharded_scan_reads_for_hits(counter_or_index, codes, lengths):
 def _count_rows(codes, lengths, k, mesh):
     """Sharded sort-count of one batch: (sorted unique (N, Q) int64 limb
     rows, int64 counts) on the host, Q = 1 for k <= 31.  Each owner
-    sort-counts the keys it received, as ``StreamCounter`` does; the
-    owners' results are disjoint."""
+    sort-counts the keys it received by K12, as ``StreamCounter`` does;
+    the owners' results are disjoint."""
     mesh = [_device(d) for d in mesh]
     batches = [keys for keys, _shape in _window_keys_by_source(
         codes, lengths, k, mesh) if keys is not None]
@@ -329,8 +332,8 @@ def _count_rows(codes, lengths, k, mesh):
             keys = torch.cat(parts)
             if keys.shape[0] == 0:
                 continue
-            uk, counts = (dev.sort_count_wide(keys) if keys.dim() == 2
-                          else dev.sort_count(keys))
+            uk, counts = (sort_count_wide(keys, k) if keys.dim() == 2
+                          else sort_count(keys, k))
             keys_out.append(uk.cpu().numpy().reshape(-1, q))
             counts_out.append(counts.cpu().numpy())
     keys = np.concatenate(keys_out)

@@ -1311,3 +1311,106 @@ def test_cuda_index_converts_its_words_on_the_card(cuda):
     assert np.array_equal(sharded.membership(words[::3]), ref)
     assert convert.launches == before + 2 + 3 + 1
     assert route.launches == routes + 3 + 1
+
+
+# ── K12, the stream count's sort-count ───────────────────────────────
+
+
+def _sort_count_matches_plain(rows, k):
+    """K12 on (n, Q) numpy rows at *k* against its plain version: one
+    launch (none for no row), exact keys and counts."""
+    from kmer_denovo_filter_tpu_torch.ops import sortcount
+    from tests.test_torch_sort_count_model import as_tensor
+    flat = as_tensor(rows)
+    fn = sortcount.sort_count if flat.dim() == 1 else sortcount.sort_count_wide
+    before = sortcount.launches
+    got = fn(flat.cuda(), k)
+    torch.cuda.synchronize()
+    assert sortcount.launches == before + int(rows.shape[0] > 0)
+    want = fn(flat, k)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("k", [15, 21, 31, 33, 63, 127, 201, 207])
+def test_sort_count_kernel_matches_plain(cuda, k):
+    """Every input of the CPU tests (reads, a duplicated batch, one key,
+    no row, one row, all sentinels, all distinct, N = 8,191..8,193, a
+    limb-0 tie) and a batch of 40 copies of 64 reads."""
+    from tests.test_torch_sort_count_model import cases, read_rows
+    for label, rows in cases(k).items():
+        _sort_count_matches_plain(rows, k)
+    _sort_count_matches_plain(read_rows(k, 3, copies=40), k)
+
+
+def test_sort_count_kernel_on_a_long_row(cuda):
+    """The K1 / K1w keys of one (1, 2**20) row at k = 31 and 63."""
+    rng = np.random.default_rng(5)
+    row = torch.from_numpy(rng.integers(0, 4, (1, 1 << 20), dtype=np.uint8))
+    length = torch.tensor([1 << 20], dtype=torch.int32)
+    for k in (31, 63):
+        win = (extract.extract_canonical(row.cuda(), length.cuda(), k)
+               if k == 31 else extract.extract_canonical_wide(
+                   row.cuda(), length.cuda(), k))
+        _sort_count_matches_plain(win.reshape(-1, keys64.limbs_per_kmer(k))
+                                  .cpu().numpy(), k)
+
+
+def test_sort_count_syncs_once(cuda):
+    """A K12 call makes one host sync: the read of its distinct count."""
+    import warnings
+    from kmer_denovo_filter_tpu_torch.ops import sortcount
+    codes, lengths = (t.to(cuda) for t in _batch(11))
+    flat = extract.extract_canonical(codes, lengths, 31).reshape(-1)
+    wide = extract.extract_canonical_wide(codes, lengths, 63).flatten(0, 1)
+    for run in (lambda: sortcount.sort_count(flat, 31),
+                lambda: sortcount.sort_count_wide(wide, 63)):
+        run()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in caught]
+
+
+def test_cuda_stream_counts_use_no_library_sort(cuda, monkeypatch):
+    """StreamCounter.feed, the sharded count and the multi-host count
+    (no group) launch K12 on the card and call no torch.unique,
+    torch.sort or torch.argsort; their results equal the CPU's."""
+    from kmer_denovo_filter_tpu_torch.ops import sortcount
+    from kmer_denovo_filter_tpu_torch.parallel import multihost
+    from kmer_denovo_filter_tpu_torch.parallel import sharded_count
+    codes, lengths = (t.numpy() for t in _batch(13))
+    want = {}
+    for k in (31, 63):
+        sc = eng.StreamCounter(k, device="cpu")
+        sc.feed(codes, lengths)
+        want[k] = sc.result()
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a library sort on the card path")
+
+    for name in ("unique", "sort", "argsort"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    for k in (31, 63):
+        before = sortcount.launches
+        sc = eng.StreamCounter(k, device=cuda)
+        sc.feed(codes, lengths)
+        got = sc.result()
+        assert sortcount.launches == before + 1
+        assert all(np.array_equal(g, w) for g, w in zip(got, want[k]))
+        mesh = [torch.device("cuda", 0)] * 2
+        got = sharded_count(codes, lengths, k, mesh)
+        assert sortcount.launches == before + 3
+        assert all(np.array_equal(g, w) for g, w in zip(got, want[k]))
+        got = multihost.sharded_count_multihost(codes, lengths, k,
+                                                device=cuda)
+        assert sortcount.launches == before + 4
+        assert all(np.array_equal(g, w) for g, w in zip(got, want[k]))

@@ -38,7 +38,7 @@ def test_port_modules_import_no_jax():
     assert bad == ""
     for name in ("parallel", "parallel.sharded", "parallel.multihost",
                  "profiling", "experiments.multi_card", "entry",
-                 "ops.route", "ops.convert"):
+                 "ops.route", "ops.convert", "ops.sortcount"):
         assert f"kmer_denovo_filter_tpu_torch.{name}" in names.split(","), name
 
 
