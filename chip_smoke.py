@@ -84,15 +84,17 @@ any failure exits non-zero before the result line:
    storage, and no row), timed at 2**24 keys, k = 31 and 63, beside the
    words' pageable upload.  Exact.
 3c. K12 (``sortcount.sort_count`` / ``sort_count_wide``, the stream
-   count's sort-count: K9d or K9dw, then a stable radix sort and a run
-   combine) against its plain version (``torch.unique``; Q stable
-   sorts): the phase-3 random batch and a 40x batch at k = 15 and 31,
-   random batches at k = 33, 63, 127, 201, 207 (256 bp from k = 201) and
-   40x batches at k = 63 and 201, the (1, 2**20) row at k = 31 and 63,
-   N = 0, 1 and 8,193, one key repeated, all sentinels, 2**20 distinct
-   keys.  Timed at k = 31, 63 and 201 (the call with its one sync, and
-   its launches alone) beside the plain version and ``torch.unique``
-   (``dim=0`` for rows).  Exact.
+   count's sort-count: K9d or K9dw, then a merge tree over their sorted
+   segments and a run combine) against its plain version
+   (``torch.unique``; Q stable sorts): the phase-3 random batch and a
+   40x batch at k = 15 and 31, random batches at k = 33, 63, 127, 201,
+   207 (256 bp from k = 201) and 40x batches at k = 63 and 201, the (1,
+   2**20) row at k = 31 and 63, N = 0, 1 and 8,193, one key repeated,
+   all sentinels, 2**20 distinct keys; at k = 31, 63 and 201 one
+   segment, S = 3 and 17, one read repeated, 40 copies of a batch.
+   Timed at k = 31, 63 and 201 (the call with its one sync, its
+   launches alone and K9d's / K9dw's share) beside the plain version
+   and ``torch.unique`` (``dim=0`` for rows).  Exact.
 4c. Main path, wide: ``kmer-denovo-torch`` and ``kmer-discovery-torch``
    with ``--kmer-size 63`` on the GIAB trio, each on a copy of
    ``mini_ref.fa`` (Module 0 counts the FASTA at k > 31 and caches it
@@ -952,12 +954,16 @@ def phase_3c(rng, codes, lengths, cuda, check, times):
     k = 15 and 31; random batches at k = 33, 63, 127, 201 and 207 (256
     bp from k = 201) and 40x batches at k = 63 and 201; the (1, 2**20)
     contig row at k = 31 and 63; N = 0, 1 and 8,193 random keys; one key
-    repeated; all sentinels; 2**20 distinct keys (K9d's hash gives up).
-    Timed on the 40x and random batches at k = 31, 63 and 201: the call
-    (its one sync included) and its launches alone (no sync), beside the
-    plain version and ``torch.unique`` (``dim=0`` for rows)."""
+    repeated; all sentinels; 2**20 distinct keys (K9d's hash gives up);
+    the shapes of the merge tree at k = 31, 63 and 201: one segment (S =
+    1), odd S (3), S = 2**4 + 1, one read repeated over a batch (its keys
+    in every segment) and 40 copies of one batch.  Timed on the 40x and
+    random batches at k = 31, 63 and 201: the call (its one sync
+    included), its launches alone (no sync) and K9d's (K9dw's) share of
+    them, beside the plain version and ``torch.unique`` (``dim=0`` for
+    rows)."""
     from kmer_denovo_filter_tpu_torch.ops import device as dev
-    from kmer_denovo_filter_tpu_torch.ops import extract, sortcount
+    from kmer_denovo_filter_tpu_torch.ops import extract, segsort, sortcount
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
 
@@ -979,6 +985,8 @@ def phase_3c(rng, codes, lengths, cuda, check, times):
         distinct = ref[0].shape[0]
         ms = device_ms(lambda: fn(flat, k))
         launch_ms = device_ms(lambda: sortcount.launch(flat, k))
+        dedup = segsort.seg_dedup_wide if wide else segsort.seg_dedup
+        dedup_ms = device_ms(lambda: dedup(flat))
         plain_ms = device_ms(lambda: plain(flat), reps=5)
         unique = ((lambda: torch.unique(flat, dim=0, sorted=True,
                                         return_counts=True)) if wide else
@@ -990,8 +998,11 @@ def phase_3c(rng, codes, lengths, cuda, check, times):
         times[("sort_count", label)] = (ms, plain_ms, lib_ms, lim, launch_ms)
         print(f"[3c] K12 {label}: equal ({n} rows, {distinct} distinct); "
               f"the call {ms:.4f} ms, its launches alone {launch_ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, torch.unique {lib_ms:.4f} ms, "
-              f"bound {lim[0]:.4f} ms by {lim[1]}", flush=True)
+              f"ms, of which {'K9dw' if wide else 'K9d'} {dedup_ms:.4f} ms "
+              f"({dedup_ms / launch_ms:.3f} of the launches, "
+              f"{dedup_ms / ms:.3f} of the call), plain {plain_ms:.4f} ms, "
+              f"torch.unique {lib_ms:.4f} ms, bound {lim[0]:.4f} ms by "
+              f"{lim[1]}", flush=True)
 
     cases = 0
     for k in (15, 31):
@@ -1043,6 +1054,25 @@ def phase_3c(rng, codes, lengths, cuda, check, times):
         check_case(f"k={k} all sentinels", sentinels, k)
         check_case(f"k={k} 2**20 distinct keys", keys_of(1 << 20), k)
         cases += 6
+    segment = segsort.SEGMENT
+    for k in (31, 63, 201):
+        length = L_K201 if k >= 201 else L
+        c, l = (torch.from_numpy(a).to(cuda)
+                for a in random_batch(rng, length))
+        batch = window_rows(c, l, k)
+        # the merge tree's shapes: S = 1, S = 3, S = 2**4 + 1
+        for label, n in (("S=1", segment - 5), ("S=3", 3 * segment - 7),
+                         ("S=17", 16 * segment + 1)):
+            check_case(f"k={k} {label}", batch[:n].contiguous(), k)
+        # one read repeated (its keys in every segment), 40 copies of a
+        # batch of B / 40 reads
+        read = c[:1].expand(B, -1).contiguous()
+        full = torch.full((B,), length, dtype=torch.int32, device=cuda)
+        check_case(f"k={k} one read repeated", window_rows(read, full, k), k)
+        part = B // 40
+        copies = (c[:part].repeat(40, 1), l[:part].repeat(40))
+        check_case(f"k={k} 40 copies of a batch", window_rows(*copies, k), k)
+        cases += 5
     print(f"[3c] K12 equal to its plain version in {cases} cases",
           flush=True)
 

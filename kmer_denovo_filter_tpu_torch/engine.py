@@ -401,7 +401,8 @@ class StreamCounter:
     """Canonical k-mer counting over streamed (codes, lengths) batches.
 
     Each batch: K1 (K1w) window keys → K12 sort-count on the device
-    (:mod:`.ops.sortcount`: K9d / K9dw, a radix sort, one host sync) →
+    (:mod:`.ops.sortcount`: K9d / K9dw, a merge of their sorted segments,
+    one host sync) →
     host (keys, counts) chunk.  The chunks consolidate progressively
     exactly as in the reference (engine.py:358–389): whenever the pending
     chunks hold at least as many rows as the consolidated array (and at

@@ -148,9 +148,10 @@ def lib():
             so.kdf_route.restype = i32
             so.kdf_words_to_keys.argtypes = [ptr, i64, i32, i32, i32, ptr, ptr]
             so.kdf_words_to_keys.restype = i32
-            so.kdf_sort_count.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32,
-                                          i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                          ptr]
+            so.kdf_sort_count_aux.argtypes = [i32]
+            so.kdf_sort_count_aux.restype = i64
+            so.kdf_sort_count.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr,
+                                          ptr, ptr, ptr, ptr, ptr]
             so.kdf_sort_count.restype = i32
             so.kdf_cuda_error_string.argtypes = [i32]
             so.kdf_cuda_error_string.restype = ctypes.c_char_p

@@ -9,13 +9,13 @@ and ``StreamCounter.feed`` masks the sentinel run (engine.py:381).
 ascending with their int64 counts, the sentinel dropped.
 
 A CUDA tensor runs K12 (``csrc/sort_count.cu``) behind K9d (or K9dw for
-wide rows, :mod:`.segsort`): the batch's segment-local dedup, then a
-stable LSD radix sort of its live rows, an 8-bit digit a pass (K10's
-counting pass), the weights carried, and a combine of equal rows.  The
-passes of a limb stop at its top bit, 2 x its bases, so the wrappers
-take k.  The call syncs once, to read the number of distinct keys; the
-results are views of that many rows.  A CPU tensor runs the plain
-versions, :func:`.device.sort_count` and :func:`.device.sort_count_wide`
+wide rows, :mod:`.segsort`): the batch's segment-local dedup leaves S
+sorted runs in the segments' slots, and K12 merges them, a tree of
+ceil(log2 S) rounds of merge-path tiles, then sums the equal rows.  The
+wrappers take k and check that the keys have its limbs.  The call syncs
+once, to read the number of distinct keys; the results are views of
+that many rows.  A CPU tensor runs the plain versions,
+:func:`.device.sort_count` and :func:`.device.sort_count_wide`
 (``torch.unique``; Q stable ``torch.sort``s).  Both give the same
 tensors.
 """
@@ -27,46 +27,24 @@ from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops.keys import (
     MAX_K,
     check_k,
-    limb_bases,
     limbs_per_kmer,
 )
 
 # CUDA kernel launches since import (or since a caller reset them to 0)
 launches = 0
 
-# csrc/sort_count.cu's kDigitBits, kThreads and kMaxBlocks
-DIGIT_BITS = 8     # bits of the key a radix pass sorts by (256 bins)
-THREADS = 256      # rows a round of a K12 block
-MAX_BLOCKS = 512   # blocks a K12 launch splits its rows among
-# K9d's segments, 2**SEGMENT_SHIFT rows each: K12's first pass reads its
-# slots in place
+# K9d's segments, 2**SEGMENT_SHIFT rows each: K12's first round reads
+# their slots in place
 SEGMENT_SHIFT = segsort.SEGMENT.bit_length() - 1
 assert segsort.SEGMENT == 1 << SEGMENT_SHIFT
 
 
-def limb_bits(q, k):
-    """Key bits of each of the *q* limbs of a k-mer key, limb 0 first:
-    2 x its bases."""
+def _check_k(q, k):
+    """Raise unless *k* is a valid k whose keys have *q* limbs."""
     check_k(k)
     if limbs_per_kmer(k) != q:
         raise ValueError(f"k={k} keys have {limbs_per_kmer(k)} limbs, "
                          f"not {q}")
-    return [2 * nb for nb in limb_bases(k)]
-
-
-def passes(q, k):
-    """K12's radix passes over rows of *q* limbs at *k*, in order:
-    (limb, shift, digit bits), the last limb first, each limb from its
-    low digit up to its top bit."""
-    return [(j, shift, min(DIGIT_BITS, bits - shift))
-            for j, bits in reversed(list(enumerate(limb_bits(q, k))))
-            for shift in range(0, bits, DIGIT_BITS)]
-
-
-def plan(n_slots):
-    """Blocks of a K12 launch over *n_slots* rows: a round of
-    :data:`THREADS` rows or more each, at most :data:`MAX_BLOCKS`."""
-    return min(MAX_BLOCKS, -(-n_slots // THREADS))
 
 
 def sort_count(flat, k):
@@ -77,7 +55,7 @@ def sort_count(flat, k):
     if flat.dim() != 1 or flat.dtype != torch.int64:
         raise ValueError(f"expected (N,) int64 keys, got "
                          f"{tuple(flat.shape)} {flat.dtype}")
-    limb_bits(1, k)  # raises for a k whose keys are not one limb
+    _check_k(1, k)
     if flat.device.type == "cpu":
         return dev.sort_count(flat)
     return _distinct(*launch(flat, k))
@@ -94,7 +72,7 @@ def sort_count_wide(flat, k):
         raise ValueError(f"expected (N, Q) int64 rows with Q in "
                          f"2..{limbs_per_kmer(MAX_K)}, got "
                          f"{tuple(flat.shape)} {flat.dtype}")
-    limb_bits(flat.shape[1], k)  # raises for a k of another limb count
+    _check_k(flat.shape[1], k)
     if flat.device.type == "cpu":
         return dev.sort_count_wide(flat)
     return _distinct(*launch(flat.contiguous(), k))
@@ -123,22 +101,18 @@ def launch(flat, k):
         keys0, weights0, seg_counts = segsort.seg_dedup(flat)
     else:
         keys0, weights0, seg_counts = segsort.seg_dedup_wide(flat)
-    n_slots = weights0.numel()
-    blocks = plan(n_slots)
+    n_segments = seg_counts.shape[0]
     keys1 = torch.empty_like(keys0)
     weights1 = torch.empty_like(weights0)
-    counts = flat.new_empty(((1 << DIGIT_BITS) * blocks,))
-    totals = flat.new_empty((2 + (1 << DIGIT_BITS),))
-    keys_out = flat.new_empty((n_slots,) + flat.shape[1:])
-    counts_out = flat.new_empty((n_slots,))
+    aux = flat.new_empty((_cuda.lib().kdf_sort_count_aux(n_segments),))
+    keys_out = flat.new_empty((weights0.numel(),) + flat.shape[1:])
+    counts_out = flat.new_empty((weights0.numel(),))
     with torch.cuda.device(flat.device):
         err = _cuda.lib().kdf_sort_count(
             keys0.data_ptr(), weights0.data_ptr(), seg_counts.data_ptr(),
-            SEGMENT_SHIFT, n_slots, q, limb_bits(q, k)[-1], blocks,
-            keys1.data_ptr(),
-            weights1.data_ptr(), counts.data_ptr(), totals.data_ptr(),
-            keys_out.data_ptr(), counts_out.data_ptr(),
-            _cuda.stream_of(flat))
+            SEGMENT_SHIFT, n_segments, q, keys1.data_ptr(),
+            weights1.data_ptr(), aux.data_ptr(), keys_out.data_ptr(),
+            counts_out.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "sort_count")
     launches += 1
-    return keys_out, counts_out, totals
+    return keys_out, counts_out, aux[:2]

@@ -1336,11 +1336,29 @@ def _sort_count_matches_plain(rows, k):
 def test_sort_count_kernel_matches_plain(cuda, k):
     """Every input of the CPU tests (reads, a duplicated batch, one key,
     no row, one row, all sentinels, all distinct, N = 8,191..8,193, a
-    limb-0 tie) and a batch of 40 copies of 64 reads."""
-    from tests.test_torch_sort_count_model import cases, read_rows
-    for label, rows in cases(k).items():
+    limb-0 tie; the merge tree's S = 1, 3, 5 and 9, a key in every
+    segment, empty segments, one read repeated, a batch repeated) and a
+    batch of 40 copies of 24 reads."""
+    from tests.test_torch_sort_count_model import (
+        cases,
+        merge_cases,
+        read_rows,
+    )
+    for label, rows in {**cases(k), **merge_cases(k)}.items():
         _sort_count_matches_plain(rows, k)
     _sort_count_matches_plain(read_rows(k, 3, copies=40), k)
+
+
+@pytest.mark.parametrize("k", [31, 63, 201])
+def test_sort_count_kernel_on_many_segments(cuda, k):
+    """The merge tree at S = 2**7 + 1 and 2**9 (one key repeated, a key
+    in every segment; 2**22 rows of 1,000 keys) and on 2**20 random
+    keys (runs of ~7,400 rows, tiles inside one pair)."""
+    from tests.test_torch_sort_count_model import random_rows
+    q = keys64.limbs_per_kmer(k)
+    _sort_count_matches_plain(np.full((128 * 8192 + 1, q), 5, np.int64), k)
+    _sort_count_matches_plain(random_rows(1 << 22, k, 7, distinct=1000), k)
+    _sort_count_matches_plain(random_rows(1 << 20, k, 8), k)
 
 
 def test_sort_count_kernel_on_a_long_row(cuda):
