@@ -2087,17 +2087,14 @@ def phase_5c(rng, genome, batches_152, cuda, card):
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA GPU")
-    from kmer_denovo_filter_tpu_torch import cli, engine as eng
+    from kmer_denovo_filter_tpu_torch import cli, engine as eng, tracing
     from kmer_denovo_filter_tpu_torch.experiments.x_join_variants import (
         BatchDedupCounter,
     )
     from kmer_denovo_filter_tpu_torch.ops import (
         _cuda,
-        convert,
         extract,
-        member,
         probe,
-        route,
         segsort,
         sortcount,
     )
@@ -2108,32 +2105,10 @@ def main():
 
     cuda = torch.device("cuda", 0)
     sentinel = keys64.SENTINEL
-    counters = {"extract_canonical": (extract, "launches"),
-                "probe_tally": (probe, "launches"),
-                "probe_tally_weighted": (probe, "weighted_launches"),
-                "probe_member": (member, "launches"),
-                "build_directory": (tdir, "launches"),
-                "extract_canonical_wide": (extract, "wide_launches"),
-                "probe_tally_wide": (probe, "wide_launches"),
-                "probe_tally_wide_weighted": (probe,
-                                              "wide_weighted_launches"),
-                "probe_member_wide": (member, "wide_launches"),
-                "seg_sort": (segsort, "launches"),
-                "seg_dedup": (segsort, "dedup_launches"),
-                "seg_dedup_wide": (segsort, "dedup_wide_launches"),
-                "route": (route, "launches"),
-                "words_to_keys": (convert, "launches"),
-                "sort_count": (sortcount, "launches"),
-                # K1 cut at a stage (the xmicro probes); not in the JSON
-                "extract_canonical_stage": (extract, "stage_launches")}
-
-    def reset_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def read_counts():
-        return {name: getattr(mod, attr)
-                for name, (mod, attr) in counters.items()}
+    # every kernel's launch counter (tracing's launches.<kernel>); K1 cut
+    # at a stage (extract_canonical_stage, the xmicro probes) is not in
+    # the JSON
+    reset_counts, read_counts = tracing.reset, tracing.launches
 
     # ── 1. card ────────────────────────────────────────────────────
     card = subprocess.run(
@@ -2161,7 +2136,7 @@ def main():
     codes_np, lengths_np = random_batch(rng)
     codes = torch.from_numpy(codes_np).to(cuda)
     lengths = torch.from_numpy(lengths_np).to(cuda)
-    err = {name: 0.0 for name in counters}
+    err = {name: 0.0 for name in tracing.KERNELS}
     times = {}
 
     def check(name, got, ref, what):
@@ -2620,7 +2595,7 @@ def main():
     dir_ms, dir_plain, dir_lim, dir_lib = times[("build_directory", "random",
                                                  BIG_M)]
     launches = {name: launches_vcf[name] + launches_disc[name]
-                for name in counters}
+                for name in tracing.KERNELS}
     for name in ("extract_canonical_wide", "probe_tally_wide",
                  "probe_tally_wide_weighted", "probe_member_wide",
                  "seg_dedup_wide"):

@@ -2,27 +2,27 @@
 
 Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
 
-* :class:`KmerIndex` (:179) — the sorted canonical k-mer table, held on
+* :class:`KmerIndex` (:191) — the sorted canonical k-mer table, held on
   the device as one int64 key (or one row of int64 limbs) per k-mer
   (:mod:`.ops.keys`), with its prefix directory on the card (over limb
   0 for k > 31; :mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
-* :class:`HostKmerIndex` (:241) and :class:`HostFilteredCounter` (:579)
+* :class:`HostKmerIndex` (:263) and :class:`HostFilteredCounter` (:646)
   — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
   host C++ hash or a numpy search (a table on a CUDA device never goes
   to the host);
-* :func:`make_membership_index` (:379) — that gate, and the sharded
+* :func:`make_membership_index` (:401) — that gate, and the sharded
   index for a CUDA table one card cannot hold;
-* :class:`StreamCounter` (:400) — ``jellyfish count -C``: K1 window keys,
+* :class:`StreamCounter` (:422) — ``jellyfish count -C``: K1 window keys,
   a device sort-count per batch (K12), host merge of the per-batch
   uniques;
-* :class:`FilteredCounter` (:529) — ``jellyfish count -C --if``: a
+* :class:`FilteredCounter` (:560) — ``jellyfish count -C --if``: a
   per-table-row tally, K1 → K2 (VCF mode, :func:`make_filtered_counter`)
   or K1 → K9d segment dedup → K3 (discovery,
   :func:`make_parent_filter_counter`);
 * :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
-  (:662, :674) — the anchoring scan, K1 → K4.
+  (:729, :741) — the anchoring scan, K1 → K4.
 
 Host-facing keys stay the JAX package's (M, W) uint32 words, so the
 pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
@@ -36,7 +36,9 @@ The device is explicit: chosen at the entry point and passed to every
 table and counter.  With two or more local CUDA devices the factories
 below hand a table one card cannot hold, or every table under
 ``KDF_SHARDED=1``, to the sharded engine (:mod:`.parallel.sharded`,
-:func:`_shard_dispatch`); a CPU entry point keeps one device.
+:func:`_shard_dispatch`); a CPU entry point keeps one device.  The
+counters' and the index's steps open the spans of :mod:`.tracing` (off,
+a null context, unless tracing is on); :data:`.tracing.SPANS` lists them.
 
 The reference's ``pad_read_batch`` (engine.py:70) has no counterpart:
 it padded every batch to bound XLA's distinct compiled shapes, and the
@@ -54,6 +56,7 @@ import os
 import numpy as np
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.htsio import native
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
@@ -108,15 +111,24 @@ def _to_device(codes, lengths, device):
             .to(device))
 
 
+def _has_windows(codes, k):
+    """True when the (B, L) batch *codes* can hold a window of k."""
+    return codes.shape[0] > 0 and codes.shape[1] >= k
+
+
+def _extractor(k):
+    """K1, or K1w for k > 31: (codes, lengths, k) on the device → keys."""
+    return (extract_canonical if k <= keys64.NARROW_K
+            else extract_canonical_wide)
+
+
 def _window_keys(codes, lengths, k, device):
     """K1 (K1w) over one host batch: (B, L - k + 1) int64 keys
     ((B, L - k + 1, Q) limb rows for k > 31) on *device*, or None when
     the batch holds no window."""
-    if codes.shape[0] == 0 or codes.shape[1] < k:
+    if not _has_windows(codes, k):
         return None
-    extract = (extract_canonical if k <= keys64.NARROW_K
-               else extract_canonical_wide)
-    return extract(*_to_device(codes, lengths, device), k)
+    return _extractor(k)(*_to_device(codes, lengths, device), k)
 
 
 def _key_tensor(keys_np, k, device=CPU):
@@ -195,16 +207,26 @@ class KmerIndex:
         self.keys_np = keys_np
         self.counts_np = counts_np
         self.device = resolve_device(device)
-        # (M,) int64 keys, or (M, Q) limb rows for k > 31: on a card made
-        # there from the words (K11)
-        self.table = (_key_tensor(keys_np, k, self.device)
-                      if key_tensor is None else key_tensor.to(self.device))
-        self.directory = None
-        if self.device.type == "cuda":
-            # live rows (sentinel rows trail) and the last live key from
-            # the host words: no sync
-            self.directory = tdir.build_directory(self.table,
-                                                  *_live_rows(keys_np, k))
+        with tracing.span("index.build"):
+            # (M,) int64 keys, or (M, Q) limb rows for k > 31: on a card
+            # made there from the words (K11, :func:`_key_tensor`'s steps)
+            if key_tensor is not None:
+                self.table = key_tensor.to(self.device)
+            elif self.device.type == "cuda":
+                with tracing.span("index.upload"):
+                    words = words_tensor(keys_np).to(self.device)
+                with tracing.span("index.convert"):
+                    self.table = words_to_keys(words, k)
+            else:
+                with tracing.span("index.convert"):
+                    self.table = _key_tensor(keys_np, k)
+            self.directory = None
+            if self.device.type == "cuda":
+                # live rows (sentinel rows trail) and the last live key
+                # from the host words: no sync
+                with tracing.span("index.directory"):
+                    self.directory = tdir.build_directory(
+                        self.table, *_live_rows(keys_np, k))
 
     @classmethod
     def from_strings(cls, kmers, k, *, device):
@@ -426,13 +448,16 @@ class StreamCounter:
     def _consolidate(self):
         if not self._chunks:
             return
-        parts = self._chunks
-        if self._merged is not None:
-            parts = [self._merged] + parts
-        all_keys = np.concatenate([c[0] for c in parts], axis=0)
-        all_counts = np.concatenate([c[1] for c in parts], axis=0)
-        self._merged = enc.unique_with_counts(all_keys,
-                                              weights=all_counts)
+        if tracing.enabled():
+            tracing.count("count.merges")
+        with tracing.span("count.consolidate"):
+            parts = self._chunks
+            if self._merged is not None:
+                parts = [self._merged] + parts
+            all_keys = np.concatenate([c[0] for c in parts], axis=0)
+            all_counts = np.concatenate([c[1] for c in parts], axis=0)
+            self._merged = enc.unique_with_counts(all_keys,
+                                                  weights=all_counts)
         self._chunks = []
         self._pending_rows = 0
 
@@ -440,13 +465,17 @@ class StreamCounter:
         win = _window_keys(codes, lengths, self.k, self.device)
         if win is None:
             return
-        if win.dim() == 3:
-            uk, counts = sort_count_wide(win.flatten(0, 1), self.k)
+        with tracing.span("count.sort"):
+            if win.dim() == 3:
+                uk, counts = sort_count_wide(win.flatten(0, 1), self.k)
+            else:
+                uk, counts = sort_count(win.reshape(-1), self.k)
+        with tracing.span("count.dtoh"):
             uk = uk.cpu().numpy()
-        else:
-            uk, counts = sort_count(win.reshape(-1), self.k)
-            uk = uk.cpu().numpy()[:, None]
-        self._add_chunk(uk, counts.cpu().numpy())
+            if win.dim() != 3:
+                uk = uk[:, None]
+            counts = counts.cpu().numpy()
+        self._add_chunk(uk, counts)
 
     def _add_chunk(self, uk, counts):
         """Queue one batch's sorted unique (N, Q) rows and counts, and
@@ -483,9 +512,10 @@ class StreamCounter:
             return (np.zeros((0, self.w), dtype=np.uint32),
                     np.zeros(0, dtype=np.int64))
         keys, counts = self._merged
-        if self.k > keys64.NARROW_K:
-            return keys64.limbs_to_words(keys, self.k), counts
-        return keys64.keys64_to_words(keys[:, 0], self.k), counts
+        with tracing.span("count.result.words"):
+            if self.k > keys64.NARROW_K:
+                return keys64.limbs_to_words(keys, self.k), counts
+            return keys64.keys64_to_words(keys[:, 0], self.k), counts
 
     def to_index(self):
         keys, counts = self.result()
@@ -561,20 +591,56 @@ class FilteredCounter:
     def feed(self, codes, lengths):
         """Tally one (B, L) uint8 code batch with (B,) lengths.  The
         batch goes over unpadded; one narrower than k holds no window."""
-        win = _window_keys(codes, lengths, self.index.k, self.index.device)
-        if win is None:
-            return
-        flat = win.flatten(0, 1)
+        k = self.index.k
+        with tracing.span("filter.feed"):
+            batch = counts = None
+            if _has_windows(codes, k):
+                batch, counts = self._step(codes, lengths, k)
+            if tracing.enabled():
+                _count_batch(codes, lengths, k, batch, counts)
+
+    def _step(self, codes, lengths, k):
+        """The batch up, K1 (K1w), then the tally, through K9d (K9dw) in
+        the dedup form, all enqueued: (the batch on the device, the
+        dedup's per-segment counts or None)."""
+        with tracing.span("filter.feed.htod"):
+            batch = _to_device(codes, lengths, self.index.device)
+        with tracing.span("filter.feed.extract"):
+            flat = _extractor(k)(*batch, k).flatten(0, 1)
         if not self.dedup:
-            _tally(flat, self.index, self.acc)
-            return
+            with tracing.span("filter.feed.tally"):
+                _tally(flat, self.index, self.acc)
+            return batch, None
         dedup = seg_dedup_wide if flat.dim() == 2 else seg_dedup
-        keys, weights, counts = dedup(flat)
-        _tally(keys, self.index, self.acc, weights, counts)
+        with tracing.span("filter.feed.dedup"):
+            keys, weights, counts = dedup(flat)
+        with tracing.span("filter.feed.tally"):
+            _tally(keys, self.index, self.acc, weights, counts)
+        return batch, counts
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""
-        return self.acc.to("cpu", copy=True).numpy()
+        with tracing.span("filter.result"):
+            return self.acc.to("cpu", copy=True).numpy()
+
+
+def _count_batch(codes, lengths, k, batch, counts):
+    """The filter's counters of one host batch while tracing is on,
+    counted after its kernels are enqueued, so the card runs them while
+    the host counts: batches, reads, windows (the sum of max(0, length -
+    k + 1)), the bytes copied up and, in the dedup form, the distinct
+    keys K9d (K9dw) left in each segment, summed on the device."""
+    lengths = np.asarray(lengths)
+    tracing.count("filter.batches")
+    tracing.count("filter.reads", codes.shape[0])
+    tracing.count("filter.windows",
+                  int(np.maximum(lengths, k - 1).sum(dtype=np.int64))
+                  - (k - 1) * lengths.size)
+    if batch is not None:
+        tracing.count("filter.bytes_up",
+                      sum(t.numel() * t.element_size() for t in batch))
+    if counts is not None:
+        tracing.count_on_device("filter.distinct_keys", counts)
 
 
 class HostFilteredCounter:
@@ -684,25 +750,33 @@ def scan_reads_for_hits_many(index, batches):
     back per batch.  Returns a list of (B_i, L_i - k + 1) bool masks.
     """
     k = index.k
-    shapes = [(c.shape[0], max(0, c.shape[1] - k + 1)) for c, _ in batches]
-    lmax = max([c.shape[1] for c, _ in batches] + [k])
-    codes = np.full((sum(b for b, _ in shapes), lmax), 4, dtype=np.uint8)
-    lengths = np.concatenate(
-        [np.asarray(l, dtype=np.int32) for _, l in batches]
-        + [np.zeros(0, np.int32)])
-    row = 0
-    for c, _ in batches:
-        codes[row:row + c.shape[0], :c.shape[1]] = c
-        row += c.shape[0]
-    win = _window_keys(codes, lengths, k, index.device)
-    found = (np.zeros((codes.shape[0], lmax - k + 1), dtype=bool)
-             if win is None else
-             _member(win.flatten(0, 1), index)
-             .reshape(win.shape[:2]).cpu().numpy())
-    out, row = [], 0
-    for b, s in shapes:
-        out.append(found[row:row + b, :s])
-        row += b
+    batch = hits = None
+    with tracing.span("scan.stage"):
+        shapes = [(c.shape[0], max(0, c.shape[1] - k + 1))
+                  for c, _ in batches]
+        lmax = max([c.shape[1] for c, _ in batches] + [k])
+        codes = np.full((sum(b for b, _ in shapes), lmax), 4,
+                        dtype=np.uint8)
+        lengths = np.concatenate(
+            [np.asarray(l, dtype=np.int32) for _, l in batches]
+            + [np.zeros(0, np.int32)])
+        row = 0
+        for c, _ in batches:
+            codes[row:row + c.shape[0], :c.shape[1]] = c
+            row += c.shape[0]
+        if _has_windows(codes, k):
+            batch = _to_device(codes, lengths, index.device)
+    if batch is not None:
+        with tracing.span("scan.member"):
+            win = _extractor(k)(*batch, k)
+            hits = _member(win.flatten(0, 1), index).reshape(win.shape[:2])
+    with tracing.span("scan.mask_back"):
+        found = (np.zeros((codes.shape[0], lmax - k + 1), dtype=bool)
+                 if hits is None else hits.cpu().numpy())
+        out, row = [], 0
+        for b, s in shapes:
+            out.append(found[row:row + b, :s])
+            row += b
     return out
 
 

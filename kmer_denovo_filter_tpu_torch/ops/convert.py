@@ -19,6 +19,7 @@ uint32 arithmetic): :func:`words_tensor` makes one from host words.
 import numpy as np
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops.keys import (
@@ -27,9 +28,6 @@ from kmer_denovo_filter_tpu_torch.ops.keys import (
     check_k,
     limb_bases,
 )
-
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0
 
 
 def words_tensor(keys_np):
@@ -74,7 +72,6 @@ def words_to_keys(words, k):
     rows become :data:`~.keys.SENTINEL` rows.  A CUDA tensor launches
     K11 (none for M = 0), a CPU tensor runs
     :func:`plain_words_to_keys`."""
-    global launches
     if words.device.type == "cpu":
         return plain_words_to_keys(words, k)
     _check(words, k)
@@ -90,5 +87,5 @@ def words_to_keys(words, k):
                 words.data_ptr(), m, w, k, q, out.data_ptr(),
                 _cuda.stream_of(words))
         _cuda.check(err, "words_to_keys")
-        launches += 1
+        tracing.count("launches.words_to_keys")
     return out[:, 0] if q == 1 else out

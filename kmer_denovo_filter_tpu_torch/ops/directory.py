@@ -41,11 +41,10 @@ from typing import NamedTuple
 
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
 
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0
 
 # the finest directory kept for a large table: 2**22 int32 entries, 16 MB
 FINE_BITS = 22
@@ -99,7 +98,6 @@ def build_directory(table, live=None, max_key=None):
     card is a host sync; a caller that knows them from the host passes
     them.  A CUDA table launches ``kdf_build_directory``; a CPU one runs
     the plain version."""
-    global launches
     if table.dim() not in (1, 2) or table.dtype != torch.int64:
         raise ValueError(f"expected an (M,) or (M, Q) int64 table, got "
                          f"{tuple(table.shape)} {table.dtype}")
@@ -125,15 +123,15 @@ def build_directory(table, live=None, max_key=None):
             table.data_ptr(), 1 if table.dim() == 1 else table.shape[1],
             live, bits, shift, offsets.data_ptr(), _cuda.stream_of(table))
     _cuda.check(err, "build_directory")
-    launches += 1
+    tracing.count("launches.build_directory")
     return Directory(offsets, bits, shift, live, table)
 
 
 def directory_for(table, directory):
     """*directory* checked against *table*, or a new one built from it
-    (on the card counted in :data:`launches`) when *directory* is None.
-    A directory built from another table is refused, even one of the
-    same size."""
+    (on the card counted in ``launches.build_directory``) when *directory*
+    is None.  A directory built from another table is refused, even one
+    of the same size."""
     if directory is None:
         return build_directory(table)
     offsets, own = directory.offsets, directory.table

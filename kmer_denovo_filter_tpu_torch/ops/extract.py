@@ -20,6 +20,7 @@ CPU tensors take the plain PyTorch versions in :mod:`.device`.
 
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops.keys import (
@@ -27,11 +28,6 @@ from kmer_denovo_filter_tpu_torch.ops.keys import (
     check_k,
     limbs_per_kmer,
 )
-
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0        # K1
-wide_launches = 0   # K1w
-stage_launches = 0  # K1 cut at a stage (extract_canonical_stage)
 
 
 def _check_batch(codes, lengths, k):
@@ -94,8 +90,8 @@ def extract_canonical_stage(codes, lengths, k, stage):
 def _launch_k1(codes, lengths, k, stage, probe):
     """(B, L - k + 1) int64 output of K1 cut at *stage* over a checked
     CUDA batch (no launch for B = 0).  A launch adds one to
-    :data:`stage_launches` if it is a *probe*, else to :data:`launches`."""
-    global launches, stage_launches
+    ``launches.extract_canonical_stage`` (:mod:`..tracing`) if it is a
+    *probe*, else to ``launches.extract_canonical``."""
     b, length = codes.shape
     keys = torch.empty((b, length - k + 1), dtype=torch.int64,
                        device=codes.device)
@@ -107,9 +103,9 @@ def _launch_k1(codes, lengths, k, stage, probe):
             length, k, stage, _cuda.stream_of(codes))
     _cuda.check(err, "extract_canonical")
     if probe:
-        stage_launches += 1
+        tracing.count("launches.extract_canonical_stage")
     else:
-        launches += 1
+        tracing.count("launches.extract_canonical")
     return keys
 
 
@@ -121,7 +117,6 @@ def extract_canonical_wide(codes, lengths, k):
     :data:`~kmer_denovo_filter_tpu_torch.ops.keys.SENTINEL`.  A CUDA
     tensor launches kernel K1w; a CPU tensor runs the plain version.
     """
-    global wide_launches
     if k <= NARROW_K:
         raise ValueError(f"K1w takes k > {NARROW_K}, got k={k}: narrow "
                          "keys go through extract_canonical")
@@ -137,5 +132,5 @@ def extract_canonical_wide(codes, lengths, k):
             codes.data_ptr(), lengths.data_ptr(), keys.data_ptr(), b,
             length, k, _cuda.stream_of(codes))
     _cuda.check(err, "extract_canonical_wide")
-    wide_launches += 1
+    tracing.count("launches.extract_canonical_wide")
     return keys

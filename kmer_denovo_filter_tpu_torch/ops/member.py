@@ -25,6 +25,7 @@ CPU tensors take the plain PyTorch versions in :mod:`.device`
 
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
@@ -32,10 +33,6 @@ from kmer_denovo_filter_tpu_torch.ops.probe import (
     check_probe_args,
     check_wide_probe_args,
 )
-
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0       # K4
-wide_launches = 0  # K8
 
 
 def probe_member(keys, table, directory=None, launch=None):
@@ -68,7 +65,6 @@ def probe_rows(keys, table, directory=None):
 def _launch(keys, table, directory, dtype, launch=None):
     """K4 over checked CUDA tensors: found bytes (bool) or rows (int64),
     under the launch override *launch* (None: the plan)."""
-    global launches
     n, m = keys.shape[0], table.shape[0]
     if m == 0:
         return torch.full((n,), -1 if dtype == torch.int64 else 0,
@@ -88,7 +84,7 @@ def _launch(keys, table, directory, dtype, launch=None):
             *tdir.launch_args(launch),
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_member")
-    launches += 1
+    tracing.count("launches.probe_member")
     return out
 
 
@@ -119,7 +115,6 @@ def probe_rows_wide(keys, table, directory=None):
 
 def _launch_wide(keys, table, directory, dtype):
     """K8 over checked CUDA tensors: found bytes (bool) or rows (int64)."""
-    global wide_launches
     n, m = keys.shape[0], table.shape[0]
     if m == 0:
         return torch.full((n,), -1 if dtype == torch.int64 else 0,
@@ -136,5 +131,5 @@ def _launch_wide(keys, table, directory, dtype):
             d.bits, d.shift, table.shape[1], found, rows,
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_member_wide")
-    wide_launches += 1
+    tracing.count("launches.probe_member_wide")
     return out

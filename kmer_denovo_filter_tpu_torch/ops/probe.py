@@ -34,17 +34,12 @@ CPU tensors take the plain PyTorch versions in :mod:`.device`.
 
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops.keys import MAX_K, limbs_per_kmer
 from kmer_denovo_filter_tpu_torch.ops.segsort import SEGMENT
-
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0                # K2
-weighted_launches = 0       # K3
-wide_launches = 0           # K7, unweighted
-wide_weighted_launches = 0  # K7, weighted
 
 
 def check_probe_args(keys, table, others):
@@ -94,7 +89,6 @@ def probe_tally(keys, table, acc, directory=None, launch=None):
     is given); a CPU tensor runs the plain version, which needs no
     directory and takes no launch.
     """
-    global launches
     args = tdir.launch_args(launch)
     if check_probe_args(keys, table, [("acc", acc, table.shape)]) == "cpu":
         acc += dev.small_table_tally(table, keys)
@@ -111,7 +105,7 @@ def probe_tally(keys, table, acc, directory=None, launch=None):
             d.offsets.data_ptr(), d.bits, d.shift, acc.data_ptr(), *args,
             _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally")
-    launches += 1
+    tracing.count("launches.probe_tally")
     return acc
 
 
@@ -130,7 +124,6 @@ def probe_tally_weighted(keys, weights, table, acc, directory=None,
     directory first when none is given); a CPU tensor runs the plain
     version, which needs no directory.
     """
-    global weighted_launches
     args = tdir.launch_args(launch)
     if args[0] == tdir.FORMS["staged"]:
         raise ValueError("K3 has no staged form")
@@ -168,7 +161,7 @@ def probe_tally_weighted(keys, weights, table, acc, directory=None,
             table.data_ptr(), d.offsets.data_ptr(), d.bits, d.shift,
             acc.data_ptr(), *args, _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally_weighted")
-    weighted_launches += 1
+    tracing.count("launches.probe_tally_weighted")
     return acc
 
 
@@ -205,7 +198,6 @@ def probe_tally_wide(keys, table, acc, weights=None, directory=None,
     is given); a CPU tensor runs the plain version, which needs no
     directory.
     """
-    global wide_launches, wide_weighted_launches
     flat_keys, flat_weights = keys, weights
     if counts is not None:
         if (keys.dim() != 3 or keys.shape[1] != SEGMENT or weights is None
@@ -249,7 +241,7 @@ def probe_tally_wide(keys, table, acc, weights=None, directory=None,
             table.shape[1], acc.data_ptr(), _cuda.stream_of(keys))
     _cuda.check(err, "probe_tally_wide")
     if weights is None:
-        wide_launches += 1
+        tracing.count("launches.probe_tally_wide")
     else:
-        wide_weighted_launches += 1
+        tracing.count("launches.probe_tally_wide_weighted")
     return acc

@@ -19,6 +19,7 @@ the host together (``parallel.sharded._gather_by_owner``).
 
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops.keys import (
     MAX_K,
@@ -26,8 +27,6 @@ from kmer_denovo_filter_tpu_torch.ops.keys import (
     limbs_per_kmer,
 )
 
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0
 
 MAX_BINS = 1024  # buckets a route may have (K10's shared histogram)
 THREADS = 256    # rows a round of a K10 block
@@ -97,7 +96,6 @@ def route(keys, n_shards, sentinel=True):
     *sentinel* False, when every row is hashed; *routed* is
     ``keys[order]``.  A CUDA tensor launches K10, a CPU tensor runs
     :func:`plain_route`.  More than :data:`MAX_BINS` buckets raise."""
-    global launches
     if keys.dim() not in (1, 2) or keys.dtype != torch.int64:
         raise ValueError(f"expected (N,) or (N, Q) int64 keys, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
@@ -127,5 +125,5 @@ def route(keys, n_shards, sentinel=True):
             counts.data_ptr(), order.data_ptr(), sizes.data_ptr(),
             routed.data_ptr(), _cuda.stream_of(keys))
     _cuda.check(err, "route")
-    launches += 1
+    tracing.count("launches.route")
     return order, sizes, routed

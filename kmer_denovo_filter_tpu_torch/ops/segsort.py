@@ -27,6 +27,7 @@ the plain versions in :mod:`.device` (``segment_sort``,
 
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops.keys import (
@@ -36,11 +37,6 @@ from kmer_denovo_filter_tpu_torch.ops.keys import (
 )
 
 SEGMENT = 8192  # rows a segment (pallas_join.LCHUNK_DD)
-
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0             # K9
-dedup_launches = 0       # K9d
-dedup_wide_launches = 0  # K9dw
 
 
 def segments(flat, fill):
@@ -79,7 +75,6 @@ def seg_sort(flat, payload=None):
     and payload -1.  The order within equal keys is unspecified.  A CUDA
     tensor launches kernel K9; a CPU tensor runs the plain version.
     """
-    global launches
     kind = _check(flat, payload)
     keys = segments(flat, SENTINEL)
     pay = None if payload is None else segments(payload, -1)
@@ -95,7 +90,7 @@ def seg_sort(flat, payload=None):
             keys_out.data_ptr(), None if pay is None else pay_out.data_ptr(),
             keys.shape[0], _cuda.stream_of(flat))
     _cuda.check(err, "seg_sort")
-    launches += 1
+    tracing.count("launches.seg_sort")
     return keys_out, pay_out
 
 
@@ -109,7 +104,6 @@ def seg_dedup(flat):
     row is unspecified (the kernel leaves it unwritten).  A CUDA tensor
     launches kernel K9d; a CPU tensor runs the plain version.
     """
-    global dedup_launches
     if _check(flat) == "cpu":
         return dev.segment_runs(segments(flat, SENTINEL))
     n = flat.shape[0]
@@ -126,7 +120,7 @@ def seg_dedup(flat):
             flat.data_ptr(), n, keys.data_ptr(), weights.data_ptr(),
             counts.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "seg_dedup")
-    dedup_launches += 1
+    tracing.count("launches.seg_dedup")
     return keys, weights, counts
 
 
@@ -143,7 +137,6 @@ def seg_dedup_wide(flat):
     CUDA tensor launches kernel K9dw (it must be contiguous); a CPU
     tensor runs the plain version.
     """
-    global dedup_wide_launches
     if (flat.dim() != 2 or flat.dtype != torch.int64
             or not 2 <= flat.shape[1] <= limbs_per_kmer(MAX_K)):
         raise ValueError(f"expected (N, Q) int64 rows with Q in "
@@ -169,5 +162,5 @@ def seg_dedup_wide(flat):
             flat.data_ptr(), n, q, keys.data_ptr(), weights.data_ptr(),
             counts.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "seg_dedup_wide")
-    dedup_wide_launches += 1
+    tracing.count("launches.seg_dedup_wide")
     return keys, weights, counts

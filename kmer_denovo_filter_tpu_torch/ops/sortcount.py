@@ -22,6 +22,7 @@ tensors.
 
 import torch
 
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import _cuda, segsort
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops.keys import (
@@ -30,8 +31,6 @@ from kmer_denovo_filter_tpu_torch.ops.keys import (
     limbs_per_kmer,
 )
 
-# CUDA kernel launches since import (or since a caller reset them to 0)
-launches = 0
 
 # K9d's segments, 2**SEGMENT_SHIFT rows each: K12's first round reads
 # their slots in place
@@ -89,7 +88,6 @@ def launch(flat, k):
     with no host sync: ``(keys, counts, totals)`` on the card, N rows
     each of which the first ``totals[1]`` hold the result.  The
     wrappers above read that count."""
-    global launches
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     n = flat.shape[0]
@@ -114,5 +112,5 @@ def launch(flat, k):
             weights1.data_ptr(), aux.data_ptr(), keys_out.data_ptr(),
             counts_out.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "sort_count")
-    launches += 1
+    tracing.count("launches.sort_count")
     return keys_out, counts_out, aux[:2]

@@ -12,6 +12,8 @@ import shutil
 import sys
 import threading
 
+from kmer_denovo_filter_tpu_torch import tracing
+
 logger = logging.getLogger(__name__)
 
 
@@ -32,7 +34,10 @@ def prefetch_batches(iterable, depth=2):
     core/jellyfish_wrappers.py:189–200).
 
     Exceptions raised by the producer re-raise at the consumer's next
-    step; abandoning the generator stops the producer promptly.
+    step; abandoning the generator stops the producer promptly.  While
+    tracing is on, each ``next()`` of *iterable* is the span
+    ``prefetch.decode`` (on the producer's thread) and each wait on the
+    queue ``prefetch.wait`` (on the consumer's).
     """
     q = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
@@ -48,7 +53,12 @@ def prefetch_batches(iterable, depth=2):
 
     def _produce():
         try:
-            for item in iterable:
+            items = iter(iterable)
+            while True:
+                with tracing.span("prefetch.decode"):
+                    item = next(items, _PREFETCH_END)
+                if item is _PREFETCH_END:
+                    break
                 if not _put(item):
                     return
             _put(_PREFETCH_END)
@@ -60,7 +70,8 @@ def prefetch_batches(iterable, depth=2):
     worker.start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("prefetch.wait"):
+                item = q.get()
             if item is _PREFETCH_END:
                 return
             if isinstance(item, BaseException):

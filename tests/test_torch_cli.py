@@ -12,6 +12,7 @@ import torch
 
 from kmer_denovo_filter_tpu_torch import cli
 from kmer_denovo_filter_tpu_torch import pipeline as tpipeline
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.discovery import pipeline as tdisc
 from kmer_denovo_filter_tpu_torch.vcf import pipeline as tvcf
 
@@ -116,8 +117,10 @@ def test_report_cli_writes_the_reference_html(tmp_path, capsys):
 
 def test_kdf_profile_writes_a_torch_trace(tmp_path, monkeypatch):
     """``KDF_PROFILE=<dir>`` wraps a CPU VCF run in ``torch.profiler``:
-    a Chrome trace lands in the directory and the outputs are the
-    goldens."""
+    a Chrome trace lands in the directory, the port's spans and counters
+    beside it (``kdf_tracing.<host>_<pid>.json``, the parent scan's
+    ``filter.feed`` among them, tracing off again after the run), and
+    the outputs are the goldens."""
     import gzip
     import json
 
@@ -140,6 +143,15 @@ def test_kdf_profile_writes_a_torch_trace(tmp_path, monkeypatch):
     with open(trace_dir / traces[0]) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    spans = [f for f in os.listdir(trace_dir)
+             if f.startswith("kdf_tracing.") and f.endswith(".json")]
+    assert len(spans) == 1
+    with open(trace_dir / spans[0]) as fh:
+        got = json.load(fh)
+    assert got["spans"]["filter.feed"]["count"] > 0
+    assert any(r["name"] == "filter.feed" for r in got["records"])
+    assert any(e.get("name") == "filter.feed" for e in events)
+    assert not tracing.enabled()
     gold = os.path.join(REPO, "tests", "goldens", "annotated.vcf.gz")
     with gzip.open(tmp_path / "annotated.vcf.gz") as a, gzip.open(gold) as b:
         assert a.read() == b.read()

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import convert
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
@@ -61,9 +62,9 @@ def test_cpu_tensor_takes_the_plain_version(k):
     words = random_words(64, k, seed=k + 1)
     wide = np.zeros((65, words.shape[1] + 1), np.uint32)
     wide[1:, 1:] = words
-    before = convert.launches
+    before = tracing.counter("launches.words_to_keys")
     got = convert.words_to_keys(convert.words_tensor(wide)[1:, 1:], k)
-    assert convert.launches == before
+    assert tracing.counter("launches.words_to_keys") == before
     assert torch.equal(got, numpy_keys(words, k))
 
 

@@ -18,7 +18,7 @@ REF = os.path.join(REPO, "kmer_denovo_filter_tpu")
 PORT = os.path.join(REPO, "kmer_denovo_filter_tpu_torch")
 
 COPIES = [
-    "ops/encode.py", "kmer.py", "utils.py", "kraken2.py", "kraken2_beds.py",
+    "ops/encode.py", "kmer.py", "kraken2.py", "kraken2_beds.py",
     "report.py", "htsio/__init__.py", "htsio/bam.py", "htsio/bgzf.py",
     "htsio/cram.py", "htsio/cram_codecs.py", "htsio/fasta.py",
     "htsio/jellyfish.py", "htsio/tabix.py", "htsio/vcf.py",
@@ -33,6 +33,10 @@ CHANGED = {
     "memory_utils.py": (
         {"log_device_memory"},
         "reads torch.cuda.memory_stats instead of jax.local_devices()"),
+    "utils.py": (
+        {"prefetch_batches"},
+        "opens the port's tracing spans prefetch.decode and prefetch.wait "
+        "around the producer's next() and the consumer's wait"),
 }
 CLI_COPIED = ["_add_shared_args", "parse_vcf_args", "_add_discovery_args",
               "parse_discovery_args", "parse_args", "parse_report_args",

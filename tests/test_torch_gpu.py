@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.experiments.x_fused import pair_order
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
@@ -41,6 +42,13 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launches(*kernels):
+    """The launch counters of *kernels* (``tracing``'s ``launches.<kernel>``):
+    one int for one kernel, else a tuple."""
+    counts = tuple(tracing.counter(f"launches.{k}") for k in kernels)
+    return counts[0] if len(counts) == 1 else counts
+
+
 def _batch(seed, n=2048, length=152):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, (n, length), dtype=np.uint8)
@@ -53,11 +61,11 @@ def _batch(seed, n=2048, length=152):
 @pytest.mark.parametrize("k", [3, 15, 17, 21, 31])
 def test_extract_kernel_matches_plain(cuda, k):
     codes, lengths = (t.to(cuda) for t in _batch(k))
-    before = extract.launches
+    before = _launches("extract_canonical")
     got = extract.extract_canonical(codes, lengths, k)
     ref = dev.extract_canonical_windows(codes, lengths, k)[0]
     torch.cuda.synchronize()
-    assert extract.launches == before + 1
+    assert _launches("extract_canonical") == before + 1
     assert torch.equal(got, ref)
 
 
@@ -65,8 +73,8 @@ def _extract_matches_plain(codes, lengths, k):
     """K1 (k <= 31) or K1w on a CUDA batch equals its plain version, in
     one launch; returns the keys."""
     narrow = k <= keys64.NARROW_K
-    counter = "launches" if narrow else "wide_launches"
-    before = getattr(extract, counter)
+    counter = "extract_canonical" if narrow else "extract_canonical_wide"
+    before = _launches(counter)
     if narrow:
         got = extract.extract_canonical(codes, lengths, k)
         ref = dev.extract_canonical_windows(codes, lengths, k)[0]
@@ -74,7 +82,7 @@ def _extract_matches_plain(codes, lengths, k):
         got = extract.extract_canonical_wide(codes, lengths, k)
         ref = dev.extract_canonical_windows_wide(codes, lengths, k)[0]
     torch.cuda.synchronize()
-    assert getattr(extract, counter) == before + 1
+    assert _launches(counter) == before + 1
     assert torch.equal(got, ref)
     return got
 
@@ -157,11 +165,11 @@ def test_probe_kernel_matches_plain(cuda, m):
                          generator=gen).to(cuda)
     table = torch.unique(torch.cat([from_batch, rand]))
     acc = torch.full((table.numel(),), 5, dtype=torch.int64, device=cuda)
-    before = probe.launches
+    before = _launches("probe_tally")
     probe.probe_tally(keys, table, acc)
     ref = 5 + dev.small_table_tally(table, keys)
     torch.cuda.synchronize()
-    assert probe.launches == before + 1
+    assert _launches("probe_tally") == before + 1
     assert torch.equal(acc, ref)
     assert int(ref.sum()) > 5 * table.numel()
 
@@ -202,11 +210,11 @@ def test_weighted_probe_kernel_matches_plain(cuda, m):
     table = _table_for(win, m, cuda)
     keys, weights = dev.dedup_windows(win)
     acc = torch.full((table.numel(),), 3, dtype=torch.int64, device=cuda)
-    before = probe.weighted_launches
+    before = _launches("probe_tally_weighted")
     probe.probe_tally_weighted(keys, weights, table, acc)
     ref = 3 + dev.small_table_tally(table, win)
     torch.cuda.synchronize()
-    assert probe.weighted_launches == before + 1
+    assert _launches("probe_tally_weighted") == before + 1
     assert torch.equal(acc, ref)
     assert int(ref.max()) > 4
 
@@ -216,13 +224,13 @@ def test_member_kernel_matches_plain(cuda, m):
     codes, lengths = (t.to(cuda) for t in _batch(m + 1))
     win = extract.extract_canonical(codes, lengths, 31).reshape(-1)
     table = _table_for(win, m, cuda)
-    before = member.launches
+    before = _launches("probe_member")
     got = member.probe_member(win, table)
     rows = member.probe_rows(win, table)
     ref = dev.member(table, win)
     ref_rows = dev.find_rows(table, win)
     torch.cuda.synchronize()
-    assert member.launches == before + 2
+    assert _launches("probe_member") == before + 2
     assert got.dtype == torch.bool and torch.equal(got, ref)
     assert rows.dtype == torch.int64 and torch.equal(rows, ref_rows)
     assert bool(ref.any()) and not bool(ref.all())
@@ -286,11 +294,11 @@ def _directory_table(kind, k, cuda):
 @pytest.mark.parametrize("kind", TABLES + ("2**20",))
 def test_directory_kernel_matches_plain(cuda, kind, k):
     table = _directory_table(kind, k, cuda)
-    before = tdir.launches
+    before = _launches("build_directory")
     got = tdir.build_directory(table)
     ref = tdir.build_directory(table.cpu())
     torch.cuda.synchronize()
-    assert tdir.launches == before + 1
+    assert _launches("build_directory") == before + 1
     assert (got.bits, got.shift, got.live) == (ref.bits, ref.shift, ref.live)
     assert got.offsets.is_cuda and got.offsets.dtype == torch.int32
     assert torch.equal(got.offsets.cpu(), ref.offsets)
@@ -311,7 +319,7 @@ def test_directory_probes_match_plain(cuda, kind):
     q = torch.from_numpy(q_np).to(cuda)
     ref_found, ref_rows = dev.member(table, q), dev.find_rows(table, q)
     ref_tally = dev.small_table_tally(table, q)
-    counts = (tdir.launches, member.launches, probe.launches)
+    counts = _launches("build_directory", "probe_member", "probe_tally")
     d = tdir.build_directory(table)
     found = member.probe_member(q, table, d)
     rows = member.probe_rows(q, table, d)
@@ -325,7 +333,7 @@ def test_directory_probes_match_plain(cuda, kind):
     acc_view = torch.zeros_like(acc)
     probe.probe_tally(view, table, acc_view, d)
     torch.cuda.synchronize()
-    assert (tdir.launches, member.launches, probe.launches) == (
+    assert _launches("build_directory", "probe_member", "probe_tally") == (
         counts[0] + 3, counts[1] + 4, counts[2] + 3)
     assert torch.equal(found, ref_found) and torch.equal(found_own, ref_found)
     assert torch.equal(rows, ref_rows)
@@ -344,14 +352,14 @@ def test_probes_refuse_another_tables_directory(cuda):
     other = torch.from_numpy(make_table("4096", 21)).to(cuda)
     d = tdir.build_directory(other)
     q = table[:100].clone()
-    counts = (member.launches, probe.launches)
+    counts = _launches("probe_member", "probe_tally")
     for call in (lambda: member.probe_member(q, table, d),
                  lambda: member.probe_rows(q, table, d),
                  lambda: probe.probe_tally(q, table, torch.zeros_like(table),
                                            d)):
         with pytest.raises(ValueError, match="does not belong"):
             call()
-    assert (member.launches, probe.launches) == counts
+    assert _launches("probe_member", "probe_tally") == counts
 
 
 @pytest.mark.parametrize("counts", [True, False], ids=["K2", "K4"])
@@ -400,27 +408,27 @@ def test_launch_overrides_match_the_plan(cuda, m):
         fits = tdir.launch_plan(flat.numel(), d.live, d.bits, counts).staged
         staged = tdir.Launch("staged")
         if not fits:
-            before = (probe.launches, member.launches)
+            before = _launches("probe_tally", "probe_member")
             with pytest.raises(ValueError, match="staged edge"):
                 if counts:
                     probe.probe_tally(flat, table, torch.zeros_like(ref_acc),
                                       d, staged)
                 else:
                     member.probe_member(flat, table, d, staged)
-            assert (probe.launches, member.launches) == before
+            assert _launches("probe_tally", "probe_member") == before
         for o in overrides + ([staged] if fits else []):
-            before = (probe.launches, member.launches)
+            before = _launches("probe_tally", "probe_member")
             if counts:
                 acc = torch.zeros_like(ref_acc)
                 probe.probe_tally(flat, table, acc, d, o)
                 torch.cuda.synchronize()
                 assert torch.equal(acc, ref_acc), (name, o)
-                assert probe.launches == before[0] + 1
+                assert _launches("probe_tally") == before[0] + 1
             else:
                 got = member.probe_member(flat, table, d, o)
                 torch.cuda.synchronize()
                 assert torch.equal(got, ref_found), (name, o)
-                assert member.launches == before[1] + 1
+                assert _launches("probe_member") == before[1] + 1
     for o in overrides:
         acc = torch.zeros_like(ref_acc)
         probe.probe_tally_weighted(*slots[:2], table, acc, d, slots[2], o)
@@ -444,10 +452,10 @@ def test_member_kernel_stacked_group(cuda, m):
     index = eng.KmerIndex(keys64.keys64_to_words(table.cpu(), 31), 31,
                           device=cuda)
     assert index.directory is not None and index.directory.live == m
-    before = tdir.launches
+    before = _launches("build_directory")
     got = member.probe_member(win, index.table, index.directory)
     torch.cuda.synchronize()
-    assert tdir.launches == before
+    assert _launches("build_directory") == before
     assert torch.equal(got, dev.member(table, win))
     assert bool(got.any()) and not bool(got.all())
 
@@ -491,11 +499,11 @@ def _wide_table_for(flat, m, k, cuda):
 @pytest.mark.parametrize("k", [33, 63, 127, 151, 201, 207])
 def test_extract_wide_kernel_matches_plain(cuda, k):
     codes, lengths = (t.to(cuda) for t in _batch(k, length=k + 60))
-    before = extract.wide_launches
+    before = _launches("extract_canonical_wide")
     got = extract.extract_canonical_wide(codes, lengths, k)
     ref = dev.extract_canonical_windows_wide(codes, lengths, k)[0]
     torch.cuda.synchronize()
-    assert extract.wide_launches == before + 1
+    assert _launches("extract_canonical_wide") == before + 1
     assert got.shape == ref.shape == (2048, 61, keys64.limbs_per_kmer(k))
     assert torch.equal(got, ref)
     assert bool((ref[..., 0] != keys64.SENTINEL).any())
@@ -514,8 +522,9 @@ def test_wide_probe_kernels_match_plain(cuda, k, m):
     flat = extract.extract_canonical_wide(codes, lengths, k).flatten(0, 1)
     table = _wide_table_for(flat, m, k, cuda)
     ref = dev.small_table_tally_wide(table, flat)
-    counts = (probe.wide_launches, probe.wide_weighted_launches,
-              member.wide_launches)
+    kernels = ("probe_tally_wide", "probe_tally_wide_weighted",
+               "probe_member_wide")
+    counts = _launches(*kernels)
     acc = torch.full((table.shape[0],), 5, dtype=torch.int64, device=cuda)
     probe.probe_tally_wide(flat, table, acc)
     keys, weights = dev.dedup_windows_wide(flat)
@@ -524,9 +533,8 @@ def test_wide_probe_kernels_match_plain(cuda, k, m):
     found = member.probe_member_wide(flat, table)
     rows = member.probe_rows_wide(flat, table)
     torch.cuda.synchronize()
-    assert (probe.wide_launches, probe.wide_weighted_launches,
-            member.wide_launches) == (counts[0] + 1, counts[1] + 1,
-                                      counts[2] + 2)
+    assert _launches(*kernels) == (counts[0] + 1, counts[1] + 1,
+                                   counts[2] + 2)
     assert torch.equal(acc, ref + 5) and torch.equal(acc_w, ref + 3)
     assert m == 1 or int(ref.max()) > 1  # duplicated reads
     assert torch.equal(found, dev.member_wide(table, flat))
@@ -553,11 +561,11 @@ def test_wide_directory_kernel_matches_plain(cuda, kind, k):
     """``kdf_build_directory`` over limb 0 of an (M, Q) table (row stride
     Q) equals the plain version."""
     table = torch.from_numpy(make_table_wide(kind, k)).to(cuda)
-    before = tdir.launches
+    before = _launches("build_directory")
     got = tdir.build_directory(table)
     ref = tdir.build_directory(table.cpu())
     torch.cuda.synchronize()
-    assert tdir.launches == before + 1
+    assert _launches("build_directory") == before + 1
     assert (got.bits, got.shift, got.live) == (ref.bits, ref.shift, ref.live)
     assert torch.equal(got.offsets.cpu(), ref.offsets)
 
@@ -578,8 +586,9 @@ def test_wide_directory_probes_match_plain(cuda, kind, k):
     ref_found = dev.member_wide(table, q)
     ref_rows = dev.find_rows_wide(table, q)
     ref_tally = dev.small_table_tally_wide(table, q)
-    counts = (tdir.launches, member.wide_launches, probe.wide_launches,
-              probe.wide_weighted_launches)
+    kernels = ("build_directory", "probe_member_wide", "probe_tally_wide",
+               "probe_tally_wide_weighted")
+    counts = _launches(*kernels)
     d = tdir.build_directory(table)
     found = member.probe_member_wide(q, table, d)
     rows = member.probe_rows_wide(q, table, d)
@@ -596,8 +605,7 @@ def test_wide_directory_probes_match_plain(cuda, kind, k):
     acc_view = torch.zeros_like(acc)
     probe.probe_tally_wide(view, table, acc_view, directory=d)
     torch.cuda.synchronize()
-    assert (tdir.launches, member.wide_launches, probe.wide_launches,
-            probe.wide_weighted_launches) == (
+    assert _launches(*kernels) == (
         counts[0] + 3, counts[1] + 5, counts[2] + 3, counts[3] + 1)
     assert torch.equal(found, ref_found) and torch.equal(found_own, ref_found)
     assert torch.equal(rows, ref_rows)
@@ -620,8 +628,9 @@ def test_wide_probes_refuse_another_tables_directory(cuda):
     for foreign in (torch.from_numpy(make_table_wide("4096", 93)).to(cuda),
                     table[:, 0].contiguous()):
         d = tdir.build_directory(foreign)
-        counts = (member.wide_launches, probe.wide_launches,
-                  probe.wide_weighted_launches)
+        kernels = ("probe_member_wide", "probe_tally_wide",
+                   "probe_tally_wide_weighted")
+        counts = _launches(*kernels)
         acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
         for call in (lambda: member.probe_member_wide(q, table, d),
                      lambda: member.probe_rows_wide(q, table, d),
@@ -632,8 +641,7 @@ def test_wide_probes_refuse_another_tables_directory(cuda):
                                                    device=cuda), d)):
             with pytest.raises(ValueError, match="does not belong"):
                 call()
-        assert (member.wide_launches, probe.wide_launches,
-                probe.wide_weighted_launches) == counts
+        assert _launches(*kernels) == counts
 
 
 def test_wide_index_builds_its_directory_once(cuda):
@@ -648,12 +656,12 @@ def test_wide_index_builds_its_directory_once(cuda):
     ref = tdir.build_directory(index.table.cpu())
     assert torch.equal(d.offsets.cpu(), ref.offsets)
     q = torch.from_numpy(queries_wide(table_np, k)).to(cuda)
-    before = tdir.launches
+    before = _launches("build_directory")
     found = eng._member(q, index)
     acc = torch.zeros(index.n, dtype=torch.int64, device=cuda)
     eng._tally(q, index, acc)
     torch.cuda.synchronize()
-    assert tdir.launches == before
+    assert _launches("build_directory") == before
     assert torch.equal(found, dev.member_wide(index.table, q))
     assert torch.equal(acc, dev.small_table_tally_wide(index.table, q))
 
@@ -692,7 +700,7 @@ def test_wide_engine_cuda_matches_cpu(cuda):
                for i in range(0, 3000, 1000)]
     queries = keys64.limbs_to_words(live[::2], k)
     results = []
-    segsort.dedup_wide_launches = 0
+    tracing.reset()
     for device in (cuda, torch.device("cpu")):
         plain = eng.make_filtered_counter(eng.KmerIndex(words, k,
                                                         device=device))
@@ -705,7 +713,7 @@ def test_wide_engine_cuda_matches_cpu(cuda):
                         eng.scan_reads_for_hits_many(idx, batches),
                         idx.counts_of(queries)))
     (p0, d0, m0, c0), (p1, d1, m1, c1) = results
-    assert segsort.dedup_wide_launches >= 3  # the dedup form: K9dw
+    assert _launches("seg_dedup_wide") >= 3  # the dedup form: K9dw
     assert np.array_equal(p0, p1) and np.array_equal(d0, d1)
     assert np.array_equal(p0, d0) and p0.sum() > 0
     assert all(np.array_equal(a, b) for a, b in zip(m0, m1))
@@ -733,13 +741,13 @@ def _segment_stream(seed, tail):
 def test_seg_sort_kernel_matches_plain(cuda, tail):
     flat = _segment_stream(tail, tail).to(cuda)
     payload = torch.arange(flat.numel(), dtype=torch.int32, device=cuda)
-    before = segsort.launches
+    before = _launches("seg_sort")
     keys, pay = segsort.seg_sort(flat, payload)
     keys_only, none = segsort.seg_sort(flat)
     ref_keys, ref_pay = dev.segment_sort(
         segsort.segments(flat, keys64.SENTINEL), segsort.segments(payload, -1))
     torch.cuda.synchronize()
-    assert segsort.launches == before + 2 and none is None
+    assert _launches("seg_sort") == before + 2 and none is None
     assert keys.shape == (4 + (tail > 0), segsort.SEGMENT)
     assert torch.equal(keys, ref_keys) and torch.equal(keys_only, ref_keys)
     got, ref = pair_order(keys, pay), pair_order(ref_keys, ref_pay)
@@ -760,11 +768,11 @@ def test_seg_dedup_kernel_matches_plain(cuda, tail):
         rng.choice(rng.integers(0, 4 ** 31, 5000), seg)]))
     flat = torch.cat([_segment_stream(tail + 1, 0), extra,
                       _segment_stream(tail + 2, tail)[4 * seg:]]).to(cuda)
-    before = segsort.dedup_launches
+    before = _launches("seg_dedup")
     keys, weights, counts = segsort.seg_dedup(flat)
     ref = dev.segment_runs(segsort.segments(flat, keys64.SENTINEL))
     torch.cuda.synchronize()
-    assert segsort.dedup_launches == before + 1
+    assert _launches("seg_dedup") == before + 1
     assert keys.shape == (6 + (tail > 0), seg)
     assert torch.equal(counts, ref[2])
     assert counts[1] == 1 and counts[2] == 0  # all equal, all sentinel
@@ -873,11 +881,11 @@ def test_seg_dedup_wide_kernel_matches_plain(cuda, q, tail):
     """K9dw: every segment's count and live slots equal the plain
     version's, on the hash's segments and on those it gives up on."""
     flat = _wide_segment_stream(q + tail, q, tail).to(cuda)
-    before = segsort.dedup_wide_launches
+    before = _launches("seg_dedup_wide")
     keys, weights, counts = segsort.seg_dedup_wide(flat)
     ref = dev.segment_runs_wide(segsort.segments(flat, keys64.SENTINEL))
     torch.cuda.synchronize()
-    assert segsort.dedup_wide_launches == before + 1
+    assert _launches("seg_dedup_wide") == before + 1
     assert keys.shape == (11 + (tail > 0), segsort.SEGMENT, q)
     assert torch.equal(counts, ref[2])
     assert counts[3] == 1 and counts[7] == 513 and counts[10] == 0
@@ -926,14 +934,14 @@ def test_wide_probe_on_slots_matches_plain(cuda, kind, k):
     keys, weights, counts = segsort.seg_dedup_wide(flat)
     d = tdir.build_directory(table)
     acc = torch.full((table.shape[0],), 5, dtype=torch.int64, device=cuda)
-    before = probe.wide_weighted_launches
+    before = _launches("probe_tally_wide_weighted")
     probe.probe_tally_wide(keys, table, acc, weights, d, counts)
     ref = 5 + dev.small_table_tally_wide(table, flat)
     uniq, uniq_weights = dev.dedup_windows_wide(flat)
     flat_acc = probe.probe_tally_wide(uniq, table, torch.full_like(acc, 5),
                                       uniq_weights, d)
     torch.cuda.synchronize()
-    assert probe.wide_weighted_launches == before + 2
+    assert _launches("probe_tally_wide_weighted") == before + 2
     assert torch.equal(acc, ref) and torch.equal(flat_acc, ref)
     plain = dev.weighted_tally_wide(table, *dev.segment_compact(
         keys, weights, counts), torch.full_like(acc, 5))
@@ -998,13 +1006,13 @@ def test_weighted_probe_on_slots_matches_plain(cuda, kind):
     keys, weights, counts = segsort.seg_dedup(flat)
     d = tdir.build_directory(table)
     acc = torch.full_like(table, 5)
-    before = probe.weighted_launches
+    before = _launches("probe_tally_weighted")
     probe.probe_tally_weighted(keys, weights, table, acc, d, counts)
     ref = 5 + dev.small_table_tally(table, flat)
     flat_acc = probe.probe_tally_weighted(*dev.dedup_windows(flat), table,
                                           torch.full_like(table, 5), d)
     torch.cuda.synchronize()
-    assert probe.weighted_launches == before + 2
+    assert _launches("probe_tally_weighted") == before + 2
     assert torch.equal(acc, ref) and torch.equal(flat_acc, ref)
     plain = dev.weighted_tally(table, *dev.segment_compact(
         keys, weights, counts), torch.full_like(table, 5))
@@ -1033,18 +1041,18 @@ def test_weighted_probe_builds_or_checks_its_directory(cuda):
     table = _directory_table("4096", 31, cuda)
     keys, weights = dev.dedup_windows(table[::3].repeat(3))
     acc = torch.zeros_like(table)
-    before = (tdir.launches, probe.weighted_launches)
+    before = _launches("build_directory", "probe_tally_weighted")
     probe.probe_tally_weighted(keys, weights, table, acc)
     torch.cuda.synchronize()
-    assert (tdir.launches, probe.weighted_launches) == (before[0] + 1,
-                                                        before[1] + 1)
+    assert _launches("build_directory", "probe_tally_weighted") == (
+        before[0] + 1, before[1] + 1)
     assert torch.equal(acc, dev.small_table_tally(table,
                                                   table[::3].repeat(3)))
     other = tdir.build_directory(
         torch.from_numpy(make_table("4096", 21)).to(cuda))
     with pytest.raises(ValueError, match="does not belong"):
         probe.probe_tally_weighted(keys, weights, table, acc, other)
-    assert probe.weighted_launches == before[1] + 1
+    assert _launches("probe_tally_weighted") == before[1] + 1
 
 
 def test_segment_step_makes_no_host_sync(cuda):
@@ -1076,14 +1084,14 @@ def test_segment_counter_cuda_matches_cpu(cuda):
     keys = dev.extract_canonical_windows(codes, lengths, 31)[0]
     live = torch.unique(keys[keys != keys64.SENTINEL])[::4]
     words = keys64.keys64_to_words(live, 31)
-    before = segsort.dedup_launches
+    before = _launches("seg_dedup")
     results = []
     for device in (cuda, torch.device("cpu")):
         fc = SegmentDedupCounter(eng.KmerIndex(words, 31, device=device))
         fc.feed(codes.numpy(), lengths.numpy())
         fc.feed(codes[:1000].numpy(), lengths[:1000].numpy())
         results.append(fc.result())
-    assert segsort.dedup_launches == before + 2
+    assert _launches("seg_dedup") == before + 2
     assert np.array_equal(results[0], results[1]) and results[0].max() > 1
 
 
@@ -1092,11 +1100,12 @@ def test_extract_stage_kernel_matches_plain(cuda, stage):
     """Every stage probe launches and counts once; stage 5, the only one
     compared with anything, equals the plain K1."""
     codes, lengths = (t.to(cuda) for t in _batch(stage + 40))
-    before, k1_before = extract.stage_launches, extract.launches
+    before, k1_before = _launches("extract_canonical_stage",
+                                  "extract_canonical")
     got = extract.extract_canonical_stage(codes, lengths, 31, stage)
     torch.cuda.synchronize()
-    assert extract.stage_launches == before + 1
-    assert extract.launches == k1_before
+    assert _launches("extract_canonical_stage") == before + 1
+    assert _launches("extract_canonical") == k1_before
     assert got.shape == (codes.shape[0], codes.shape[1] - 30)
     if stage == 5:
         ref = dev.extract_canonical_windows(codes, lengths, 31)[0]
@@ -1175,16 +1184,16 @@ def test_sharded_engine_on_one_card_matches_one_device(cuda, k, s):
     words, codes, lengths = _sharded_case(k, 200 + k)
     mesh = [torch.device("cuda", 0)] * s
     index = eng.KmerIndex(words, k, device=cuda)
-    name = "launches" if k <= keys64.NARROW_K else "wide_launches"
+    name = "probe_tally" if k <= keys64.NARROW_K else "probe_tally_wide"
     for dedup in (False, True):
-        before = getattr(probe, name)
+        before = _launches(name)
         fc = ShardedFilteredCounter(words, k, mesh, dedup=dedup)
         fc.feed(codes, lengths)
         one = eng.FilteredCounter(index, dedup=dedup)
         one.feed(codes, lengths)
         assert np.array_equal(fc.result(), one.result())
         if not dedup:
-            assert getattr(probe, name) >= before + s
+            assert _launches(name) >= before + s
     q = words[::2]
     sharded = ShardedKmerIndex(words, k, mesh)
     assert np.array_equal(sharded.membership(q), index.membership(q))
@@ -1225,11 +1234,11 @@ def _route_rows(n, q, kind, seed):
 
 def _route_matches_plain(keys, s, sentinel=True):
     from kmer_denovo_filter_tpu_torch.ops import route
-    before = route.launches
+    before = _launches("route")
     got = route.route(keys, s, sentinel)
     ref = route.plain_route(keys.cpu(), s, sentinel)
     torch.cuda.synchronize()
-    assert route.launches == before + 1
+    assert _launches("route") == before + 1
     for g, r in zip(got, ref):
         assert g.is_cuda and torch.equal(g.cpu(), r)
 
@@ -1282,10 +1291,10 @@ def test_words_to_keys_kernel_matches_plain(cuda, k):
     words[:, -1] &= np.uint32((0xFFFFFFFF << (32 * w - 2 * k)) & 0xFFFFFFFF)
     words[::5] = keys64.SENTINEL32
     on_card = convert.words_tensor(words).to(cuda)
-    before = convert.launches
+    before = _launches("words_to_keys")
     got = convert.words_to_keys(on_card, k)
     torch.cuda.synchronize()
-    assert convert.launches == before + 1
+    assert _launches("words_to_keys") == before + 1
     assert torch.equal(got.cpu(), eng._key_tensor(words, k))
     assert torch.equal(got, convert.plain_words_to_keys(on_card, k))
     store = torch.empty(on_card.numel() + 1, dtype=torch.int32, device=cuda)
@@ -1293,24 +1302,23 @@ def test_words_to_keys_kernel_matches_plain(cuda, k):
     view.copy_(on_card)
     assert torch.equal(convert.words_to_keys(view, k), got)
     assert convert.words_to_keys(on_card[:0], k).shape == got[:0].shape
-    assert convert.launches == before + 2
+    assert _launches("words_to_keys") == before + 2
 
 
 def test_cuda_index_converts_its_words_on_the_card(cuda):
     """A CUDA KmerIndex and its queries launch K11; the sharded build
     launches K11 and K10 a slice, its queries K11 and K10 once."""
-    from kmer_denovo_filter_tpu_torch.ops import convert, route
     from kmer_denovo_filter_tpu_torch.parallel import ShardedKmerIndex
 
     words, _codes, _lengths = _sharded_case(31, 5)
     ref = eng.KmerIndex(words, 31, device="cpu").membership(words[::3])
-    before, routes = convert.launches, route.launches
+    before, routes = _launches("words_to_keys", "route")
     index = eng.KmerIndex(words, 31, device=cuda)
     assert np.array_equal(index.membership(words[::3]), ref)
     sharded = ShardedKmerIndex(words, 31, [torch.device("cuda", 0)] * 3)
     assert np.array_equal(sharded.membership(words[::3]), ref)
-    assert convert.launches == before + 2 + 3 + 1
-    assert route.launches == routes + 3 + 1
+    assert _launches("words_to_keys") == before + 2 + 3 + 1
+    assert _launches("route") == routes + 3 + 1
 
 
 # ── K12, the stream count's sort-count ───────────────────────────────
@@ -1323,10 +1331,10 @@ def _sort_count_matches_plain(rows, k):
     from tests.test_torch_sort_count_model import as_tensor
     flat = as_tensor(rows)
     fn = sortcount.sort_count if flat.dim() == 1 else sortcount.sort_count_wide
-    before = sortcount.launches
+    before = _launches("sort_count")
     got = fn(flat.cuda(), k)
     torch.cuda.synchronize()
-    assert sortcount.launches == before + int(rows.shape[0] > 0)
+    assert _launches("sort_count") == before + int(rows.shape[0] > 0)
     want = fn(flat, k)
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g.cpu(), w)
@@ -1401,7 +1409,6 @@ def test_cuda_stream_counts_use_no_library_sort(cuda, monkeypatch):
     """StreamCounter.feed, the sharded count and the multi-host count
     (no group) launch K12 on the card and call no torch.unique,
     torch.sort or torch.argsort; their results equal the CPU's."""
-    from kmer_denovo_filter_tpu_torch.ops import sortcount
     from kmer_denovo_filter_tpu_torch.parallel import multihost
     from kmer_denovo_filter_tpu_torch.parallel import sharded_count
     codes, lengths = (t.numpy() for t in _batch(13))
@@ -1418,17 +1425,17 @@ def test_cuda_stream_counts_use_no_library_sort(cuda, monkeypatch):
         monkeypatch.setattr(torch, name, refuse)
         monkeypatch.setattr(torch.Tensor, name, refuse)
     for k in (31, 63):
-        before = sortcount.launches
+        before = _launches("sort_count")
         sc = eng.StreamCounter(k, device=cuda)
         sc.feed(codes, lengths)
         got = sc.result()
-        assert sortcount.launches == before + 1
+        assert _launches("sort_count") == before + 1
         assert all(np.array_equal(g, w) for g, w in zip(got, want[k]))
         mesh = [torch.device("cuda", 0)] * 2
         got = sharded_count(codes, lengths, k, mesh)
-        assert sortcount.launches == before + 3
+        assert _launches("sort_count") == before + 3
         assert all(np.array_equal(g, w) for g, w in zip(got, want[k]))
         got = multihost.sharded_count_multihost(codes, lengths, k,
                                                 device=cuda)
-        assert sortcount.launches == before + 4
+        assert _launches("sort_count") == before + 4
         assert all(np.array_equal(g, w) for g, w in zip(got, want[k]))

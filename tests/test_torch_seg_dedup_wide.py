@@ -16,6 +16,7 @@ import torch
 from kmer_denovo_filter_tpu import engine as jeng
 from kmer_denovo_filter_tpu.ops import pallas_join as pj
 from kmer_denovo_filter_tpu_torch import engine as teng
+from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import device as tdev
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops import segsort
@@ -207,14 +208,15 @@ def test_engine_wide_dedup_form_matches_jax_counter_and_kernel7():
 
     fc = teng.make_parent_filter_counter(words, k, device=CPU)
     assert fc.dedup
-    launches = segsort.dedup_wide_launches
+    launches = tracing.counter("launches.seg_dedup_wide")
     jfc = jeng.FilteredCounter(jeng.KmerIndex(words, k))
     for codes, lengths in batches:
         assert codes.shape[0] * (codes.shape[1] - k + 1) > SEG
         fc.feed(codes, lengths)
         jfc.feed(codes, lengths)
     got = fc.result()
-    assert segsort.dedup_wide_launches == launches  # the CPU: plain path
+    # the CPU: plain path
+    assert tracing.counter("launches.seg_dedup_wide") == launches
     assert np.array_equal(got, jfc.result()[:words.shape[0]])
     plain = tdev.small_table_tally_wide(table, flat).numpy()
     assert np.array_equal(got, plain) and plain.max() > 1
