@@ -8,7 +8,7 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
   0 for k > 31; :mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
-* :class:`HostKmerIndex` (:263) and :class:`HostFilteredCounter` (:646)
+* :class:`HostKmerIndex` (:263) and :class:`HostFilteredCounter` (:659)
   — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
   host C++ hash or a numpy search (a table on a CUDA device never goes
   to the host);
@@ -22,7 +22,7 @@ Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
   or K1 → K9d segment dedup → K3 (discovery,
   :func:`make_parent_filter_counter`);
 * :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
-  (:729, :741) — the anchoring scan, K1 → K4.
+  (:742, :754) — the anchoring scan, K1 → K4.
 
 Host-facing keys stay the JAX package's (M, W) uint32 words, so the
 pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
@@ -56,7 +56,7 @@ import os
 import numpy as np
 import torch
 
-from kmer_denovo_filter_tpu_torch import tracing
+from kmer_denovo_filter_tpu_torch import staging, tracing
 from kmer_denovo_filter_tpu_torch.htsio import native
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
@@ -580,6 +580,11 @@ class FilteredCounter:
     slots, again with no host sync (``join_tally_flat_wide_dedup``:
     ``_dedup_compact_wide`` over 8,192-row local chunks, then the
     weighted tally).
+
+    On a CUDA device each batch goes up through a ring of pinned slots
+    (:class:`~.staging.Stage`) on a copy stream of its own, so ``feed``
+    returns with its kernels enqueued and no host sync; on the CPU K1
+    reads the caller's arrays in place.
     """
 
     def __init__(self, index, dedup=False):
@@ -587,10 +592,13 @@ class FilteredCounter:
         self.dedup = dedup
         self.acc = torch.zeros(index.n, dtype=torch.int64,
                                device=index.device)
+        self._stage = (staging.Stage(index.device)
+                       if index.device.type == "cuda" else None)
 
     def feed(self, codes, lengths):
         """Tally one (B, L) uint8 code batch with (B,) lengths.  The
-        batch goes over unpadded; one narrower than k holds no window."""
+        batch goes over unpadded; one narrower than k holds no window.
+        The caller may overwrite its arrays once this returns."""
         k = self.index.k
         with tracing.span("filter.feed"):
             batch = counts = None
@@ -604,9 +612,14 @@ class FilteredCounter:
         the dedup form, all enqueued: (the batch on the device, the
         dedup's per-segment counts or None)."""
         with tracing.span("filter.feed.htod"):
-            batch = _to_device(codes, lengths, self.index.device)
+            if self._stage is None:
+                batch = _to_device(codes, lengths, self.index.device)
+            else:
+                batch = self._stage.put(codes, lengths)
         with tracing.span("filter.feed.extract"):
             flat = _extractor(k)(*batch, k).flatten(0, 1)
+            if self._stage is not None:
+                self._stage.release()
         if not self.dedup:
             with tracing.span("filter.feed.tally"):
                 _tally(flat, self.index, self.acc)

@@ -8,9 +8,10 @@ against tables of 4,096 and 262,144 keys, half drawn from the batches'
 distinct keys and half random, with the counts checked against the
 plain path.  For each table: one warm-up feed, then REPS timed feeds
 (reads/s) with the host's milliseconds a batch in the engine's two
-steps (``_to_device``: the pageable copies, each a stream sync;
+steps (``upload``: the batch's way up, ``staging.Stage.put`` where the
+checkout has the pinned ring, else ``_to_device``'s pageable copies;
 ``_tally``: the probe wrapper), then one feed under ``torch.profiler``:
-device milliseconds a batch of each op (the pageable HtoD among them),
+device milliseconds a batch of each op (the HtoD copies among them),
 device busy time, and the idle share of the profiled wall::
 
     python kmer_denovo_filter_tpu_torch/experiments/feed_ab.py \\
@@ -106,7 +107,7 @@ def main(argv=None):
         for c in batches]))
     seen = seen[seen != keys64.SENTINEL]
 
-    host_ms = {"_to_device": 0.0, "_tally": 0.0}
+    host_ms = {"upload": 0.0, "_tally": 0.0}
 
     def timed(name, fn):
         def wrapper(*a, **kw):
@@ -116,7 +117,14 @@ def main(argv=None):
             return out
         return wrapper
 
-    eng._to_device = timed("_to_device", eng._to_device)
+    # on a card FilteredCounter puts its batches through the pinned ring
+    # where the checkout has one, and no longer calls _to_device
+    try:
+        from kmer_denovo_filter_tpu_torch import staging
+    except ImportError:
+        eng._to_device = timed("upload", eng._to_device)
+    else:
+        staging.Stage.put = timed("upload", staging.Stage.put)
     eng._tally = timed("_tally", eng._tally)
     gen = torch.Generator(device=cuda).manual_seed(1)
     rows = []
@@ -154,7 +162,7 @@ def main(argv=None):
             host = {name: ms / BATCHES for name, ms in host_ms.items()}
             rows.append({"m": m, "reads_per_s": rate, "host_ms": host})
             print(f"{args.tag:8s} M={m:<7d} feed {rate:.1f} reads/s; host ms "
-                  f"a batch: _to_device {host['_to_device']:.4f}, _tally "
+                  f"a batch: upload {host['upload']:.4f}, _tally "
                   f"{host['_tally']:.4f}", flush=True)
         ops, busy_ms, wall_ms = profile_feed(feed, BATCHES)
         rows.append({"m": m, "profile_ms_per_batch": ops,

@@ -44,7 +44,9 @@ DECODE = "decode (utils.prefetch_batches)"
 # every span the port opens: name -> layer
 SPANS = {
     "filter.feed": ENGINE,           # FilteredCounter.feed, whole
-    "filter.feed.htod": ENGINE,      # the batch's pageable copies up
+    "filter.feed.htod": ENGINE,      # the batch up: on a card the slot's
+                                     # wait, the host copy into pinned
+                                     # memory and the copy up enqueued
     "filter.feed.extract": ENGINE,   # K1 / K1w enqueued
     "filter.feed.dedup": ENGINE,     # K9d / K9dw enqueued
     "filter.feed.tally": ENGINE,     # K3 / K7 / K2 enqueued
@@ -90,6 +92,8 @@ COUNTERS = {
     "filter.reads": ENGINE,
     "filter.windows": ENGINE,         # sum of max(0, length - k + 1)
     "filter.bytes_up": ENGINE,        # codes and lengths copied up
+    "filter.stage_waits": ENGINE,     # feeds that waited for their slot
+    "filter.stage_grows": ENGINE,     # slots (re)allocated for a larger batch
     "filter.distinct_keys": KERNELS_LAYER,  # K9d's / K9dw's counts, summed
     "count.merges": COUNT,
     **{f"launches.{kernel}": KERNELS_LAYER for kernel in KERNELS},

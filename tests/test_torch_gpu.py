@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
-from kmer_denovo_filter_tpu_torch import tracing
+from kmer_denovo_filter_tpu_torch import staging, tracing
 from kmer_denovo_filter_tpu_torch.experiments.x_fused import pair_order
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
@@ -274,6 +274,208 @@ def test_cuda_tables_stay_on_the_card(cuda, monkeypatch):
     cpu_idx = eng.KmerIndex(words, 31, counts, device="cpu")
     got = idx.counts_of(queries)
     assert np.array_equal(got, cpu_idx.counts_of(queries)) and got.any()
+
+
+# ── FilteredCounter's pinned staging ring (staging.Stage) ─────────────
+
+
+def _genome_batches(k, shapes, seed=0, genome=20_000):
+    """(table words, host batches): reads of *shapes* (B, L) drawn from
+    one random genome, with N bases and ragged lengths (0 and k - 1
+    among them), so batches share k-mers; the table holds every third
+    distinct key of them all."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, genome, dtype=np.uint8)
+    batches = []
+    for b, length in shapes:
+        starts = rng.integers(0, genome - length, b)
+        codes = bases[starts[:, None] + np.arange(length)]
+        codes[rng.random((b, length)) < 0.003] = 4
+        lengths = np.full(b, length, np.int32)
+        lengths[::5] = rng.integers(0, length + 1, len(lengths[::5]))
+        lengths[3::17] = max(0, k - 1)
+        batches.append((codes, lengths))
+    keys = []
+    for codes, lengths in batches:
+        win = eng._window_keys(codes, lengths, k, torch.device("cpu"))
+        if win is not None:
+            keys.append(win.flatten(0, 1))
+    flat = torch.cat(keys)
+    if flat.dim() == 1:
+        live = torch.unique(flat[flat != keys64.SENTINEL])
+        return keys64.keys64_to_words(live[::3], k), batches
+    live = torch.unique(flat[flat[:, 0] != keys64.SENTINEL], dim=0)
+    return keys64.limbs_to_words(live[::3], k), batches
+
+
+def _ragged_shapes(k):
+    """More feeds than the ring has slots; B and L change every batch, a
+    larger batch grows a slot, an empty batch and one narrower than k
+    come in between."""
+    return [(300, 150), (500, 152), (0, 150), (200, 100), (40, k - 1),
+            (900, 160), (100, 250), (700, 150), (1, 150), (1200, 152),
+            (64, k), (30, 150)]
+
+
+@pytest.mark.parametrize("dedup", [True, False], ids=["dedup", "plain"])
+@pytest.mark.parametrize("k", [31, 63])
+def test_staged_filter_counter_matches_the_cpu(cuda, k, dedup):
+    words, batches = _genome_batches(k, _ragged_shapes(k), seed=k)
+    results = []
+    tracing.enable()
+    try:
+        for device in (cuda, torch.device("cpu")):
+            fc = eng.FilteredCounter(eng.KmerIndex(words, k, device=device),
+                                     dedup=dedup)
+            assert (fc._stage is not None) == (device.type == "cuda")
+            for codes, lengths in batches:
+                fc.feed(codes, lengths)
+            results.append(fc.result())
+            if device.type == "cuda":
+                # each slot's first batch, then at least one larger one
+                assert tracing.counter("filter.stage_grows") > staging.SLOTS
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert np.array_equal(results[0], results[1])
+    assert results[0].sum() > 0 and results[0].max() > 1
+
+
+def test_staged_feed_lets_the_caller_overwrite_its_arrays(cuda):
+    """One host buffer, refilled in place with a new batch before each
+    feed and overwritten right after it, in a tight loop: the card's
+    counts equal the CPU counter's over the original contents."""
+    k = 31
+    words, batches = _genome_batches(k, [(2048, 152)] * 10, seed=5)
+    index = eng.KmerIndex(words, k, device=cuda)
+    fc = eng.FilteredCounter(index, dedup=True)
+    codes = np.empty_like(batches[0][0])
+    lengths = np.empty_like(batches[0][1])
+    for _ in range(3):
+        for c, l in batches:
+            codes[...] = c
+            lengths[...] = l
+            fc.feed(codes, lengths)
+            codes[...] = 4
+            lengths[...] = 0
+    ref = eng.FilteredCounter(eng.KmerIndex(words, k, device="cpu"),
+                              dedup=True)
+    for c, l in batches * 3:
+        ref.feed(c, l)
+    got = fc.result()
+    assert np.array_equal(got, ref.result()) and got.sum() > 0
+
+
+def test_staged_feed_makes_no_host_sync(cuda):
+    """Once every slot holds a batch, a feed waits on the host only for
+    its slot's last copy up (an event): with CUDA sync debugging set to
+    raise, the staged feeds run, where a pageable copy would raise."""
+    k = 31
+    words, batches = _genome_batches(k, [(1024, 152)] * 4, seed=9)
+    fc = eng.FilteredCounter(eng.KmerIndex(words, k, device=cuda),
+                             dedup=True)
+    for c, l in batches:
+        fc.feed(c, l)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c, l in batches * 2:
+            fc.feed(c, l)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = eng.FilteredCounter(eng.KmerIndex(words, k, device="cpu"),
+                              dedup=True)
+    for c, l in batches * 3:
+        ref.feed(c, l)
+    assert np.array_equal(fc.result(), ref.result())
+
+
+@pytest.mark.parametrize("through", ["put", "feed"])
+def test_a_growing_slot_waits_for_the_readers_of_the_block_it_takes(
+        cuda, through):
+    """A slot that grows takes its device buffers from the kernels'
+    stream's pool, which hands out a freed block whose reader may still
+    be queued on that stream.  A 32 MiB tensor's sum is queued behind a
+    long sleep and the tensor freed; the next batch, put on a stage or
+    fed to a counter, grows a slot of the same size, so takes that
+    block, and returns while the sum still waits: the sum reads the
+    tensor's contents, and the batch goes up whole (the counts are the
+    CPU's)."""
+    k = 31
+    words, (small,) = _genome_batches(k, [(2048, 256)], seed=11)
+    b, length = 1 << 17, 256  # 32 MiB of codes
+    codes = np.random.default_rng(12).integers(0, 5, (b, length),
+                                               dtype=np.uint8)
+    lengths = np.zeros(b, np.int32)
+    codes[:small[0].shape[0]] = small[0]
+    lengths[:small[1].shape[0]] = small[1]
+    index = eng.KmerIndex(words, k, device=cuda)
+    # the sleep and the reader, then a batch of this shape through a
+    # counter of its own: their kernels loaded and every block the batch
+    # takes cached, so that nothing below asks CUDA for memory or
+    # a module (either may wait for the device, and the race would have
+    # no window)
+    torch.cuda._sleep(1)
+    torch.full((b * length,), 7, dtype=torch.uint8,
+               device=cuda).sum(dtype=torch.int64)
+    eng.FilteredCounter(index, dedup=True).feed(codes, lengths)
+    torch.cuda.synchronize()
+    if through == "put":
+        stage = staging.Stage(cuda)
+        slot = stage.slots[0]
+    else:
+        fc = eng.FilteredCounter(index, dedup=True)
+        slot = fc._stage.slots[0]
+    held = torch.full((b * length,), 7, dtype=torch.uint8, device=cuda)
+    block = held.data_ptr()
+    torch.cuda._sleep(500_000_000)  # ~0.3 s of the kernels' stream
+    total = held.sum(dtype=torch.int64)
+    summed = torch.cuda.Event()
+    summed.record()
+    del held
+    if through == "put":
+        up = stage.put(codes, lengths)
+        stage.release()
+    else:
+        fc.feed(codes, lengths)
+    waited = summed.query()
+    assert int(total) == 7 * b * length
+    assert slot.dev_codes.data_ptr() == block, "the slot took another block"
+    assert not waited, "the batch waited for the device: no race to see"
+    if through == "put":
+        assert np.array_equal(up[0].cpu().numpy(), codes)
+        assert np.array_equal(up[1].cpu().numpy(), lengths)
+        return
+    ref = eng.FilteredCounter(eng.KmerIndex(words, k, device="cpu"),
+                              dedup=True)
+    ref.feed(*small)
+    got = fc.result()
+    assert np.array_equal(got, ref.result()) and got.sum() > 0
+
+
+def test_staged_copies_are_pinned_on_a_stream_of_their_own(cuda):
+    """Under ``torch.profiler`` each feed's host-to-device copies are
+    ``Pinned -> Device``, on another stream than K1."""
+    from torch.profiler import ProfilerActivity, profile
+    k = 31
+    words, batches = _genome_batches(k, [(1024, 152)] * 5, seed=3)
+    fc = eng.FilteredCounter(eng.KmerIndex(words, k, device=cuda),
+                             dedup=True)
+    fc.feed(*batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for c, l in batches:
+            fc.feed(c, l)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    copies = [e for e in events if e.name().startswith("Memcpy HtoD")]
+    k1 = [e for e in events if "extract_canonical_kernel" in e.name()]
+    assert len(copies) == 2 * len(batches) and len(k1) == len(batches)
+    assert all("Pinned" in e.name() for e in copies), {
+        e.name() for e in copies}
+    copy_streams = {e.device_resource_id() for e in copies}
+    assert copy_streams.isdisjoint({e.device_resource_id() for e in k1})
 
 
 # ── the prefix directory: kdf_build_directory, K2 and K4 through it ───
