@@ -111,6 +111,12 @@ def _to_device(codes, lengths, device):
             .to(device))
 
 
+# the keys (a ring slot's buffers and a batch shape) a staged counter
+# holds CUDA graphs for before it drops them all: two a slot
+GRAPHS_KEPT = 2 * staging.SLOTS
+_UNSEEN = object()
+
+
 def _has_windows(codes, k):
     """True when the (B, L) batch *codes* can hold a window of k."""
     return codes.shape[0] > 0 and codes.shape[1] >= k
@@ -583,8 +589,10 @@ class FilteredCounter:
 
     On a CUDA device each batch goes up through a ring of pinned slots
     (:class:`~.staging.Stage`) on a copy stream of its own, so ``feed``
-    returns with its kernels enqueued and no host sync; on the CPU K1
-    reads the caller's arrays in place.
+    returns with its kernels enqueued and no host sync, and its launches
+    run as one CUDA graph once the slot has taken a batch of its shape
+    twice (:class:`_StepGraphs`); on the CPU K1 reads the caller's arrays
+    in place.
     """
 
     def __init__(self, index, dedup=False):
@@ -594,6 +602,8 @@ class FilteredCounter:
                                device=index.device)
         self._stage = (staging.Stage(index.device)
                        if index.device.type == "cuda" else None)
+        self._graphs = (_StepGraphs(self._launch)
+                        if self._stage is not None else None)
 
     def feed(self, codes, lengths):
         """Tally one (B, L) uint8 code batch with (B,) lengths.  The
@@ -608,33 +618,111 @@ class FilteredCounter:
                 _count_batch(codes, lengths, k, batch, counts)
 
     def _step(self, codes, lengths, k):
-        """The batch up, K1 (K1w), then the tally, through K9d (K9dw) in
-        the dedup form, all enqueued: (the batch on the device, the
-        dedup's per-segment counts or None)."""
+        """The batch up, then its launches enqueued (:meth:`_launch`),
+        on a card as a CUDA graph where one is held: (the batch on the
+        device, the dedup's per-segment counts or None)."""
         with tracing.span("filter.feed.htod"):
             if self._stage is None:
                 batch = _to_device(codes, lengths, self.index.device)
             else:
                 batch = self._stage.put(codes, lengths)
+        if self._stage is None:
+            return batch, self._launch(batch)
+        counts = self._graphs.run(batch)
+        self._stage.release()
+        return batch, counts
+
+    def _launch(self, batch):
+        """K1 (K1w), then the tally, through K9d (K9dw) in the dedup
+        form, enqueued on the current stream: the dedup's per-segment
+        counts, or None."""
+        k = self.index.k
         with tracing.span("filter.feed.extract"):
             flat = _extractor(k)(*batch, k).flatten(0, 1)
-            if self._stage is not None:
-                self._stage.release()
         if not self.dedup:
             with tracing.span("filter.feed.tally"):
                 _tally(flat, self.index, self.acc)
-            return batch, None
+            return None
         dedup = seg_dedup_wide if flat.dim() == 2 else seg_dedup
         with tracing.span("filter.feed.dedup"):
             keys, weights, counts = dedup(flat)
         with tracing.span("filter.feed.tally"):
             _tally(keys, self.index, self.acc, weights, counts)
-        return batch, counts
+        return counts
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""
         with tracing.span("filter.result"):
             return self.acc.to("cpu", copy=True).numpy()
+
+
+class _StepGraphs:
+    """A staged counter's launches (``launch(batch)``, which returns the
+    dedup's counts or None) as CUDA graphs, one for each slot of the ring
+    and shape of batch: the host enqueues a batch's kernels by one graph
+    launch, where each kernel's wrapper costs it tens of microseconds.
+
+    A batch whose device buffers and shapes (its key) come for the first
+    time runs eagerly; the second time, its launches are captured, on a
+    side stream, into a graph that holds the outputs of every kernel but
+    the last, and the graph is replayed, as it is for every later batch of
+    that key, on the current stream.  The graph reads the slot's buffers,
+    the table and the accumulator in place, and adds into the
+    accumulator.  A replay adds its kernels to the launch counters
+    (``tracing.launches``) as the eager launches did; while tracing is on
+    it is the span ``filter.feed.graph``, and the stage spans come only
+    from eager batches.  A slot that grows takes new buffers, a new key:
+    past :data:`GRAPHS_KEPT` keys every graph is dropped."""
+
+    def __init__(self, launch):
+        self._launch = launch
+        self._held = {}  # key -> None (seen once) or (graph, out, launched)
+        self._side = None
+
+    def run(self, batch):
+        """Enqueue *batch*'s launches; the dedup's counts or None."""
+        key = tuple((t.data_ptr(), tuple(t.shape)) for t in batch)
+        held = self._held.get(key, _UNSEEN)
+        if held is _UNSEEN:
+            if len(self._held) >= GRAPHS_KEPT:
+                self._held.clear()
+            self._held[key] = None
+            return self._launch(batch)
+        if held is None:
+            held = self._held[key] = self._capture(batch)
+        graph, out, launched = held
+        with tracing.span("filter.feed.graph"):
+            graph.replay()
+        for name, n in launched.items():
+            tracing.count(name, n)
+        return out
+
+    def _capture(self, batch):
+        """(graph, its output, {launch counter: launches}) of *batch*'s
+        launches, captured and not run."""
+        kernels = torch.cuda.current_stream(batch[0].device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(batch[0].device)
+        before = tracing.launches()
+        graph = torch.cuda.CUDAGraph()
+        self._side.wait_stream(kernels)
+        torch.cuda.set_stream(self._side)
+        try:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = self._launch(batch)
+            finally:
+                graph.capture_end()
+        finally:
+            torch.cuda.set_stream(kernels)
+        launched = {}
+        for kernel, n in tracing.launches().items():
+            n -= before[kernel]
+            if n:
+                # the capture ran nothing: its wrappers' counts undone
+                tracing.count(f"launches.{kernel}", -n)
+                launched[f"launches.{kernel}"] = n
+        return graph, out, launched
 
 
 def _count_batch(codes, lengths, k, batch, counts):

@@ -50,6 +50,8 @@ SPANS = {
     "filter.feed.extract": ENGINE,   # K1 / K1w enqueued
     "filter.feed.dedup": ENGINE,     # K9d / K9dw enqueued
     "filter.feed.tally": ENGINE,     # K3 / K7 / K2 enqueued
+    "filter.feed.graph": ENGINE,     # on a card, the three enqueued as
+                                     # one CUDA graph (engine._StepGraphs)
     "filter.result": ENGINE,         # the accumulator's copy back
     "index.build": BUILD,            # KmerIndex.__init__, whole
     "index.upload": BUILD,           # the host words up (pageable)

@@ -341,6 +341,35 @@ def test_staged_filter_counter_matches_the_cpu(cuda, k, dedup):
     assert results[0].sum() > 0 and results[0].max() > 1
 
 
+@pytest.mark.parametrize("k", [31, 63])
+def test_staged_counter_replays_a_graph_a_slot_and_counts_its_launches(
+        cuda, k):
+    """Batches of one shape: each slot's first runs eagerly, its second
+    is captured and replayed, the rest replayed; the counts equal the
+    CPU's and each kernel's launch counter counts every batch once."""
+    words, batches = _genome_batches(k, [(700, 150)] * 4, seed=k + 1)
+    feeds = batches * 3  # 12 feeds: 3 eager, 3 captured, 6 replayed
+    fc = eng.FilteredCounter(eng.KmerIndex(words, k, device=cuda),
+                             dedup=True)
+    before = tracing.launches()
+    for codes, lengths in feeds:
+        fc.feed(codes, lengths)
+    got = fc.result()
+    graphs = [h for h in fc._graphs._held.values() if h is not None]
+    assert len(graphs) == staging.SLOTS
+    ran = {n: c - before[n] for n, c in tracing.launches().items()
+           if c != before[n]}
+    names = (("extract_canonical", "seg_dedup", "probe_tally_weighted")
+             if k <= 31 else ("extract_canonical_wide", "seg_dedup_wide",
+                              "probe_tally_wide_weighted"))
+    assert ran == {n: len(feeds) for n in names}
+    ref = eng.FilteredCounter(eng.KmerIndex(words, k, device="cpu"),
+                              dedup=True)
+    for codes, lengths in feeds:
+        ref.feed(codes, lengths)
+    assert np.array_equal(got, ref.result()) and got.sum() > 0
+
+
 def test_staged_feed_lets_the_caller_overwrite_its_arrays(cuda):
     """One host buffer, refilled in place with a new batch before each
     feed and overwritten right after it, in a tight loop: the card's
