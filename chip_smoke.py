@@ -61,6 +61,12 @@ any failure exits non-zero before the result line:
    at k = 63 and 201 on a random and a 40x batch (152 bp, 256 bp at
    k = 201), beside the whole-batch ``dedup_windows_wide`` and
    ``torch.unique(dim=0)``.  Exact; CUDA events.
+3u. K9d and K9dw in the parent filter's unordered form (``ordered=False``)
+   at k = 31, 63 and 201 on a name-order batch (reads from random places)
+   and a 40x batch: each segment's weight sums against the plain
+   version's, the passed flags (every name-order segment passed), a
+   passed segment's live keys in row order of weight 1, a kept one's
+   distinct count; timed beside the ordered form.
 3w. Wide keys (k = 33..207, rows of Q = ceil(k / 31) int64 limbs):
    K1w (extract_canonical_wide) at k in {33, 63, 127, 151, 201} on
    32,768 random reads of 152 bp (256 bp at k = 201), with N bases and
@@ -186,7 +192,10 @@ largest deviation from the plain version, its time beside the plain
 version's, its bound (the larger of the bytes this run's data makes it
 move over 3.35 TB/s and its operations over 67 T/s; the directory of a
 wide table reads a 32-byte sector a row) and the time of a PyTorch call
-that computes the same function where there is one; the
+that computes the same function where there is one (K9d and K9dw: the
+ordered form K12 runs, on the 40x batch, and under ``unordered_ms`` and
+``unordered_bound_ms`` the parent filter's form on the name-order batch
+of phase 3u, k = 31 and 63); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -618,6 +627,23 @@ def codes_40x(cuda, length=L):
             torch.full((B,), length, dtype=torch.int32, device=cuda))
 
 
+def codes_name_order(cuda, length=L):
+    """(codes, lengths) of one name-order batch of B reads of *length*
+    bp on the card: reads from random places of codes_40x's genome, with
+    its error rate, so hardly a window repeats (its own generator, seed
+    5)."""
+    rng = np.random.default_rng(5)
+    genome = np.random.default_rng(4).integers(0, 4, GENOME_BASES,
+                                               dtype=np.uint8)
+    starts = rng.integers(0, GENOME_BASES - length, B)
+    reads = genome[starts[:, None] + np.arange(length)[None, :]]
+    err = rng.random((B, length)) < ERROR_RATE
+    reads = np.where(err, (reads + rng.integers(1, 4, (B, length))) % 4,
+                     reads).astype(np.uint8)
+    return (torch.from_numpy(reads).to(cuda),
+            torch.full((B,), length, dtype=torch.int32, device=cuda))
+
+
 def batch_40x(cuda):
     """The flat k = 31 window keys of one 40x-coverage batch of B reads."""
     from kmer_denovo_filter_tpu_torch.ops import extract
@@ -790,6 +816,96 @@ def phase_3s(flat_random, flat_40x, cuda, check, times):
               f"{dedup_ms:.4f} ms, plain {dedup_plain:.4f} ms, "
               f"dedup_windows (whole batch) {dedup_lib:.4f} ms, bound "
               f"{dedup_lim[0]:.4f} ms by {dedup_lim[1]}", flush=True)
+
+
+def segment_sums(keys, weights, counts):
+    """Every segment's live slots merged: sorted (segment, key limbs)
+    rows and each row's weight sum, on the card."""
+    seg = keys.shape[1]
+    live = (torch.arange(seg, device=keys.device)[None, :]
+            < counts[:, None].long())
+    segs = torch.arange(counts.shape[0], device=keys.device)[:, None]
+    rows = keys[live].reshape(int(live.sum()), -1)
+    rows = torch.cat([segs.expand(-1, seg)[live][:, None], rows], 1)
+    uniq, inverse = torch.unique(rows, dim=0, return_inverse=True)
+    sums = torch.zeros(uniq.shape[0], dtype=torch.int64, device=keys.device)
+    return uniq, sums.index_add_(0, inverse, weights[live])
+
+
+def phase_3u(cuda, check, times):
+    """K9d and K9dw in the parent filter's unordered form
+    (``ordered=False``) at k = 31, 63 and 201 on a name-order and a 40x
+    batch: each segment's weights sum key by key (row by row) as the
+    plain version's; the passed flags are 0 or 1, every segment of the
+    name-order batch passed and some of the 40x batch kept; a passed
+    segment holds its live keys in row order, each of weight 1, a kept
+    one as many keys as the plain version's distinct keys.  Timed beside
+    the ordered form."""
+    from kmer_denovo_filter_tpu_torch.ops import device as dev
+    from kmer_denovo_filter_tpu_torch.ops import extract, segsort
+    from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
+    from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+    seg = segsort.SEGMENT
+    for k in (31, 63, 201):
+        length = L_K201 if k == 201 else L
+        narrow = k <= 31
+        name = "seg_dedup" if narrow else "seg_dedup_wide"
+        dedup = segsort.seg_dedup if narrow else segsort.seg_dedup_wide
+        plain = dev.segment_runs if narrow else dev.segment_runs_wide
+        for label, (c, l) in (("name", codes_name_order(cuda, length)),
+                              ("40x", codes_40x(cuda, length))):
+            flat = (extract.extract_canonical(c, l, k).reshape(-1)
+                    if narrow else
+                    extract.extract_canonical_wide(c, l, k).flatten(0, 1))
+            what = f"unordered, k={k}, {label} batch"
+            keys, weights, counts, passed = dedup(flat, ordered=False)
+            ref = plain(segsort.segments(flat, SENTINEL))
+            for g, w in zip(segment_sums(keys, weights, counts),
+                            segment_sums(*ref)):
+                check(name, g, w, f"{what}, weight sums")
+            n_seg = counts.numel()
+            if passed.dtype != torch.int32 or passed.shape != (n_seg,):
+                fail(f"{name}: {what}: passed flags {passed.dtype} "
+                     f"{tuple(passed.shape)}")
+            flags = passed.tolist()
+            if not set(flags) <= {0, 1}:
+                fail(f"{name}: {what}: passed flags not 0 or 1")
+            n_passed = sum(flags)
+            if label == "name" and n_passed != n_seg:
+                fail(f"{name}: {what}: {n_passed} of {n_seg} segments "
+                     "passed through")
+            if label == "40x" and n_passed == n_seg:
+                fail(f"{name}: {what}: every segment passed through")
+            for s_, was_passed in enumerate(flags):
+                n = int(counts[s_])
+                if was_passed:
+                    part = flat[s_ * seg:(s_ + 1) * seg]
+                    live = part[(part if narrow else part[:, 0]) != SENTINEL]
+                    if n != live.shape[0]:
+                        fail(f"{name}: {what}: passed segment {s_} holds "
+                             f"{n} keys of {live.shape[0]} live")
+                    check(name, keys[s_, :n], live,
+                          f"{what}, passed segment {s_}, keys in row order")
+                    check(name, weights[s_, :n], torch.ones_like(
+                        weights[s_, :n]), f"{what}, passed segment {s_}, "
+                          "weights")
+                elif n != int(ref[2][s_]):
+                    fail(f"{name}: {what}: kept segment {s_} holds {n} "
+                         f"keys, the plain version {int(ref[2][s_])}")
+            q = 1 if narrow else flat.shape[1]
+            out = int(counts.sum())
+            # keys (rows) read; a key and a weight written per key left
+            # in a slot, a count and a flag per segment
+            lim = bound(8 * q * flat.shape[0] + (8 * q + 8) * out
+                        + 8 * n_seg, 0)
+            ms = device_ms(lambda: dedup(flat, ordered=False))
+            ordered_ms = device_ms(lambda: dedup(flat))
+            times[(name, "unordered", k, label)] = (ms, lim)
+            print(f"[3u] {'K9d' if narrow else 'K9dw'} k={k} {label} batch: "
+                  f"equal weight sums ({n_passed} of {n_seg} segments "
+                  f"passed through, {out} keys left); unordered "
+                  f"{ms:.4f} ms, ordered {ordered_ms:.4f} ms, bound "
+                  f"{lim[0]:.4f} ms by {lim[1]}", flush=True)
 
 
 def phase_3r(rng, cuda, check, times):
@@ -2273,6 +2389,9 @@ def main():
 
     phase_3s_wide(rng, cuda, check, times)
 
+    # ── 3u. K9d and K9dw in the parent filter's unordered form ───────
+    phase_3u(cuda, check, times)
+
     # ── 3w. wide kernels against their plain versions ──────────────
     phase_3w(rng, cuda, check, times)
 
@@ -2695,6 +2814,14 @@ def main():
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": lim[0], "bound_by": lim[1],
             "library_ms": library_ms})
+        if name != "seg_sort":
+            # the parent filter's unordered form on the name-order batch
+            # (k = 31, 63), the main path's form and data
+            u_ms, u_lim = times[(name, "unordered",
+                                 31 if name == "seg_dedup" else 63, "name")]
+            report["kernels"][-1].update(unordered_ms=u_ms,
+                                         unordered_bound_ms=u_lim[0],
+                                         unordered_bound_by=u_lim[1])
     route_ms, route_plain, route_lib, route_lim = times[("route", 31, 4)]
     # K12 on the 40x batch at k = 31, the call with its sync
     k12_ms, k12_plain, k12_lib, k12_lim, _launch_ms = times[(

@@ -28,6 +28,9 @@
 // stable by carrying the earlier position in the payload's high bits.
 // On an H100 the carried payload took 0.227 ms for a 32,768 x 152 bp
 // batch and the lexicographic pair 0.278 (PERF.md): K9 carries.
+//
+// Besides the sort, the row order that the unordered forms of K9d and
+// K9dw write their segments in (RowOrder).
 
 #pragma once
 
@@ -73,6 +76,54 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* sums,
   __syncthreads();
   *total = sums[kSortWarps - 1];
   return inclusive - v + (warp > 0 ? sums[warp - 1] : 0);
+}
+
+// The row order that the unordered forms of K9d and K9dw write a
+// segment in: element t + 512 r (thread t's in round r, r < 16: a row of
+// the segment, or a slot of the hash) goes to its rank among the live
+// elements, round by round, warp by warp, lane by lane.  A ballot counts
+// each warp's live elements a round, one block scan turns the 16 x 16
+// counts into first places, and a second ballot ranks each lane within
+// its warp: a warp's live elements land side by side.  Its state, in
+// shared memory:
+struct RowOrder {
+  int first[kSortRegs * kSortWarps];  // a round and warp's first place
+  int sums[kSortWarps];
+};
+
+// Counts round r's live elements of the calling warp; all threads call
+// it, round by round.
+__device__ __forceinline__ void row_order_count(RowOrder* o, int r,
+                                                bool live) {
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, live);
+  if ((threadIdx.x & 31) == 0) {
+    o->first[r * kSortWarps + (threadIdx.x >> 5)] = __popc(ballot);
+  }
+}
+
+// The counts of rounds [0, rounds) to their first places, in place; the
+// live elements' number.  A barrier before and after; all threads call
+// it.
+__device__ __forceinline__ int row_order_scan(RowOrder* o, int rounds) {
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int cells = rounds * kSortWarps;
+  int total;
+  const int first =
+      block_exclusive_sum(t < cells ? o->first[t] : 0, o->sums, &total);
+  if (t < cells) o->first[t] = first;
+  __syncthreads();
+  return total;
+}
+
+// The place of a live element of round r (after row_order_scan); all
+// threads call it, round by round.
+__device__ __forceinline__ int row_order_place(const RowOrder* o, int r,
+                                               bool live) {
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, live);
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  return o->first[r * kSortWarps + (threadIdx.x >> 5)] +
+         __popc(ballot & below);
 }
 
 // Shared-memory slot of element i: the XOR swizzle that keeps both the

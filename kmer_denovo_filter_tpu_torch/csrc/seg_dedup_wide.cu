@@ -53,10 +53,20 @@
 // 32 KB for the hash path's element table (row index | count << 13) or
 // the run starts; one block an SM.
 //
-// Bound: by bytes.  8Q B a row in; 8Q + 8 B per distinct row and 4 B per
-// segment out.  At k = 63 (Q = 3) a 32,768 x 152 bp batch is 2,949,120
-// rows in 360 segments, 70.8 MB in: ~0.021 ms at 3.35 TB/s plus the
-// output.
+// The unordered form (seg_dedup_wide_kernel<Q, false>), for a consumer
+// that reads no order among a segment's rows and adds weights that
+// commute (the parent filter's K7): step 1, then no sort and no tie
+// pass.  A segment the hash kept writes its distinct rows (each row's
+// first occurrence) with their counts; one it gave up on is passed
+// through: every live row, of weight 1, their number its count (a
+// name-sorted batch's segments hold no repeats, so every one is passed
+// through).  A kept segment leaves in the hash's slot order, a passed
+// one in row order (block_sort.cuh's RowOrder); a per-segment flag says
+// which segments were passed through.  K7 on a 2^28-row table probes
+// row-ordered rows about 1.1x slower than sorted ones (PERF.md), less
+// than the sort and the tie pass cost here.  The hash's 96 KB of shared
+// memory and a 1 KB row-order table, at most 64 registers: two blocks
+// an SM (the ordered form: 128 KB, 128 registers, one).
 
 #include <atomic>
 #include <cstdint>
@@ -72,6 +82,10 @@ using kdf::block_sort;
 using kdf::kLogSegment;
 using kdf::kSegment;
 using kdf::kSentinel;
+using kdf::row_order_count;
+using kdf::row_order_place;
+using kdf::row_order_scan;
+using kdf::RowOrder;
 using kdf::swizzle;
 
 constexpr int kThreads = kdf::kSortThreads;
@@ -86,6 +100,7 @@ constexpr unsigned long long kWordIndexMask = kIndexMask;
 constexpr unsigned long long kClaimed = 1ull << 63;  // 0 is an empty slot
 // the hash (or the sort's buffers), then the element table
 constexpr size_t kSmemBytes = kSegment * (sizeof(long long) + 2 * sizeof(int));
+constexpr size_t kHashBytes = kSlots * (sizeof(long long) + sizeof(int));
 static_assert(kSlots == kSegment, "the sort's buffers reuse the hash's bytes");
 
 // 64-bit fingerprint of a row: a multiply-xorshift round per limb.  Its
@@ -248,32 +263,71 @@ __device__ __forceinline__ bool one_row(const int* spay, int lo, int hi,
   return true;
 }
 
-// K9dw over segment blockIdx.x of rows[0, n) (rows past n are sentinel).
+// K9dw's unordered form over segment blockIdx.x, after the hash
+// (`distinct` its result): a segment the hash kept writes each distinct
+// row (its first occurrence, read again through L1 / L2) with its count,
+// in slot order; one it gave up on is passed through, each live row of
+// weight 1, in row order (block_sort.cuh's RowOrder); no sort and no tie
+// pass.  passed[segment] is 1 for a segment passed through, else 0.
 template <int Q>
-__global__ void __launch_bounds__(kThreads, 1)
-    seg_dedup_wide_kernel(const long long* __restrict__ keys, long long n,
-                          long long* __restrict__ keys_out,
-                          long long* __restrict__ weights_out,
-                          int32_t* __restrict__ counts) {
-  extern __shared__ long long smem[];
+__device__ __forceinline__ void write_unordered(
+    int distinct, const long long* __restrict__ rows, int live_rows,
+    const unsigned long long* hword, const int* hcount,
+    long long* __restrict__ out_rows, long long* __restrict__ out_weights,
+    int32_t* __restrict__ counts, int32_t* __restrict__ passed) {
+  __shared__ RowOrder order;
+  const int t = threadIdx.x;
+  const bool pass = distinct < 0;
+  // thread t takes rows t + 512 r, or slots t + 512 r: the row to write,
+  // kSegment for none
+  const auto row_of = [&](int r) -> int {
+    const int i = t + r * kThreads;
+    if (!pass) {
+      const unsigned long long w = hword[i];
+      return w == 0 ? kSegment : static_cast<int>(w & kWordIndexMask);
+    }
+    return i < live_rows && __ldg(rows + static_cast<long long>(i) * Q) !=
+                                kSentinel
+               ? i
+               : kSegment;
+  };
+#pragma unroll 4
+  for (int r = 0; r < kRegs; ++r) {
+    row_order_count(&order, r, row_of(r) != kSegment);
+  }
+  const int n_out = row_order_scan(&order, kRegs);
+#pragma unroll 4
+  for (int r = 0; r < kRegs; ++r) {
+    const int row = row_of(r);
+    const int pos = row_order_place(&order, r, row != kSegment);
+    if (row == kSegment) continue;
+    const long long* const src = rows + static_cast<long long>(row) * Q;
+    long long* const dst = out_rows + static_cast<long long>(pos) * Q;
+#pragma unroll
+    for (int l = 0; l < Q; ++l) dst[l] = __ldg(src + l);
+    out_weights[pos] = pass ? 1 : hcount[t + r * kThreads];
+  }
+  if (t == 0) {
+    counts[blockIdx.x] = n_out;
+    passed[blockIdx.x] = pass;
+  }
+}
+
+// K9dw's ordered form over segment blockIdx.x, after the hash
+// (`distinct` its result; smem the kernel's 128 KB): steps 2 to 4.
+template <int Q>
+__device__ __forceinline__ void write_sorted(
+    int distinct, const long long* __restrict__ rows, int live_rows,
+    long long* smem, long long* __restrict__ out_rows,
+    long long* __restrict__ out_weights, int32_t* __restrict__ counts) {
   __shared__ int sums[kWarps];
-  __shared__ int n_distinct;
-  __shared__ int n_live;
-  __shared__ int overflow;
   __shared__ int big_tie;
   const int t = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * kSegment;
-  const long long* const rows = keys + base * Q;
-  const int live_rows =
-      static_cast<int>(n - base < kSegment ? n - base : kSegment);
-  auto* const hword = reinterpret_cast<unsigned long long*>(smem);
-  int* const hcount = reinterpret_cast<int*>(smem + kSlots);
+  const int* const hcount = reinterpret_cast<int*>(smem + kSlots);
+  const auto* const hword = reinterpret_cast<unsigned long long*>(smem);
   long long* const skey = smem;  // the sort's buffers reuse the hash
   int* const spay = reinterpret_cast<int*>(smem + kSegment);
   int* const elem = spay + kSegment;  // hash path: row | count << 13
-  // -1: sort all rows
-  const int distinct = hash_rows<Q>(rows, live_rows, hword, hcount,
-                                    &n_distinct, &n_live, &overflow);
   const bool hashed = distinct >= 0;
   const auto row_of = [&](int e) -> long long {
     return hashed ? elem[e] & kIndexMask : e;
@@ -390,8 +444,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
     }
   }
-  long long* const out_rows = keys_out + base * Q;
-  long long* const out_weights = weights_out + base;
   if (hashed) {
     // every live element a distinct row, its count from the hash
     for (int x = t; x < distinct * Q; x += kThreads) {
@@ -449,42 +501,104 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (t == 0) counts[blockIdx.x] = n_runs;
 }
 
-std::atomic<uint64_t> opted_in[8];
+// K9dw over segment blockIdx.x of rows[0, n) (rows past n are sentinel):
+// the hash, then write_sorted or write_unordered.  The unordered form
+// reads only the hash's 96 KB of shared memory and holds no sort in
+// registers: two blocks an SM, where the ordered form fits one.
+template <int Q, bool kOrdered>
+__global__ void __launch_bounds__(kThreads, kOrdered ? 1 : 2)
+    seg_dedup_wide_kernel(const long long* __restrict__ keys, long long n,
+                          long long* __restrict__ keys_out,
+                          long long* __restrict__ weights_out,
+                          int32_t* __restrict__ counts,
+                          int32_t* __restrict__ passed) {
+  extern __shared__ long long smem[];
+  __shared__ int n_distinct;
+  __shared__ int n_live;
+  __shared__ int overflow;
+  const long long base = static_cast<long long>(blockIdx.x) * kSegment;
+  const long long* const rows = keys + base * Q;
+  const int live_rows =
+      static_cast<int>(n - base < kSegment ? n - base : kSegment);
+  auto* const hword = reinterpret_cast<unsigned long long*>(smem);
+  int* const hcount = reinterpret_cast<int*>(smem + kSlots);
+  // -1: sort all rows (ordered) or pass them through (unordered)
+  const int distinct = hash_rows<Q>(rows, live_rows, hword, hcount,
+                                    &n_distinct, &n_live, &overflow);
+  if constexpr (kOrdered) {
+    write_sorted<Q>(distinct, rows, live_rows, smem, keys_out + base * Q,
+                    weights_out + base, counts);
+  } else {
+    write_unordered<Q>(distinct, rows, live_rows, hword, hcount,
+                       keys_out + base * Q, weights_out + base, counts,
+                       passed);
+  }
+}
 
-template <int Q>
+std::atomic<uint64_t> opted_in[2][8];
+
+template <int Q, bool kOrdered>
 int launch(const void* keys, long long n, void* keys_out, void* weights_out,
-           void* counts, void* stream) {
-  const cudaError_t err = kdf::opt_in_smem(seg_dedup_wide_kernel<Q>,
-                                           kSmemBytes, opted_in[Q]);
+           void* counts, void* passed, void* stream) {
+  // the unordered form reads the hash alone
+  constexpr size_t bytes = kOrdered ? kSmemBytes : kHashBytes;
+  const cudaError_t err = kdf::opt_in_smem(
+      seg_dedup_wide_kernel<Q, kOrdered>, bytes, opted_in[kOrdered][Q]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  seg_dedup_wide_kernel<Q>
+  seg_dedup_wide_kernel<Q, kOrdered>
       <<<static_cast<unsigned>((n + kSegment - 1) / kSegment), kThreads,
-         kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+         bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const long long*>(keys), n,
           static_cast<long long*>(keys_out),
           static_cast<long long*>(weights_out),
-          static_cast<int32_t*>(counts));
+          static_cast<int32_t*>(counts), static_cast<int32_t*>(passed));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int Q>
+int launch(const void* keys, long long n, int ordered, void* keys_out,
+           void* weights_out, void* counts, void* passed, void* stream) {
+  return ordered ? launch<Q, true>(keys, n, keys_out, weights_out, counts,
+                                   passed, stream)
+                 : launch<Q, false>(keys, n, keys_out, weights_out, counts,
+                                    passed, stream);
 }
 
 }  // namespace
 
 // K9dw over the (n, q) rows keys: for each of the ceil(n / 8,192)
-// segments (rows past n count as sentinel rows) its distinct live rows
-// ascending with their int64 multiplicities at the front of the
-// segment's slot of keys_out (8,192 x q) / weights_out (8,192), and their
-// number to counts[segment] (int32).  cudaErrorInvalidValue for q outside
-// 2..7.
+// segments (rows past n count as sentinel rows), ordered (ordered != 0),
+// its distinct live rows ascending with their int64 multiplicities at
+// the front of the segment's slot of keys_out (8,192 x q) / weights_out
+// (8,192), and their number to counts[segment] (int32).  Unordered,
+// counts[segment] live rows whose weights sum, row by row, to the row's
+// multiplicity, in no set order and not always merged, and
+// passed[segment] (int32) 1 where the segment was passed through (every
+// live row, of weight 1), else 0; the ordered form leaves passed (which
+// may be null) alone.  cudaErrorInvalidValue for q outside 2..7.
 extern "C" int kdf_seg_dedup_wide(const void* keys, long long n, int q,
-                                  void* keys_out, void* weights_out,
-                                  void* counts, void* stream) {
+                                  int ordered, void* keys_out,
+                                  void* weights_out, void* counts,
+                                  void* passed, void* stream) {
   switch (q) {
-    case 2: return launch<2>(keys, n, keys_out, weights_out, counts, stream);
-    case 3: return launch<3>(keys, n, keys_out, weights_out, counts, stream);
-    case 4: return launch<4>(keys, n, keys_out, weights_out, counts, stream);
-    case 5: return launch<5>(keys, n, keys_out, weights_out, counts, stream);
-    case 6: return launch<6>(keys, n, keys_out, weights_out, counts, stream);
-    case 7: return launch<7>(keys, n, keys_out, weights_out, counts, stream);
+    case 2:
+      return launch<2>(keys, n, ordered, keys_out, weights_out, counts,
+                        passed, stream);
+    case 3:
+      return launch<3>(keys, n, ordered, keys_out, weights_out, counts,
+                        passed, stream);
+    case 4:
+      return launch<4>(keys, n, ordered, keys_out, weights_out, counts,
+                        passed, stream);
+    case 5:
+      return launch<5>(keys, n, ordered, keys_out, weights_out, counts,
+                        passed, stream);
+    case 6:
+      return launch<6>(keys, n, ordered, keys_out, weights_out, counts,
+                        passed, stream);
+    case 7:
+      return launch<7>(keys, n, ordered, keys_out, weights_out, counts,
+                        passed, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

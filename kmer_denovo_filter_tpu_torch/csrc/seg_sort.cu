@@ -58,6 +58,23 @@
 // Bound: by bytes.  K9d reads 8 B a row and writes 16 B per distinct key
 // and 4 B per segment: ~0.012 ms for the 532,235 segment rows of a
 // 40x batch of 32,768 x 152 bp at 3.35 TB/s.
+//
+// K9d's unordered form (seg_dedup_kernel<false>), for a consumer that
+// reads no order among a segment's keys and adds weights that commute
+// (the parent filter's K3): the same hash and give-up, then no sort.  A
+// segment the hash kept writes its distinct keys with their counts; one
+// it gave up on is passed through: every live key, of weight 1, their
+// number its count (a name-sorted batch's segments hold no repeats, so
+// every one is passed through).  A kept segment leaves in the hash's
+// slot order, a passed one in row order (block_sort.cuh's RowOrder: a
+// ballot a warp and round, one block scan, coalesced stores); a
+// per-segment flag says which segments were passed through.  K3 on a
+// 2^27-key table probes row-ordered keys about 1.3x slower than sorted
+// ones (the blocks, a segment each, no longer sweep the table in step;
+// PERF.md), less than the sort costs here.  The hash's 48 KB of shared
+// memory and a 1 KB row-order table, at most 32 registers: four blocks
+// an SM, a batch's 488 segments in one wave (the ordered form: 96 KB and
+// 64 registers, two blocks).
 
 #include <atomic>
 #include <cstdint>
@@ -73,6 +90,10 @@ using kdf::block_sort;
 using kdf::kLogSegment;
 using kdf::kSegment;
 using kdf::kSentinel;
+using kdf::row_order_count;
+using kdf::row_order_place;
+using kdf::row_order_scan;
+using kdf::RowOrder;
 using kdf::swizzle;
 
 constexpr int kThreads = kdf::kSortThreads;
@@ -268,27 +289,62 @@ __device__ __forceinline__ int hash_count_segment(
   return *overflow ? -1 : *n_distinct;
 }
 
-// K9d over segment blockIdx.x of keys[0, n) (rows past n are sentinel):
-// the hash first, then one block_sort, of the compacted distinct keys
-// (weights from the hash) or of all rows (weights the run lengths).
-__global__ void __launch_bounds__(kThreads, 2)
-    seg_dedup_kernel(const long long* __restrict__ keys, long long n,
-                     long long* __restrict__ keys_out,
-                     long long* __restrict__ weights_out,
-                     int32_t* __restrict__ counts) {
-  extern __shared__ long long smem[];
+// K9d's unordered form over segment blockIdx.x, after the hash
+// (`distinct` its result): a segment the hash kept writes its distinct
+// keys with their counts, in slot order; one it gave up on is passed
+// through, each live key of weight 1, in row order (block_sort.cuh's
+// RowOrder); no sort.  A passed segment's keys are read twice (the
+// second time from L1 / L2).  passed[segment] is 1 for a segment passed
+// through, else 0.
+__device__ __forceinline__ void write_unordered(
+    int distinct, const long long* __restrict__ keys, long long n,
+    long long base, const unsigned long long* hkey, const int* hcount,
+    long long* __restrict__ keys_out, long long* __restrict__ weights_out,
+    int32_t* __restrict__ counts, int32_t* __restrict__ passed) {
+  __shared__ RowOrder order;
+  const int t = threadIdx.x;
+  const bool pass = distinct < 0;
+  // thread t takes rows t + 512 r (kRegs rounds) or slots t + 512 r
+  constexpr int kRounds = kHashSlots / kThreads;
+  const int rounds = pass ? kRegs : kRounds;
+  const auto key_of = [&](int r) -> long long {
+    if (!pass) return static_cast<long long>(hkey[t + r * kThreads]);
+    const long long i = base + t + r * kThreads;
+    return i < n ? __ldg(keys + i) : kSentinel;
+  };
+#pragma unroll 4
+  for (int r = 0; r < rounds; ++r) {
+    row_order_count(&order, r, key_of(r) != kSentinel);
+  }
+  const int n_out = row_order_scan(&order, rounds);
+#pragma unroll 4
+  for (int r = 0; r < rounds; ++r) {
+    const long long k = key_of(r);
+    const int pos = row_order_place(&order, r, k != kSentinel);
+    if (k != kSentinel) {
+      keys_out[base + pos] = k;
+      weights_out[base + pos] = pass ? 1 : hcount[t + r * kThreads];
+    }
+  }
+  if (t == 0) {
+    counts[blockIdx.x] = n_out;
+    passed[blockIdx.x] = pass;
+  }
+}
+
+// K9d's ordered form over segment blockIdx.x, after the hash
+// (`distinct` its result; smem the kernel's 96 KB): one block_sort, of
+// the compacted distinct keys (weights from the hash) or, after a
+// give-up, of all rows (weights the run lengths).
+__device__ __forceinline__ void write_sorted(
+    int distinct, const long long* __restrict__ keys, long long n,
+    long long base, long long* smem, long long* __restrict__ keys_out,
+    long long* __restrict__ weights_out, int32_t* __restrict__ counts) {
   __shared__ int sums[kWarps];
   __shared__ long long warp_last[kWarps];
-  __shared__ int n_distinct;
-  __shared__ int n_live;
-  __shared__ int overflow;
   const int t = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * kSegment;
-  auto* const hkey = reinterpret_cast<unsigned long long*>(smem);
-  auto* const hcount = reinterpret_cast<int*>(smem + kHashSlots);
-  // -1: sort all rows
-  const int distinct = hash_count_segment(keys, n, base, hkey, hcount,
-                                          &n_distinct, &n_live, &overflow);
+  const auto* const hkey = reinterpret_cast<unsigned long long*>(smem);
+  const auto* const hcount = reinterpret_cast<int*>(smem + kHashSlots);
   long long key[kRegs];
   int log_p = kLogSegment;
   long long* buf = smem;
@@ -353,9 +409,59 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (t == 0) counts[blockIdx.x] = distinct;
 }
 
+// K9d over segment blockIdx.x of keys[0, n) (rows past n are sentinel):
+// the hash first, then write_sorted or write_unordered.  The unordered
+// form reads only the hash's 48 KB of shared memory and holds no sort in
+// registers: four blocks an SM, where the ordered form fits two (a
+// batch's 488 segments in one wave of 528 blocks).
+template <bool kOrdered>
+__global__ void __launch_bounds__(kThreads, kOrdered ? 2 : 4)
+    seg_dedup_kernel(const long long* __restrict__ keys, long long n,
+                     long long* __restrict__ keys_out,
+                     long long* __restrict__ weights_out,
+                     int32_t* __restrict__ counts,
+                     int32_t* __restrict__ passed) {
+  extern __shared__ long long smem[];
+  __shared__ int n_distinct;
+  __shared__ int n_live;
+  __shared__ int overflow;
+  const long long base = static_cast<long long>(blockIdx.x) * kSegment;
+  auto* const hkey = reinterpret_cast<unsigned long long*>(smem);
+  auto* const hcount = reinterpret_cast<int*>(smem + kHashSlots);
+  // -1: sort all rows (ordered) or pass them through (unordered)
+  const int distinct = hash_count_segment(keys, n, base, hkey, hcount,
+                                          &n_distinct, &n_live, &overflow);
+  if constexpr (kOrdered) {
+    write_sorted(distinct, keys, n, base, smem, keys_out, weights_out,
+                 counts);
+  } else {
+    write_unordered(distinct, keys, n, base, hkey, hcount, keys_out,
+                    weights_out, counts, passed);
+  }
+}
+
 std::atomic<uint64_t> sort_opted_in{0};
 std::atomic<uint64_t> sort_payload_opted_in{0};
-std::atomic<uint64_t> dedup_opted_in{0};
+std::atomic<uint64_t> dedup_opted_in[2];
+
+template <bool kOrdered>
+int launch_dedup(const void* keys, long long n, void* keys_out,
+                 void* weights_out, void* counts, void* passed,
+                 void* stream) {
+  // the unordered form reads the hash alone
+  constexpr size_t bytes = kOrdered ? kDedupSmemBytes : kHashBytes;
+  const cudaError_t err = kdf::opt_in_smem(seg_dedup_kernel<kOrdered>, bytes,
+                                           dedup_opted_in[kOrdered]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seg_dedup_kernel<kOrdered>
+      <<<static_cast<unsigned>((n + kSegment - 1) / kSegment), kThreads,
+         bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const long long*>(keys), n,
+          static_cast<long long*>(keys_out),
+          static_cast<long long*>(weights_out),
+          static_cast<int32_t*>(counts), static_cast<int32_t*>(passed));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -388,19 +494,19 @@ extern "C" int kdf_seg_sort(const void* keys, const void* payload,
 }
 
 // K9d over keys[0, n): for each of the ceil(n / 8,192) segments (rows
-// past n count as sentinel keys) its distinct live keys ascending with
-// their int64 multiplicities at the front of the segment's slot of
-// keys_out / weights_out, and their number to counts[segment] (int32).
-extern "C" int kdf_seg_dedup(const void* keys, long long n, void* keys_out,
-                             void* weights_out, void* counts, void* stream) {
-  const cudaError_t err =
-      kdf::opt_in_smem(seg_dedup_kernel, kDedupSmemBytes, dedup_opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seg_dedup_kernel<<<static_cast<unsigned>((n + kSegment - 1) / kSegment),
-                     kThreads, kDedupSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(keys), n,
-      static_cast<long long*>(keys_out), static_cast<long long*>(weights_out),
-      static_cast<int32_t*>(counts));
-  return static_cast<int>(cudaGetLastError());
+// past n count as sentinel keys), ordered (ordered != 0), its distinct
+// live keys ascending with their int64 multiplicities at the front of
+// the segment's slot of keys_out / weights_out, and their number to
+// counts[segment] (int32).  Unordered, counts[segment] live keys whose
+// weights sum, key by key, to the key's multiplicity, in no set order
+// and not always merged, and passed[segment] (int32) 1 where the segment
+// was passed through (every live key, of weight 1), else 0; the ordered
+// form leaves passed (which may be null) alone.
+extern "C" int kdf_seg_dedup(const void* keys, long long n, int ordered,
+                             void* keys_out, void* weights_out, void* counts,
+                             void* passed, void* stream) {
+  return ordered ? launch_dedup<true>(keys, n, keys_out, weights_out, counts,
+                                      passed, stream)
+                 : launch_dedup<false>(keys, n, keys_out, weights_out, counts,
+                                       passed, stream);
 }

@@ -571,18 +571,20 @@ class FilteredCounter:
 
     * plain (``dedup=False``): K1 window keys → K2, one probe per window;
     * dedup-first (``dedup=True``): K1 → K9d
-      (:func:`~.ops.segsort.seg_dedup`: each 8,192-window segment's
-      distinct keys and multiplicities, left in its slot) → K3 on those
-      slots, one probe and one weighted add per distinct key of a
-      segment, with no host sync between them — the reference's
+      (:func:`~.ops.segsort.seg_dedup` in its unordered form: each
+      8,192-window segment's keys with weights, left in its slot: its
+      distinct keys where K9d's hash kept it, every live key of weight 1
+      where it passed it through) → K3 on those slots, one probe and one
+      weighted add per key of a slot, with no host sync between them —
+      the reference's
       large-table branch with dedup on (engine.py:484–504,
       ``join_tally_step_dedup``: ``_dedup_compact`` over 8,192-row local
       chunks, then the weighted tally).
 
     For k > 31 the same forms run K1w → K7 unweighted (the reference's
     ``join_tally_flat_wide``) and K1w → K9dw
-    (:func:`~.ops.segsort.seg_dedup_wide`: each segment's distinct limb
-    rows and multiplicities, left in its slot) → K7 weighted on those
+    (:func:`~.ops.segsort.seg_dedup_wide`, unordered: each segment's
+    limb rows and weights, left in its slot) → K7 weighted on those
     slots, again with no host sync (``join_tally_flat_wide_dedup``:
     ``_dedup_compact_wide`` over 8,192-row local chunks, then the
     weighted tally).
@@ -611,16 +613,16 @@ class FilteredCounter:
         The caller may overwrite its arrays once this returns."""
         k = self.index.k
         with tracing.span("filter.feed"):
-            batch = counts = None
+            batch = flags = None
             if _has_windows(codes, k):
-                batch, counts = self._step(codes, lengths, k)
+                batch, flags = self._step(codes, lengths, k)
             if tracing.enabled():
-                _count_batch(codes, lengths, k, batch, counts)
+                _count_batch(codes, lengths, k, batch, flags)
 
     def _step(self, codes, lengths, k):
         """The batch up, then its launches enqueued (:meth:`_launch`),
         on a card as a CUDA graph where one is held: (the batch on the
-        device, the dedup's per-segment counts or None)."""
+        device, the dedup's per-segment flags or None)."""
         with tracing.span("filter.feed.htod"):
             if self._stage is None:
                 batch = _to_device(codes, lengths, self.index.device)
@@ -628,14 +630,16 @@ class FilteredCounter:
                 batch = self._stage.put(codes, lengths)
         if self._stage is None:
             return batch, self._launch(batch)
-        counts = self._graphs.run(batch)
+        flags = self._graphs.run(batch)
         self._stage.release()
-        return batch, counts
+        return batch, flags
 
     def _launch(self, batch):
         """K1 (K1w), then the tally, through K9d (K9dw) in the dedup
         form, enqueued on the current stream: the dedup's per-segment
-        counts, or None."""
+        ``(counts, passed)``, or None.  The dedup is unordered: K3 and K7
+        read no order among a slot's keys, and their integer adds
+        commute."""
         k = self.index.k
         with tracing.span("filter.feed.extract"):
             flat = _extractor(k)(*batch, k).flatten(0, 1)
@@ -645,10 +649,10 @@ class FilteredCounter:
             return None
         dedup = seg_dedup_wide if flat.dim() == 2 else seg_dedup
         with tracing.span("filter.feed.dedup"):
-            keys, weights, counts = dedup(flat)
+            keys, weights, counts, passed = dedup(flat, ordered=False)
         with tracing.span("filter.feed.tally"):
             _tally(keys, self.index, self.acc, weights, counts)
-        return counts
+        return counts, passed
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""
@@ -658,7 +662,7 @@ class FilteredCounter:
 
 class _StepGraphs:
     """A staged counter's launches (``launch(batch)``, which returns the
-    dedup's counts or None) as CUDA graphs, one for each slot of the ring
+    dedup's flags or None) as CUDA graphs, one for each slot of the ring
     and shape of batch: the host enqueues a batch's kernels by one graph
     launch, where each kernel's wrapper costs it tens of microseconds.
 
@@ -680,7 +684,7 @@ class _StepGraphs:
         self._side = None
 
     def run(self, batch):
-        """Enqueue *batch*'s launches; the dedup's counts or None."""
+        """Enqueue *batch*'s launches; the dedup's flags or None."""
         key = tuple((t.data_ptr(), tuple(t.shape)) for t in batch)
         held = self._held.get(key, _UNSEEN)
         if held is _UNSEEN:
@@ -725,12 +729,14 @@ class _StepGraphs:
         return graph, out, launched
 
 
-def _count_batch(codes, lengths, k, batch, counts):
+def _count_batch(codes, lengths, k, batch, flags):
     """The filter's counters of one host batch while tracing is on,
     counted after its kernels are enqueued, so the card runs them while
     the host counts: batches, reads, windows (the sum of max(0, length -
-    k + 1)), the bytes copied up and, in the dedup form, the distinct
-    keys K9d (K9dw) left in each segment, summed on the device."""
+    k + 1)), the bytes copied up and, in the dedup form (*flags*, K9d's
+    or K9dw's per-segment counts and passed flags), the segments, the
+    keys left in them and the segments passed through, the last two
+    summed on the device."""
     lengths = np.asarray(lengths)
     tracing.count("filter.batches")
     tracing.count("filter.reads", codes.shape[0])
@@ -740,8 +746,11 @@ def _count_batch(codes, lengths, k, batch, counts):
     if batch is not None:
         tracing.count("filter.bytes_up",
                       sum(t.numel() * t.element_size() for t in batch))
-    if counts is not None:
+    if flags is not None:
+        counts, passed = flags
+        tracing.count("filter.segments", counts.shape[0])
         tracing.count_on_device("filter.distinct_keys", counts)
+        tracing.count_on_device("filter.passed_segments", passed)
 
 
 class HostFilteredCounter:

@@ -20,8 +20,12 @@ where the checkout's K3 takes them, on K9d's slots (``slots``); K9d on
 both batches; and the step from K1's keys to the tally at
 2**24 keys in every form the checkout has: K1 -> K2, K1 -> whole-batch
 dedup -> K3, K1 -> K9d -> K3 on the slots, or the older K1 -> K9d ->
-compaction -> global sort -> K3 (``dedup_segments``).  K7 (unweighted,
-and weighted on the batch dedup) and K8
+compaction -> global sort -> K3 (``dedup_segments``).  Where the
+checkout's K9d and K9dw take ``ordered``, their unordered form too (``K9d
+unordered``, ``K9dw unordered``, the parent filter's, with K3 and K7 on
+its slots and in the step), checked by each segment's weight sums, with
+the number of segments passed through printed.  K7 (unweighted, and
+weighted on the batch dedup) and K8
 (found bytes, rows) at k = 63 on 2,048, 4,096, 262,144 and 2**24 rows
 and at k = 201 on 1,024, 4,096 and 2**22, half drawn from the batch
 (2,048 and 1,024 rows are tables that a form staging them in shared
@@ -143,6 +147,21 @@ def compact(keys, weights, counts):
     live = (torch.arange(keys.shape[1], device=keys.device)[None, :]
             < counts[:, None])
     return keys[live], weights[live]
+
+
+def segment_sums(keys, weights, counts):
+    """Every segment's live slots merged: sorted (segment, key limbs)
+    rows and each row's weight sum, the contract of K9d's and K9dw's
+    unordered form."""
+    seg = keys.shape[1]
+    live = (torch.arange(seg, device=keys.device)[None, :]
+            < counts[:, None].long())
+    segs = torch.arange(counts.shape[0], device=keys.device)[:, None]
+    rows = keys[live].reshape(int(live.sum()), -1)
+    rows = torch.cat([segs.expand(-1, seg)[live][:, None], rows], 1)
+    uniq, inverse = torch.unique(rows, dim=0, return_inverse=True)
+    sums = torch.zeros(uniq.shape[0], dtype=torch.int64, device=keys.device)
+    return uniq, sums.index_add_(0, inverse, weights[live])
 
 
 def main(argv=None):
@@ -284,14 +303,28 @@ def main(argv=None):
         return ((d,) if k3_dir else ()) + (() if counts is None
                                            else (counts,))
 
+    # the unordered form of K9d and K9dw, where the checkout has it
+    unordered = "ordered" in inspect.signature(segsort.seg_dedup).parameters
+
     def k9d(label, flat):
-        """K9d on *flat*, checked against its plain version."""
+        """K9d on *flat*, checked against its plain version; its
+        unordered form, where the checkout has it, against the weight
+        sums of the plain version's."""
         ref = dev.segment_runs(segsort.segments(flat, keys64.SENTINEL))
         got = segsort.seg_dedup(flat)
         check(f"K9d {label} counts", got[2], ref[2])
         for g, w in zip(compact(*got), compact(*ref)):
             check(f"K9d {label} rows", g, w)
         time_it("K9d", f"k=31 {label}", lambda: segsort.seg_dedup(flat))
+        if unordered:
+            got = segsort.seg_dedup(flat, ordered=False)
+            for g, w in zip(segment_sums(*got[:3]), segment_sums(*ref)):
+                check(f"K9d unordered {label}", g, w)
+            print(f"{args.tag:8s} K9d unordered k=31 {label}: "
+                  f"{int(got[3].sum())} of {got[3].numel()} segments "
+                  f"passed through", flush=True)
+            time_it("K9d unordered", f"k=31 {label}",
+                    lambda: segsort.seg_dedup(flat, ordered=False))
 
     def probes(label, codes, lengths, flat, group):
         """K2, K3 (flat and slots) and K4 at k = 31 on *flat* (and K4 on
@@ -299,6 +332,8 @@ def main(argv=None):
         from *codes* to the tally at STEP_M keys."""
         uniq, weights = dev.dedup_windows(flat)
         slots = segsort.seg_dedup(flat) if k3_slots else None
+        slots_u = (segsort.seg_dedup(flat, ordered=False)[:3]
+                   if k3_slots and unordered else None)
         for m in PROBE_MS if wanted & {"K2", "K3", "K4", "step"} else ():
             if m != STEP_M and not wanted & {"K2", "K3", "K4"}:
                 continue
@@ -333,6 +368,15 @@ def main(argv=None):
                 check(f"K3 slots {label} M={m}", acc, ref)
                 time_it("K3 slots", shape, lambda: probe.probe_tally_weighted(
                     slots[0], slots[1], table, acc, *k3_args(d, slots[2])))
+            if slots_u is not None:
+                acc.zero_()
+                probe.probe_tally_weighted(slots_u[0], slots_u[1], table, acc,
+                                           *k3_args(d, slots_u[2]))
+                check(f"K3 slots unordered {label} M={m}", acc, ref)
+                time_it("K3 slots unordered", shape,
+                        lambda: probe.probe_tally_weighted(
+                            slots_u[0], slots_u[1], table, acc,
+                            *k3_args(d, slots_u[2])))
             if m == STEP_M and "step" in wanted:
                 steps(label, codes, lengths, table, dargs, ref)
             del table, acc, dargs, ref, d
@@ -365,6 +409,14 @@ def main(argv=None):
             forms["K1->K9d->sort->K3"] = lambda acc: (
                 probe.probe_tally_weighted(*segsort.dedup_segments(keys()),
                                            table, acc, *k3_args(d)))
+        if unordered:
+            def unordered_step(acc):
+                s_keys, s_weights, s_counts, _ = segsort.seg_dedup(
+                    keys(), ordered=False)
+                return probe.probe_tally_weighted(
+                    s_keys, s_weights, table, acc, *k3_args(d, s_counts))
+
+            forms["K1->K9d unordered->K3"] = unordered_step
         for name, step in forms.items():
             acc = torch.zeros_like(ref)
             step(acc)
@@ -467,6 +519,15 @@ def main(argv=None):
                 check(f"K9dw k={k} {label} rows", g, w)
             time_it("K9dw", f"k={k} {label}",
                     lambda: segsort.seg_dedup_wide(flat))
+        if unordered:
+            got = segsort.seg_dedup_wide(flat, ordered=False)
+            for g, w in zip(segment_sums(*got[:3]), segment_sums(*ref)):
+                check(f"K9dw unordered k={k} {label}", g, w)
+            print(f"{args.tag:8s} K9dw unordered k={k} {label}: "
+                  f"{int(got[3].sum())} of {got[3].numel()} segments "
+                  f"passed through", flush=True)
+            time_it("K9dw unordered", f"k={k} {label}",
+                    lambda: segsort.seg_dedup_wide(flat, ordered=False))
         time_it("K9dw batch", f"k={k} {label}",
                 lambda: dev.dedup_windows_wide(flat))
         time_it("K9dw unique", f"k={k} {label}", lambda: torch.unique(
@@ -511,6 +572,23 @@ def main(argv=None):
                                               d, s_counts)
 
             forms["K1w->K9dw->K7"] = slots_step
+        if unordered:
+            slots_u = segsort.seg_dedup_wide(flat, ordered=False)
+            acc = torch.zeros_like(ref)
+            probe.probe_tally_wide(slots_u[0], table, acc, slots_u[1], d,
+                                   slots_u[2])
+            check(f"K7 slots unordered k={k} {label}", acc, ref)
+            time_it("wstep", f"K7 slots unordered k={k} M={m} {label}",
+                    lambda: probe.probe_tally_wide(slots_u[0], table, acc,
+                                                   slots_u[1], d, slots_u[2]))
+
+            def unordered_step(acc):
+                s_keys, s_weights, s_counts, _ = segsort.seg_dedup_wide(
+                    keys(), ordered=False)
+                return probe.probe_tally_wide(s_keys, table, acc, s_weights,
+                                              d, s_counts)
+
+            forms["K1w->K9dw unordered->K7"] = unordered_step
         for name, step in forms.items():
             acc = torch.zeros_like(ref)
             step(acc)

@@ -113,10 +113,11 @@ def lib():
             so.kdf_extract_canonical.restype = i32
             so.kdf_seg_sort.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
             so.kdf_seg_sort.restype = i32
-            so.kdf_seg_dedup.argtypes = [ptr, i64, ptr, ptr, ptr, ptr]
+            so.kdf_seg_dedup.argtypes = [ptr, i64, i32, ptr, ptr, ptr, ptr,
+                                         ptr]
             so.kdf_seg_dedup.restype = i32
-            so.kdf_seg_dedup_wide.argtypes = [ptr, i64, i32, ptr, ptr, ptr,
-                                              ptr]
+            so.kdf_seg_dedup_wide.argtypes = [ptr, i64, i32, i32, ptr, ptr,
+                                              ptr, ptr, ptr]
             so.kdf_seg_dedup_wide.restype = i32
             so.kdf_build_directory.argtypes = [ptr, i32, i32, i32, i32, ptr,
                                                ptr]

@@ -13,7 +13,10 @@ counterpart of ``pallas_join._dedup_compact_wide`` (:1494).  Kernels K3
 (``probe.probe_tally_weighted``) and K7 (``probe.probe_tally_wide``)
 read those slots as they stand, so the engine's dedup form is K1 -> K9d
 -> K3, or K1w -> K9dw -> K7 for k > 31, with no compaction and no host
-sync between them.  K9 and K9d are in ``csrc/seg_sort.cu``, K9dw in
+sync between them.  Those tallies read no order among a slot's keys, so
+the engine takes K9d's and K9dw's unordered form (``ordered=False``),
+which sorts nothing; K12 (``sortcount``) merges the sorted slots of the
+ordered form.  K9 and K9d are in ``csrc/seg_sort.cu``, K9dw in
 ``csrc/seg_dedup_wide.cu``; all three sort by the register network of
 ``csrc/block_sort.cuh``.
 
@@ -94,7 +97,22 @@ def seg_sort(flat, payload=None):
     return keys_out, pay_out
 
 
-def seg_dedup(flat):
+def _flags(n_seg, ordered, device):
+    """The int32 per-segment outputs of K9d / K9dw: counts, and beside
+    them, unordered, the passed-through flags (else None)."""
+    if ordered:
+        return torch.empty(n_seg, dtype=torch.int32, device=device), None
+    flags = torch.empty((2, n_seg), dtype=torch.int32, device=device)
+    return flags[0], flags[1]
+
+
+def _plain(out, ordered):
+    """The plain version's sorted, merged slots; unordered, with the
+    flags of no segment passed through."""
+    return out if ordered else (*out, torch.zeros_like(out[2]))
+
+
+def seg_dedup(flat, ordered=True):
     """Segment-local dedup of the (N,) int64 stream *flat*.
 
     Returns ``(keys, weights, counts)``: (S, 8192) int64 keys and
@@ -103,28 +121,42 @@ def seg_dedup(flat):
     their multiplicities; sentinel keys form no run.  What follows in a
     row is unspecified (the kernel leaves it unwritten).  A CUDA tensor
     launches kernel K9d; a CPU tensor runs the plain version.
+
+    *ordered* False is the form for a consumer that reads no order among
+    a segment's keys and adds weights that commute (the parent filter's
+    K3): ``(keys, weights, counts, passed)``, row s beginning with
+    counts[s] live keys whose weights sum, key by key, to the key's
+    multiplicity in segment s; their order, and whether equal keys are
+    merged, are unspecified.  The kernel sorts nothing then: a segment
+    whose hash gives up is passed through (every live key, of weight 1),
+    in row order, and passed[s] (int32) is 1 for such a segment, else 0;
+    a segment the hash keeps leaves its distinct keys with their counts
+    in slot order.  The plain version merges every segment (passed all
+    0).
     """
     if _check(flat) == "cpu":
-        return dev.segment_runs(segments(flat, SENTINEL))
+        return _plain(dev.segment_runs(segments(flat, SENTINEL)), ordered)
     n = flat.shape[0]
     n_seg = -(-n // SEGMENT)
     keys = torch.empty((n_seg, SEGMENT), dtype=torch.int64,
                        device=flat.device)
     weights = torch.empty_like(keys)
-    counts = torch.empty(n_seg, dtype=torch.int32, device=flat.device)
+    counts, passed = _flags(n_seg, ordered, flat.device)
+    out = (keys, weights, counts) + (() if ordered else (passed,))
     if n_seg == 0:
-        return keys, weights, counts
+        return out
     flat = flat.contiguous()
     with torch.cuda.device(flat.device):
         err = _cuda.lib().kdf_seg_dedup(
-            flat.data_ptr(), n, keys.data_ptr(), weights.data_ptr(),
-            counts.data_ptr(), _cuda.stream_of(flat))
+            flat.data_ptr(), n, int(ordered), keys.data_ptr(),
+            weights.data_ptr(), counts.data_ptr(),
+            None if ordered else passed.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "seg_dedup")
     tracing.count("launches.seg_dedup")
-    return keys, weights, counts
+    return out
 
 
-def seg_dedup_wide(flat):
+def seg_dedup_wide(flat, ordered=True):
     """Segment-local dedup of the (N, Q) int64 limb rows *flat* (Q in
     2..7, the row form of :mod:`.keys`: limb 0 first, compared
     row-lexicographically, the sentinel in every limb).
@@ -135,7 +167,9 @@ def seg_dedup_wide(flat):
     and their multiplicities; sentinel rows form no run.  What follows
     in a segment is unspecified (the kernel leaves it unwritten).  A
     CUDA tensor launches kernel K9dw (it must be contiguous); a CPU
-    tensor runs the plain version.
+    tensor runs the plain version.  *ordered* False: as
+    :func:`seg_dedup`'s, ``(keys, weights, counts, passed)`` with rows
+    for keys (the parent filter's K7 reads them).
     """
     if (flat.dim() != 2 or flat.dtype != torch.int64
             or not 2 <= flat.shape[1] <= limbs_per_kmer(MAX_K)):
@@ -143,7 +177,8 @@ def seg_dedup_wide(flat):
                          f"2..{limbs_per_kmer(MAX_K)}, got "
                          f"{tuple(flat.shape)} {flat.dtype}")
     if flat.device.type == "cpu":
-        return dev.segment_runs_wide(segments(flat, SENTINEL))
+        return _plain(dev.segment_runs_wide(segments(flat, SENTINEL)),
+                      ordered)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     if not flat.is_contiguous():
@@ -154,13 +189,15 @@ def seg_dedup_wide(flat):
                        device=flat.device)
     weights = torch.empty((n_seg, SEGMENT), dtype=torch.int64,
                           device=flat.device)
-    counts = torch.empty(n_seg, dtype=torch.int32, device=flat.device)
+    counts, passed = _flags(n_seg, ordered, flat.device)
+    out = (keys, weights, counts) + (() if ordered else (passed,))
     if n_seg == 0:
-        return keys, weights, counts
+        return out
     with torch.cuda.device(flat.device):
         err = _cuda.lib().kdf_seg_dedup_wide(
-            flat.data_ptr(), n, q, keys.data_ptr(), weights.data_ptr(),
-            counts.data_ptr(), _cuda.stream_of(flat))
+            flat.data_ptr(), n, q, int(ordered), keys.data_ptr(),
+            weights.data_ptr(), counts.data_ptr(),
+            None if ordered else passed.data_ptr(), _cuda.stream_of(flat))
     _cuda.check(err, "seg_dedup_wide")
     tracing.count("launches.seg_dedup_wide")
-    return keys, weights, counts
+    return out

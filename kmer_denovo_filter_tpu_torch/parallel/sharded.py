@@ -209,7 +209,8 @@ class ShardedKmerIndex:
 
     def _tally_received(self, received, dedup=False):
         """Add each shard's received key parts to its tally: K2 (K7), or
-        with *dedup* K9d -> K3 (K9dw -> K7) on their concatenation."""
+        with *dedup* K9d -> K3 (K9dw -> K7) on their concatenation, the
+        dedup unordered (its tally reads no order)."""
         for shard, acc, parts in zip(self.shards, self.tallies, received):
             if shard.n == 0 or not any(p.shape[0] for p in parts):
                 continue
@@ -217,7 +218,8 @@ class ShardedKmerIndex:
             if not dedup:
                 eng._tally(keys, shard, acc)
                 continue
-            slots = (seg_dedup_wide if keys.dim() == 2 else seg_dedup)(keys)
+            slots = (seg_dedup_wide if keys.dim() == 2 else seg_dedup)(
+                keys, ordered=False)
             eng._tally(slots[0], shard, acc, slots[1], slots[2])
 
     def _member_many(self, key_batches):

@@ -96,7 +96,11 @@ COUNTERS = {
     "filter.bytes_up": ENGINE,        # codes and lengths copied up
     "filter.stage_waits": ENGINE,     # feeds that waited for their slot
     "filter.stage_grows": ENGINE,     # slots (re)allocated for a larger batch
-    "filter.distinct_keys": KERNELS_LAYER,  # K9d's / K9dw's counts, summed
+    # keys the tally probes: distinct where the hash kept the segment,
+    # every live key where it passed it through (K9d's / K9dw's counts)
+    "filter.distinct_keys": KERNELS_LAYER,
+    "filter.segments": KERNELS_LAYER,         # segments fed to the dedup
+    "filter.passed_segments": KERNELS_LAYER,  # segments it passed through
     "count.merges": COUNT,
     **{f"launches.{kernel}": KERNELS_LAYER for kernel in KERNELS},
 }

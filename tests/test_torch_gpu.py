@@ -1128,6 +1128,177 @@ def test_seg_dedup_wide_kernel_matches_plain(cuda, q, tail):
     assert torch.equal(counts.cpu(), cpu[2])
 
 
+# ── K9d and K9dw unordered: the parent filter's form ──────────────────
+
+
+def _order_reads(order, k, seed, n=4096):
+    """Host (codes, lengths) of *n* reads of 152 bp (256 past k = 151):
+    "name" reads from random places of a 4 Mbp genome (as a name-sorted
+    batch: hardly a window repeats, so every segment's hash gives up),
+    "40x" consecutive reads at 40x coverage, sorted by place (the hash
+    keeps every segment), and "mixed" the two in turns of three
+    segments' reads; with N bases and ragged lengths."""
+    length = 152 if k < 152 else 256
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 4 << 20, dtype=np.uint8)
+    span = n * length // 40
+    near = np.sort(rng.integers(0, span, n))
+    far = rng.integers(0, genome.size - length, n)
+    if order == "name":
+        starts = far
+    elif order == "40x":
+        starts = near
+    else:
+        turn = 3 * -(-segsort.SEGMENT // (length - k + 1))
+        starts = np.where(np.arange(n) // turn % 2 == 0, near, far)
+    codes = genome[starts[:, None] + np.arange(length)]
+    codes[rng.random((n, length)) < 0.002] = 4
+    lengths = np.full(n, length, np.int32)
+    lengths[::9] = rng.integers(0, length + 1, len(lengths[::9]))
+    return codes, lengths
+
+
+def _segment_sums(keys, weights, counts):
+    """Every segment's live slots merged: sorted (segment, key limbs)
+    rows and each row's weight sum."""
+    seg = segsort.SEGMENT
+    live = (torch.arange(seg, device=keys.device)[None, :]
+            < counts[:, None].long())
+    segs = torch.arange(counts.shape[0], device=keys.device)[:, None]
+    rows = keys[live].reshape(int(live.sum()), -1)
+    rows = torch.cat([segs.expand(-1, seg)[live][:, None], rows], 1)
+    uniq, inverse = torch.unique(rows, dim=0, return_inverse=True)
+    sums = torch.zeros(uniq.shape[0], dtype=torch.int64, device=keys.device)
+    return uniq, sums.index_add_(0, inverse, weights[live])
+
+
+@pytest.mark.parametrize("order", ["name", "40x", "mixed"])
+@pytest.mark.parametrize("k", [31, 63, 201])
+def test_unordered_dedup_kernels_match_the_ordered(cuda, k, order):
+    """K9d (K9dw) unordered against ordered on one batch's windows: each
+    segment's weights sum key by key to the same multiplicities; a
+    name-order batch's segments are all passed through (every live key in
+    row order, of weight 1), a 40x batch's none, a mixed batch's some;
+    the kernel launches once a call."""
+    codes, lengths = _order_reads(order, k, seed=k)
+    codes = torch.from_numpy(codes).to(cuda)
+    lengths = torch.from_numpy(lengths).to(cuda)
+    narrow = k <= keys64.NARROW_K
+    flat = (extract.extract_canonical(codes, lengths, k).reshape(-1)
+            if narrow else
+            extract.extract_canonical_wide(codes, lengths, k).flatten(0, 1))
+    dedup = segsort.seg_dedup if narrow else segsort.seg_dedup_wide
+    name = "seg_dedup" if narrow else "seg_dedup_wide"
+    before = _launches(name)
+    keys, weights, counts, passed = dedup(flat, ordered=False)
+    ordered = dedup(flat)
+    torch.cuda.synchronize()
+    assert _launches(name) == before + 2
+    for got, want in zip(_segment_sums(keys, weights, counts),
+                         _segment_sums(*ordered)):
+        assert torch.equal(got, want)
+    n_seg = counts.shape[0]
+    assert passed.dtype == torch.int32 and passed.shape == (n_seg,)
+    assert set(passed.tolist()) <= {0, 1}
+    n_passed = int(passed.sum())
+    if order == "name":
+        assert n_passed == n_seg
+    elif order == "40x":
+        assert n_passed == 0
+        assert torch.equal(counts, ordered[2])
+    else:
+        assert 0 < n_passed < n_seg
+    live = flat[flat != keys64.SENTINEL] if narrow else (
+        flat[flat[:, 0] != keys64.SENTINEL])
+    assert int(weights[torch.arange(segsort.SEGMENT, device=cuda)[None, :]
+                       < counts[:, None].long()].sum()) == live.shape[0]
+    seg = segsort.SEGMENT
+    for s in range(n_seg):
+        c = int(counts[s])
+        if passed[s]:  # every live key in row order, of weight 1
+            part = flat[s * seg:(s + 1) * seg]
+            live_keys = (part != keys64.SENTINEL) if narrow else (
+                part[:, 0] != keys64.SENTINEL)
+            assert torch.equal(keys[s, :c], part[live_keys])
+            assert bool((weights[s, :c] == 1).all())
+
+
+@pytest.mark.parametrize("order", ["name", "40x"])
+@pytest.mark.parametrize("k", [31, 63])
+def test_unordered_filter_matches_the_plain_form_and_the_oracle(
+        cuda, k, order):
+    """``FilteredCounter``'s dedup form (K9d / K9dw unordered) on a card,
+    eagerly and through its CUDA graphs (three batches a slot of one
+    shape), against its plain form on the card and a count of every
+    window's key in the table on the host; with tracing on, every segment
+    of a name-order batch is passed through and none of a 40x batch."""
+    batches = [_order_reads(order, k, seed=k + i) for i in range(3)]
+    feeds = batches * staging.SLOTS  # eager, captured, replayed
+    keys = []
+    for codes, lengths in batches:
+        win = eng._window_keys(codes, lengths, k, torch.device("cpu"))
+        keys.append(win.flatten(0, 1) if win.dim() == 3 else win.reshape(-1))
+    flat = torch.cat(keys)
+    narrow = flat.dim() == 1
+    live = flat[flat != keys64.SENTINEL] if narrow else (
+        flat[flat[:, 0] != keys64.SENTINEL])
+    table = torch.unique(live, dim=0)[::3]
+    words = (keys64.keys64_to_words(table, k) if narrow
+             else keys64.limbs_to_words(table, k))
+    # the oracle: each table key's count over every window fed, by the
+    # plain tally of the host index's rows
+    host = eng.KmerIndex(words, k, device="cpu")
+    tally = dev.small_table_tally if narrow else dev.small_table_tally_wide
+    want = tally(host.table, live).numpy() * staging.SLOTS
+    results = {}
+    tracing.enable()
+    try:
+        for dedup in (True, False):
+            tracing.reset()
+            fc = eng.FilteredCounter(eng.KmerIndex(words, k, device=cuda),
+                                     dedup=dedup)
+            for codes, lengths in feeds:
+                fc.feed(codes, lengths)
+            results[dedup] = fc.result()
+            counters = tracing.collect()["counters"]
+            if dedup:
+                graphs = [h for h in fc._graphs._held.values()
+                          if h is not None]
+                assert len(graphs) == staging.SLOTS
+                segments = counters["filter.segments"]
+                assert segments > 0
+                assert counters["filter.passed_segments"] == (
+                    segments if order == "name" else 0)
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert np.array_equal(results[True], results[False])
+    assert np.array_equal(results[True], want) and want.sum() > 0
+
+
+def test_sort_count_keeps_the_ordered_dedup(cuda):
+    """K12 merges K9d's (K9dw's) sorted segments: on a name-order batch,
+    whose every segment the unordered form would pass through, its keys
+    stay strictly ascending and equal the plain version's."""
+    from kmer_denovo_filter_tpu_torch.ops import sortcount
+    for k in (31, 63):
+        codes, lengths = (torch.from_numpy(a).to(cuda)
+                          for a in _order_reads("name", k, seed=3))
+        if k <= keys64.NARROW_K:
+            flat = extract.extract_canonical(codes, lengths, k).reshape(-1)
+            keys, counts = sortcount.sort_count(flat, k)
+            assert bool((keys[1:] > keys[:-1]).all())
+            plain = dev.sort_count(flat)
+        else:
+            flat = extract.extract_canonical_wide(codes, lengths,
+                                                  k).flatten(0, 1)
+            keys, counts = sortcount.sort_count_wide(flat, k)
+            assert torch.equal(keys, dev.unique_rows(keys)[0])
+            plain = dev.sort_count_wide(flat)
+        assert keys.shape[0] > 250_000
+        assert torch.equal(keys, plain[0]) and torch.equal(counts, plain[1])
+
+
 def test_seg_dedup_wide_rejects_bad_tensors(cuda):
     rows = _wide_segment_stream(1, 3, 0)[:1000].to(cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -246,12 +246,14 @@ def test_engine_dedup_form_matches_join_tally_step_dedup_interpret():
 
 def test_engine_dedup_form_runs_k9d_then_k3_on_the_slots(monkeypatch):
     """The narrow dedup form hands K9d's slots and counts to K3 as they
-    stand: no compaction, no whole-batch dedup in between."""
+    stand: no compaction, no whole-batch dedup in between; K9d in its
+    unordered form, since K3 reads no order."""
     calls = []
     real_dedup, real_tally = teng.seg_dedup, teng.probe_tally_weighted
 
-    def dedup(flat):
-        out = real_dedup(flat)
+    def dedup(flat, ordered=True):
+        assert not ordered
+        out = real_dedup(flat, ordered)
         calls.append(("K9d", out))
         return out
 

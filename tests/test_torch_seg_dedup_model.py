@@ -16,7 +16,13 @@ rows), the compaction of the occupied slots by an exclusive scan, the
 sort of p = max(512, 2^ceil(log2(distinct))) compacted keys on p / 16
 threads, the weights read back from the hash, and the fallback's run
 starts and run lengths by a packed block scan, read out through shared
-memory.  The model is on no path.
+memory.  The unordered form too: after the same hash, no sort; a kept
+segment's distinct keys with their counts in slot order, a segment the
+hash gave up on passed through (every live key, weight 1) in row order,
+both placed by ``block_sort.cuh``'s ``RowOrder`` (a ballot a warp and
+round, one block scan); it is held to the looser contract, key by key
+the same weight sums as the plain version.
+The model is on no path.
 """
 
 import numpy as np
@@ -139,11 +145,39 @@ def write_runs(key):
     return out_keys, out_weights, n_runs
 
 
-def seg_dedup_block(raw, rng, hash_first=True):
+def row_order(live):
+    """``RowOrder`` over a segment's elements t + 512 r (*live*, flat in
+    element order, 512 a round): the places of the live ones, in element
+    order.  A ballot counts each warp's live lanes a round, one block
+    scan turns the (round, warp) counts into first places, and a second
+    ballot ranks each live lane among its warp's."""
+    lanes = live.reshape(-1, THREADS // 32, 32)
+    first, _total = exclusive_sum(lanes.sum(2).reshape(-1))
+    rank = np.cumsum(lanes, 2) - lanes
+    return (first.reshape(lanes.shape[:2])[:, :, None] + rank)[lanes]
+
+
+def write_unordered(raw, hkey, hcount, gave_up):
+    """``write_unordered``: (keys, weights, count, path), the path
+    "pass" for a segment passed through (its rows in row order), "hash"
+    for one the hash kept (its slots in slot order)."""
+    out_keys = np.full(SEG, -9, dtype=np.int64)  # unwritten slots
+    out_weights = np.full(SEG, -9, dtype=np.int64)
+    values, weights = (raw, np.ones_like(raw)) if gave_up else (hkey, hcount)
+    live = values != SENTINEL
+    places = row_order(live)
+    assert np.array_equal(places, np.arange(places.size))
+    out_keys[places] = values[live]
+    out_weights[places] = weights[live]
+    return out_keys, out_weights, places.size, "pass" if gave_up else "hash"
+
+
+def seg_dedup_block(raw, rng, hash_first=True, ordered=True):
     """``seg_dedup_kernel`` on one segment's 8,192 raw keys (sentinel
     padded); inserts race in the order *rng* draws.  *hash_first* False
     takes the sort of all rows at once, the path of a segment whose hash
-    gives up.  Returns (keys, weights, count, path)."""
+    gives up; *ordered* False the unordered form (after the hash).
+    Returns (keys, weights, count, path)."""
     # thread t takes rows t + 512 r as its elements 16 t + r
     key = raw.reshape(REGS, THREADS).T.copy()
     if hash_first:
@@ -170,6 +204,8 @@ def seg_dedup_block(raw, rng, hash_first=True):
                 overflow |= n_distinct >= HASH_LIMIT
                 n_distinct += 1
             hcount[s] += 1
+        if not ordered:
+            return write_unordered(raw, hkey, hcount, overflow)
         if not overflow:
             per = HASH_SLOTS // THREADS
             occupied = (hkey != SENTINEL).reshape(THREADS, per)
@@ -202,14 +238,15 @@ def seg_dedup_block(raw, rng, hash_first=True):
     return (*write_runs(key), "sort")
 
 
-def model_seg_dedup(flat, seed=0, hash_first=True):
+def model_seg_dedup(flat, seed=0, hash_first=True, ordered=True):
     """The kernel over a flat stream: (S, 8192) keys and weights, (S,)
     counts, and each segment's path."""
     n_seg = -(-flat.size // SEG)
     padded = np.full(n_seg * SEG, SENTINEL, dtype=np.int64)
     padded[:flat.size] = flat
     rng = np.random.default_rng(seed)
-    out = [seg_dedup_block(padded[s * SEG:(s + 1) * SEG], rng, hash_first)
+    out = [seg_dedup_block(padded[s * SEG:(s + 1) * SEG], rng, hash_first,
+                           ordered)
            for s in range(n_seg)]
     return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out]),
             np.array([o[2] for o in out]), [o[3] for o in out])
@@ -245,33 +282,64 @@ KINDS = ("all-sentinel", "all-distinct", "one-run", "padded-tail",
          "4097-distinct")
 
 
-@pytest.mark.parametrize("hash_first", [True, False], ids=["hash", "sort"])
+def weight_sums(keys, weights):
+    """{key: the sum of its weights} over a segment's live slots."""
+    out = {}
+    for k, w in zip(keys.tolist(), weights.tolist()):
+        out[k] = out.get(k, 0) + w
+    return out
+
+
+def gives_up(flat):
+    """Whether the hash gives up on the segment *flat* (past the key
+    limit, or more than 7/8 of the live keys of its first 512 rows
+    distinct)."""
+    live = flat[flat != SENTINEL]
+    first = flat[:THREADS]
+    first_live = first[first != SENTINEL]
+    return (np.unique(live).size > HASH_LIMIT
+            or np.unique(first_live).size * 8 > first_live.size * 7)
+
+
+@pytest.mark.parametrize("hash_first,ordered",
+                         [(True, True), (False, True), (True, False)],
+                         ids=["hash", "sort", "unordered"])
 @pytest.mark.parametrize("kind", KINDS)
-def test_model_matches_segment_runs(kind, hash_first):
+def test_model_matches_segment_runs(kind, hash_first, ordered):
     rng = np.random.default_rng(len(kind))
     flat = segment(kind, rng)
     keys, weights, counts, paths = model_seg_dedup(flat, len(kind),
-                                                   hash_first)
+                                                   hash_first, ordered)
     want_keys, want_weights, want_counts = tdev.segment_runs(
         segsort.segments(torch.from_numpy(flat), SENTINEL))
-    assert np.array_equal(counts, want_counts.numpy())
-    for s, c in enumerate(counts):
-        assert np.array_equal(keys[s, :c], want_keys[s, :c].numpy())
-        assert np.array_equal(weights[s, :c], want_weights[s, :c].numpy())
     live = flat[flat != SENTINEL]
-    distinct = np.unique(live).size
-    first = flat[:THREADS]
-    first_live = first[first != SENTINEL]
-    first_distinct = np.unique(first_live).size
+    if ordered:
+        assert np.array_equal(counts, want_counts.numpy())
+        for s, c in enumerate(counts):
+            assert np.array_equal(keys[s, :c], want_keys[s, :c].numpy())
+            assert np.array_equal(weights[s, :c],
+                                  want_weights[s, :c].numpy())
+    else:
+        # the looser contract: key by key the same weight sums
+        c, want_c = int(counts[0]), int(want_counts[0])
+        assert weight_sums(keys[0, :c], weights[0, :c]) == weight_sums(
+            want_keys[0, :want_c].numpy(), want_weights[0, :want_c].numpy())
+        if paths == ["pass"]:  # every live key in row order, weight 1
+            assert np.array_equal(keys[0, :c], live)
+            assert (weights[0, :c] == 1).all()
+        else:
+            assert c == want_c
     if hash_first:
-        assert paths == ["hash" if distinct <= HASH_LIMIT
-                         and first_distinct * 8 <= first_live.size * 7
-                         else "sort"]
+        gave_up = gives_up(flat)
+        assert paths == [("pass" if not ordered else "sort") if gave_up
+                         else "hash"]
     assert int(weights[0, :counts[0]].sum()) == live.size
 
 
 def test_model_matches_segment_runs_over_segments():
-    """Five segments, one of each path, and a ragged tail."""
+    """Five segments, one of each path, and a ragged tail; in the
+    unordered form the two the hash gives up on are passed through, and
+    every segment's weights sum key by key as the plain version's."""
     rng = np.random.default_rng(3)
     flat = np.concatenate([segment(kind, rng) for kind in (
         "40x", "random+sentinels", "all-sentinel", "3073-distinct",
@@ -286,6 +354,16 @@ def test_model_matches_segment_runs_over_segments():
                                torch.from_numpy(counts))
     for g, w in zip(got, tdev.segment_compact(*want)):
         assert torch.equal(g, w)
+    keys, weights, counts, paths = model_seg_dedup(flat, 3, ordered=False)
+    assert paths == ["hash", "pass", "hash", "pass", "hash"]
+    assert paths.count("pass") == 2
+    for s, c in enumerate(counts):
+        c_want = int(want[2][s])
+        assert weight_sums(keys[s, :c], weights[s, :c]) == weight_sums(
+            want[0][s, :c_want].numpy(), want[1][s, :c_want].numpy())
+        if paths[s] == "pass":  # every live key in row order
+            part = flat[s * SEG:(s + 1) * SEG]
+            assert np.array_equal(keys[s, :c], part[part != SENTINEL])
 
 
 @pytest.mark.parametrize("log_p", [9, 10, 11, 12, 13])

@@ -18,8 +18,14 @@ repeated after a give-up, sorts all elements again limb by limb from the
 last, pairs ordered lexicographically, each pass stable on the
 position of the pass before), and the
 output (the hash's counts, or the run lengths of the sorted rows).
-Fingerprint collisions are forced through a replaceable hash.  The model
-is on no path.
+Fingerprint collisions are forced through a replaceable hash.  The
+unordered form too: after the same hash no sort and no tie pass; a kept
+segment's distinct rows with their counts in slot order, a segment the
+hash gave up on passed through (every live row, weight 1) in row order,
+placed by ``block_sort.cuh``'s ``RowOrder``
+(``tests/test_torch_seg_dedup_model.py``), and held to the looser
+contract: row by row the same weight sums as the plain version.  The
+model is on no path.
 """
 
 import numpy as np
@@ -29,7 +35,12 @@ import torch
 from kmer_denovo_filter_tpu_torch.ops import device as tdev
 from kmer_denovo_filter_tpu_torch.ops import segsort
 from kmer_denovo_filter_tpu_torch.ops.keys import SENTINEL
-from tests.test_torch_seg_dedup_model import LOG_SEG, REGS, THREADS
+from tests.test_torch_seg_dedup_model import (
+    LOG_SEG,
+    REGS,
+    THREADS,
+    row_order,
+)
 from tests.test_torch_seg_sort_model import block_sort_pay, natural_out
 
 SEG = segsort.SEGMENT
@@ -108,14 +119,35 @@ def sort_elements(key, pay, log_p, mode="carried"):
     return natural_out(k, p_, holders)
 
 
-def seg_dedup_wide_block(rows, live_rows, rng, hash_fn=row_hash):
+def write_unordered(rows, h):
+    """``write_unordered<Q>`` after the hash *h*: (keys (count, Q),
+    weights, path), the path {"pass"} for a segment passed through (its
+    live rows in row order), {"hash"} for one the hash kept (each slot's
+    first row and count, in slot order)."""
+    if h.distinct < 0:  # every live row
+        live = rows[:, 0] != SENTINEL
+        places = row_order(live)
+        assert np.array_equal(places, np.arange(places.size))
+        return rows[live], np.ones(places.size, dtype=np.int64), {"pass"}
+    word = np.array(h.word, dtype=np.uint64)
+    occupied = word != 0
+    places = row_order(occupied)
+    assert places.size == h.distinct
+    first = (word[occupied] & np.uint64(MASK)).astype(np.int64)
+    return rows[first], np.array(h.count)[occupied], {"hash"}
+
+
+def seg_dedup_wide_block(rows, live_rows, rng, hash_fn=row_hash,
+                         ordered=True):
     """The kernel on one segment of (8,192, Q) rows, the first *live_rows*
-    of them real.  Returns (keys (count, Q), weights, path), path a set of
-    the steps taken."""
+    of them real; *ordered* False its unordered form.  Returns (keys
+    (count, Q), weights, path), path a set of the steps taken."""
     q = rows.shape[1]
     rows = rows.copy()
     rows[live_rows:] = SENTINEL
     h = Hash(rows, live_rows, rng, hash_fn)
+    if not ordered:
+        return write_unordered(rows, h)
     hashed = h.distinct >= 0
     path = {"hash" if hashed else "sort"}
     if hashed:
@@ -185,7 +217,7 @@ def seg_dedup_wide_block(rows, live_rows, rng, hash_fn=row_hash):
     return rows[spay[start]], (ends - start).astype(np.int64), path
 
 
-def model_seg_dedup_wide(flat, seed=0, hash_fn=row_hash):
+def model_seg_dedup_wide(flat, seed=0, hash_fn=row_hash, ordered=True):
     """The kernel over a (N, Q) stream: per segment (keys, weights,
     path)."""
     n, q = flat.shape
@@ -195,7 +227,8 @@ def model_seg_dedup_wide(flat, seed=0, hash_fn=row_hash):
         seg = np.full((SEG, q), SENTINEL, dtype=np.int64)
         part = flat[s * SEG:(s + 1) * SEG]
         seg[:part.shape[0]] = part
-        out.append(seg_dedup_wide_block(seg, part.shape[0], rng, hash_fn))
+        out.append(seg_dedup_wide_block(seg, part.shape[0], rng, hash_fn,
+                                        ordered))
     return out
 
 
@@ -203,10 +236,33 @@ def check_against_plain(flat, out):
     want_keys, want_weights, want_counts = tdev.segment_runs_wide(
         segsort.segments(torch.from_numpy(flat), SENTINEL))
     assert [o[0].shape[0] for o in out] == want_counts.tolist()
-    for s, (keys, weights, _path) in enumerate(out):
+    for s, (keys, weights, path) in enumerate(out):
         c = keys.shape[0]
         assert np.array_equal(keys, want_keys[s, :c].numpy())
         assert np.array_equal(weights, want_weights[s, :c].numpy())
+
+
+def weight_sums(keys, weights):
+    """{row: the sum of its weights} over a segment's live slots."""
+    out = {}
+    for row, w in zip(map(tuple, keys.tolist()), weights.tolist()):
+        out[row] = out.get(row, 0) + w
+    return out
+
+
+def check_weight_sums(flat, out):
+    """The unordered form's contract: each segment's weights sum, row by
+    row, as the plain version's."""
+    want_keys, want_weights, want_counts = tdev.segment_runs_wide(
+        segsort.segments(torch.from_numpy(flat), SENTINEL))
+    assert len(out) == want_counts.shape[0]
+    for s, (keys, weights, path) in enumerate(out):
+        c = int(want_counts[s])
+        assert weight_sums(keys, weights) == weight_sums(
+            want_keys[s, :c].numpy(), want_weights[s, :c].numpy())
+        if path == {"pass"}:  # every live row in row order
+            part = flat[s * SEG:(s + 1) * SEG]
+            assert np.array_equal(keys, part[part[:, 0] != SENTINEL])
 
 
 def pool(rng, n, q, limb0=None):
@@ -284,15 +340,27 @@ KINDS = {
 }
 
 
-@pytest.mark.parametrize("q", [2, 3, 7])
+@pytest.mark.parametrize(
+    "q,ordered", [(2, True), (3, True), (7, True)]
+    + [(q, False) for q in range(2, 8)],
+    ids=["2", "3", "7"] + [f"{q}-unordered" for q in range(2, 8)])
 @pytest.mark.parametrize("kind", list(KINDS))
-def test_model_matches_segment_runs_wide(kind, q):
+def test_model_matches_segment_runs_wide(kind, q, ordered):
     rng = np.random.default_rng(len(kind) + q)
     flat = segment(kind, q, rng).astype(np.int64)
-    out = model_seg_dedup_wide(flat, q)
-    assert out[0][2] == KINDS[kind]
-    check_against_plain(flat, out)
+    out = model_seg_dedup_wide(flat, q, ordered=ordered)
     live = flat[flat[:, 0] != SENTINEL]
+    if ordered:
+        assert out[0][2] == KINDS[kind]
+        check_against_plain(flat, out)
+    else:
+        passed = "sort" in KINDS[kind]  # the hash gave up
+        assert out[0][2] == ({"pass"} if passed else {"hash"})
+        check_weight_sums(flat, out)
+        if passed:  # every live row, weight 1
+            assert weight_sums(out[0][0], out[0][1]) == weight_sums(
+                live, np.ones(live.shape[0], dtype=np.int64))
+            assert out[0][0].shape == live.shape
     assert int(out[0][1].sum()) == live.shape[0]
 
 
@@ -306,6 +374,12 @@ def test_model_over_segments_and_a_ragged_tail():
         ["hash"], ["sort"], ["hash", "serial tie"], ["hash"],
         ["serial tie", "sort"], ["hash"]]
     check_against_plain(flat, out)
+    out = model_seg_dedup_wide(flat, 11, ordered=False)
+    paths = [o[2] for o in out]
+    assert paths == [{"hash"}, {"pass"}, {"hash"}, {"hash"}, {"pass"},
+                     {"hash"}]
+    assert sum(p == {"pass"} for p in paths) == 2
+    check_weight_sums(flat, out)
 
 
 @pytest.mark.parametrize("fingerprint", ["one slot", "one word"])

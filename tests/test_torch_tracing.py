@@ -185,9 +185,36 @@ def test_the_filter_counters_are_exact():
     assert counters["filter.reads"] == sum(c.shape[0] for c, _ in batches)
     assert counters["filter.windows"] == windows
     assert counters["filter.distinct_keys"] == distinct
+    # the CPU's plain dedup merges every segment: none passed through
+    assert counters["filter.segments"] == sum(
+        -(-c.shape[0] * (c.shape[1] - K + 1) // SEGMENT)
+        for c, _ in batches[:-1])
+    assert counters["filter.passed_segments"] == 0
     assert counters["filter.bytes_up"] == sum(
         c.size + 4 * l.size for c, l in batches[:-1])
     assert not any(name.startswith("launches.") for name in counters)
+
+
+def test_the_passed_segments_counter_sums_the_dedups_flags(monkeypatch):
+    """``filter.passed_segments`` adds up the dedup's per-segment flags
+    (a kernel's; the CPU's plain dedup passes none through, so a stand-in
+    flags every other segment) and ``filter.segments`` counts them all."""
+    real = eng.seg_dedup
+
+    def dedup(flat, ordered=True):
+        keys, weights, counts, passed = real(flat, ordered)
+        passed[::2] = 1
+        return keys, weights, counts, passed
+
+    monkeypatch.setattr(eng, "seg_dedup", dedup)
+    batches = _batches(6, [140, 30, 70])  # 3, 1 and 2 segments
+    tracing.enable()
+    fc = eng.make_parent_filter_counter(_table(batches), K, device=CPU)
+    for codes, lengths in batches:
+        fc.feed(codes, lengths)
+    counters = tracing.collect()["counters"]
+    assert counters["filter.segments"] == 6
+    assert counters["filter.passed_segments"] == 2 + 1 + 1
 
 
 def test_the_launch_counters_count_as_before():
