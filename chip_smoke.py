@@ -154,7 +154,7 @@ any failure exits non-zero before the result line:
    (``phase_8_stream_split``, after 8b): ``StreamCounter`` over the 16
    phase-5 batches at k = 31 and 63 and 3 batches of 256 bp at k = 201,
    fed step by step (upload, K1 / K1w, the device sort-count, the call
-   with its sync, DtoH, ``_add_chunk``, each merge with its rows,
+   with its sync, DtoH, ``add_chunk``, each merge with its rows,
    ``result()`` and its conversion to words), with the parent's step
    (the plain version) and with K12, at the 2**24 merge floor and at
    2**21, each equal to the engine's own loop, whose reads/s it prints.
@@ -214,6 +214,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from kmer_denovo_filter_tpu_torch.experiments._common import (
+    ERROR_RATE,
+    bound,
+    synth_reads,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 B, L = 32768, 152
 KS = (15, 17, 21, 31)
@@ -231,15 +237,8 @@ ROW = 1 << 20  # the contig chunk of StreamCounter.feed_sequence
 WIDE_TABLE_MS = {63: (4096, 262144, BIG_M), 201: (4096, 1 << 22)}
 WIDE_FILTER_M = {63: BIG_M, 201: 1 << 22}
 WIDE_BATCHES = {63: SCALE_BATCHES, 201: 3}
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
-# H100 SXM float32 peak outside the tensor cores: no integer rate is
-# published, and an int64 compare is no cheaper, so the count over it is
-# a floor
-OPS_PER_S = 67e12
 DISCOVERY_OUTPUTS = ("bed", "kmer_coverage.bedgraph", "read_coverage.bed",
                      "metrics.json", "summary.txt", "sv.bedpe")
-COVERAGE = 40
-ERROR_RATE = 0.003
 GENOME_BASES = 4 << 20
 
 
@@ -252,16 +251,6 @@ def max_abs_err(got, ref):
     if torch.equal(got, ref):
         return 0
     return float((got.double() - ref.double()).abs().max())
-
-
-def bound(n_bytes, n_ops):
-    """(ms, "bytes" or "operations"): the least device time for work
-    that moves *n_bytes* and does *n_ops* operations, at the card's
-    peaks."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
 
 
 def probe_bound(key_bytes, row_bytes, keys, table, sentinel, extra_bytes=0):
@@ -319,18 +308,6 @@ def stack_group(batches, fill=4):
         codes[row:row + c.shape[0], :c.shape[1]] = c
         row += c.shape[0]
     return codes, np.concatenate([l for _, l in batches])
-
-
-def synth_reads(rng, genome, n_reads, read_len):
-    """Position-local reads with 0.3 % error, like a sorted WGS BAM
-    (the recipe of bench.py:synth_reads)."""
-    span = max(n_reads * read_len // COVERAGE, read_len * 4)
-    start0 = rng.integers(0, len(genome) - span - read_len)
-    starts = np.sort(rng.integers(start0, start0 + span, n_reads))
-    reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
-    err = rng.random((n_reads, read_len)) < ERROR_RATE
-    return np.where(err, (reads + rng.integers(
-        1, 4, (n_reads, read_len))) % 4, reads).astype(np.uint8)
 
 
 def describe_directory(label, index):
@@ -1493,6 +1470,7 @@ def phase_8(batches, cuda, card, reset_counts, read_counts, times):
     launches counted, and the feed's reads/s beside the single-device
     form's.  Returns the launch counts of the sharded runs."""
     from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch import steps
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
     from kmer_denovo_filter_tpu_torch.parallel import (
         ShardedFilteredCounter,
@@ -1544,7 +1522,7 @@ def phase_8(batches, cuda, card, reset_counts, read_counts, times):
                          else "probe_tally_weighted")
         dedup_name = "seg_dedup_wide" if wide else "seg_dedup"
         member_name = "probe_member" + x
-        flat = eng._window_keys(batches[0], lens, k, cuda).flatten(0, 1)
+        flat = steps.window_keys(batches[0], lens, k, cuda).flatten(0, 1)
         words = table_words(rng, flat, SCAN_M, k, cuda)
         index = eng.KmerIndex(words, k, device=cuda)
         singles = {}
@@ -1724,13 +1702,13 @@ def phase_8_route_split(codes, lens, cuda, card, times):
     source's whole route with its sizes' sync (``_gather_by_owner``,
     host wall).  K10 must equal the plain version.  Device times by
     ``ops.timing.device_ms``."""
-    from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch import steps
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
     from kmer_denovo_filter_tpu_torch.ops import route
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
     from kmer_denovo_filter_tpu_torch.parallel import sharded
     for k in (31, 63):
-        keys = eng._window_keys(codes, lens, k, cuda).flatten(0, 1)
+        keys = steps.window_keys(codes, lens, k, cuda).flatten(0, 1)
         first = keys if keys.dim() == 1 else keys[:, 0]
         for s in (1, 2, 4):
             mesh = [cuda] * s
@@ -1777,18 +1755,19 @@ def phase_8_route_split(codes, lens, cuda, card, times):
 
 
 def phase_8_stream_count(batches, lens, cuda, card):
-    """The stream count over the mesh (``engine.ShardedStreamCounter``,
+    """The stream count over the mesh (``parallel.ShardedStreamCounter``,
     taken under ``KDF_SHARDED=1``) beside ``StreamCounter``, at k = 31
     and 63: equal results, and reads/s of the feeds and the result,
     interleaved."""
     from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch.parallel import ShardedStreamCounter
     for k in (31, 63):
         rates, results = {}, {}
         for form in ("one", 2, 4, 4, 2, "one"):
             torch.cuda.synchronize()
             t = time.perf_counter()
             sc = (eng.StreamCounter(k, device=cuda) if form == "one"
-                  else eng.ShardedStreamCounter(k, [cuda] * form))
+                  else ShardedStreamCounter(k, [cuda] * form))
             for c in batches:
                 sc.feed(c, lens)
             got = sc.result()
@@ -1821,6 +1800,7 @@ def stream_split(k, batches, floor, sort_count, cuda):
     from kmer_denovo_filter_tpu_torch.ops import extract
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
+    from kmer_denovo_filter_tpu_torch.steps import to_device, to_words
     wide = k > keys64.NARROW_K
     extract_fn = (extract.extract_canonical_wide if wide
                   else extract.extract_canonical)
@@ -1850,8 +1830,7 @@ def stream_split(k, batches, floor, sort_count, cuda):
         return out
 
     for c in batches:
-        codes, lengths = clock("upload", lambda: eng._to_device(c, lens,
-                                                                cuda))
+        codes, lengths = clock("upload", lambda: to_device(c, lens, cuda))
         steps["K1"].append(device_ms(lambda: extract_fn(codes, lengths, k),
                                      reps=3))
         win = extract_fn(codes, lengths, k)
@@ -1862,7 +1841,7 @@ def stream_split(k, batches, floor, sort_count, cuda):
         uk, counts = clock("dtoh", lambda: (uk.cpu().numpy(),
                                             counts.cpu().numpy()))
         n_merges = len(merges)
-        clock("add_chunk", lambda: sc._add_chunk(
+        clock("add_chunk", lambda: sc.add_chunk(
             uk if wide else uk[:, None], counts))
         steps["add_chunk"][-1] -= sum(ms for ms, _ in merges[n_merges:])
         del codes, lengths, win, flat
@@ -1871,10 +1850,7 @@ def stream_split(k, batches, floor, sort_count, cuda):
     result_ms = (time.perf_counter() - t) * 1e3
     merged = sc._merged[0]
     t = time.perf_counter()
-    if wide:
-        keys64.limbs_to_words(merged, k)
-    else:
-        keys64.keys64_to_words(merged[:, 0], k)
+    to_words(merged, k)
     convert_ms = (time.perf_counter() - t) * 1e3
     return steps, merges, result_ms, convert_ms, result
 
@@ -1885,7 +1861,7 @@ def phase_8_stream_split(genome, batches, cuda, card, forms):
     pageable upload (host wall), K1 / K1w and the device sort-count
     (``ops.timing.device_ms``), one sort-count call between two syncs
     (host wall: the device work and the sync that reads its size), the
-    pageable DtoH of the unique rows and counts, ``_add_chunk`` (host,
+    pageable DtoH of the unique rows and counts, ``add_chunk`` (host,
     merges apart), each ``_consolidate`` (host ms and rows merged) and
     ``result()`` with its conversion to words timed alone; beside it the
     engine's own loop (``StreamCounter.feed`` batch by batch, then
@@ -1930,7 +1906,7 @@ def phase_8_stream_split(genome, batches, cuda, card, forms):
                       f"{per['upload']:.4f}, K1 {per['K1']:.4f}, device "
                       f"sort-count {per['sort_count']:.4f}, one call with "
                       f"its sync {per['wall']:.4f}, DtoH {per['dtoh']:.4f}, "
-                      f"_add_chunk {per['add_chunk']:.4f}; merges in the "
+                      f"add_chunk {per['add_chunk']:.4f}; merges in the "
                       f"feed (ms, rows) {feed_merges}; "
                       f"result() {result_ms:.3f} ms (its merge of "
                       f"{merges[-1][1]} rows {merges[-1][0]:.3f}, words "
@@ -1948,6 +1924,7 @@ def phase_8_build(codes, lens, rng, cuda, card):
     slice (``_route_table``: K11 and K10 a slice, one copy back) and the
     host gather of each shard's words."""
     from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch import steps
     from kmer_denovo_filter_tpu_torch.ops import convert
     from kmer_denovo_filter_tpu_torch.ops.timing import device_ms
     from kmer_denovo_filter_tpu_torch.parallel import ShardedKmerIndex
@@ -1959,7 +1936,7 @@ def phase_8_build(codes, lens, rng, cuda, card):
     mesh = [cuda] * 4
     for k, sizes in ((31, (1 << 20, 1 << 22, 1 << 24)),
                      (63, (1 << 20, 1 << 22))):
-        flat = eng._window_keys(codes, lens, k, cuda).flatten(0, 1)
+        flat = steps.window_keys(codes, lens, k, cuda).flatten(0, 1)
         for m in sizes:
             words = table_words(rng, flat, m, k, cuda)
             index = ShardedKmerIndex(words, k, mesh)

@@ -2,36 +2,37 @@
 
 Counterparts of :mod:`kmer_denovo_filter_tpu.engine`:
 
-* :class:`KmerIndex` (:191) — the sorted canonical k-mer table, held on
+* :class:`KmerIndex` (:90) — the sorted canonical k-mer table, held on
   the device as one int64 key (or one row of int64 limbs) per k-mer
   (:mod:`.ops.keys`), with its prefix directory on the card (over limb
   0 for k > 31; :mod:`.ops.directory`), and :meth:`~KmerIndex.membership` /
   :meth:`~KmerIndex.counts_of` through kernel K4 (``probe_member``) or
   K8 (``probe_member_wide``);
-* :class:`HostKmerIndex` (:263) and :class:`HostFilteredCounter` (:659)
+* :class:`HostKmerIndex` (:162) and :class:`HostFilteredCounter` (:623)
   — CPU-device tables over ``KDF_DEVICE_TABLE_BYTES``, answered by the
   host C++ hash or a numpy search (a table on a CUDA device never goes
   to the host);
-* :func:`make_membership_index` (:401) — that gate, and the sharded
+* :func:`make_membership_index` (:300) — that gate, and the sharded
   index for a CUDA table one card cannot hold;
-* :class:`StreamCounter` (:422) — ``jellyfish count -C``: K1 window keys,
+* :class:`StreamCounter` (:321) — ``jellyfish count -C``: K1 window keys,
   a device sort-count per batch (K12), host merge of the per-batch
   uniques;
-* :class:`FilteredCounter` (:560) — ``jellyfish count -C --if``: a
+* :class:`FilteredCounter` (:434) — ``jellyfish count -C --if``: a
   per-table-row tally, K1 → K2 (VCF mode, :func:`make_filtered_counter`)
   or K1 → K9d segment dedup → K3 (discovery,
   :func:`make_parent_filter_counter`);
 * :func:`scan_reads_for_hits` / :func:`scan_reads_for_hits_many`
-  (:742, :754) — the anchoring scan, K1 → K4.
+  (:706, :718) — the anchoring scan, K1 → K4.
 
 Host-facing keys stay the JAX package's (M, W) uint32 words, so the
 pipelines, ``.jf`` loading and ``.npz`` snapshots are shared; they
 become int64 at this boundary (:mod:`.ops.keys`): one int64 per key for
 k <= 31, a row of Q = ceil(k / 31) int64 limbs for k = 33..207.  For a
 CUDA device the words go up as they are and kernel K11 converts them
-there (:func:`_key_tensor`, :mod:`.ops.convert`).  The
+there (:func:`.steps.key_tensor`, :mod:`.ops.convert`).  The
 wide path runs K1w → K7 (tally, unweighted or weighted) and K1w → K8
-(membership, rows) where the narrow one runs K1 → K2/K3 and K1 → K4.
+(membership, rows) where the narrow one runs K1 → K2/K3 and K1 → K4;
+:mod:`.steps` picks each kernel's wrapper from the key form.
 The device is explicit: chosen at the entry point and passed to every
 table and counter.  With two or more local CUDA devices the factories
 below hand a table one card cannot hold, or every table under
@@ -56,40 +57,17 @@ import os
 import numpy as np
 import torch
 
-from kmer_denovo_filter_tpu_torch import staging, tracing
+from kmer_denovo_filter_tpu_torch import staging, steps, tracing
 from kmer_denovo_filter_tpu_torch.htsio import native
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.convert import (
-    plain_words_to_keys,
     words_tensor,
     words_to_keys,
 )
-from kmer_denovo_filter_tpu_torch.ops.extract import (
-    extract_canonical,
-    extract_canonical_wide,
-)
-from kmer_denovo_filter_tpu_torch.ops.member import (
-    probe_member,
-    probe_member_wide,
-    probe_rows,
-    probe_rows_wide,
-)
-from kmer_denovo_filter_tpu_torch.ops.probe import (
-    probe_tally,
-    probe_tally_wide,
-    probe_tally_weighted,
-)
-from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup, seg_dedup_wide
-from kmer_denovo_filter_tpu_torch.ops.sortcount import (
-    sort_count,
-    sort_count_wide,
-)
 
 logger = logging.getLogger(__name__)
-
-CPU = torch.device("cpu")
 
 
 def resolve_device(device):
@@ -103,95 +81,10 @@ def resolve_device(device):
     return device
 
 
-def _to_device(codes, lengths, device):
-    """Host (B, L) uint8 codes and (B,) lengths as tensors on *device*."""
-    return (torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
-            .to(device),
-            torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32))
-            .to(device))
-
-
 # the keys (a ring slot's buffers and a batch shape) a staged counter
 # holds CUDA graphs for before it drops them all: two a slot
 GRAPHS_KEPT = 2 * staging.SLOTS
 _UNSEEN = object()
-
-
-def _has_windows(codes, k):
-    """True when the (B, L) batch *codes* can hold a window of k."""
-    return codes.shape[0] > 0 and codes.shape[1] >= k
-
-
-def _extractor(k):
-    """K1, or K1w for k > 31: (codes, lengths, k) on the device → keys."""
-    return (extract_canonical if k <= keys64.NARROW_K
-            else extract_canonical_wide)
-
-
-def _window_keys(codes, lengths, k, device):
-    """K1 (K1w) over one host batch: (B, L - k + 1) int64 keys
-    ((B, L - k + 1, Q) limb rows for k > 31) on *device*, or None when
-    the batch holds no window."""
-    if not _has_windows(codes, k):
-        return None
-    return _extractor(k)(*_to_device(codes, lengths, device), k)
-
-
-def _key_tensor(keys_np, k, device=CPU):
-    """Host (N, W) uint32 words → (N,) int64 keys, or (N, Q) limb rows
-    for k > 31, on *device*: on a CUDA device the words go up as they
-    are and K11 (:func:`~.ops.convert.words_to_keys`) makes the keys
-    there; on the CPU the numpy conversion of :mod:`.ops.keys`, which
-    K11's plain version repeats in torch, makes them."""
-    if torch.device(device).type == "cuda":
-        return words_to_keys(words_tensor(keys_np).to(device), k)
-    if k <= keys64.NARROW_K:
-        return keys64.words_to_keys64(keys_np, k)
-    return keys64.words_to_limbs(keys_np, k)
-
-
-def _live_rows(keys_np, k):
-    """(live rows, the last live key) of a sorted (M, W) word table: the
-    rows before its trailing all-ones (sentinel) rows, and limb 0 of the
-    last of them (0 when none is live), from the host words through
-    K11's plain version."""
-    live = keys_np.shape[0]
-    while live and (keys_np[live - 1] == keys64.SENTINEL32).all():
-        live -= 1
-    if not live:
-        return 0, 0
-    last = plain_words_to_keys(words_tensor(keys_np[live - 1:live]), k)
-    return live, int(last.reshape(-1)[0])
-
-
-def _member(keys, index):
-    """K4, or K8 for a (M, Q) table, through the index's directory: found
-    bools."""
-    if index.table.dim() == 2:
-        return probe_member_wide(keys, index.table, index.directory)
-    return probe_member(keys, index.table, index.directory)
-
-
-def _rows(keys, index):
-    """K4, or K8 for a (M, Q) table, through the index's directory: table
-    rows, -1 where absent."""
-    if index.table.dim() == 2:
-        return probe_rows_wide(keys, index.table, index.directory)
-    return probe_rows(keys, index.table, index.directory)
-
-
-def _tally(keys, index, acc, weights=None, counts=None):
-    """``acc += `` the tally of *keys* (weighted when *weights* is
-    given, on K9d's or K9dw's slots when *counts* is): K2 or K3 through
-    the index's directory, or K7 (both forms) through it for a (M, Q)
-    table."""
-    if index.table.dim() == 2:
-        return probe_tally_wide(keys, index.table, acc, weights,
-                                index.directory, counts)
-    if weights is None:
-        return probe_tally(keys, index.table, acc, index.directory)
-    return probe_tally_weighted(keys, weights, index.table, acc,
-                                index.directory, counts)
 
 
 class KmerIndex:
@@ -204,7 +97,7 @@ class KmerIndex:
 
     def __init__(self, keys_np, k, counts_np=None, *, device, key_tensor=None):
         """*keys_np*: (M, W) uint32 sorted unique canonical keys;
-        *key_tensor*: their :func:`_key_tensor` form, when the caller
+        *key_tensor*: their :func:`.steps.key_tensor` form, when the caller
         holds it already."""
         keys64.check_k(k)
         self.k = k
@@ -215,7 +108,7 @@ class KmerIndex:
         self.device = resolve_device(device)
         with tracing.span("index.build"):
             # (M,) int64 keys, or (M, Q) limb rows for k > 31: on a card
-            # made there from the words (K11, :func:`_key_tensor`'s steps)
+            # made there from the words (K11, as in steps.key_tensor)
             if key_tensor is not None:
                 self.table = key_tensor.to(self.device)
             elif self.device.type == "cuda":
@@ -225,14 +118,14 @@ class KmerIndex:
                     self.table = words_to_keys(words, k)
             else:
                 with tracing.span("index.convert"):
-                    self.table = _key_tensor(keys_np, k)
+                    self.table = steps.key_tensor(keys_np, k)
             self.directory = None
             if self.device.type == "cuda":
                 # live rows (sentinel rows trail) and the last live key
                 # from the host words: no sync
                 with tracing.span("index.directory"):
                     self.directory = tdir.build_directory(
-                        self.table, *_live_rows(keys_np, k))
+                        self.table, *steps.live_rows(keys_np, k))
 
     @classmethod
     def from_strings(cls, kmers, k, *, device):
@@ -251,18 +144,18 @@ class KmerIndex:
     def membership(self, query_keys_np):
         """bool array: which (N, W) query rows are in the table (K4, or
         K8 for k > 31); sentinel rows are never found."""
-        q = _key_tensor(query_keys_np, self.k, self.device)
-        return _member(q, self).cpu().numpy()
+        q = steps.key_tensor(query_keys_np, self.k, self.device)
+        return steps.member(q, self).cpu().numpy()
 
     def counts_of(self, query_keys_np):
         """int64 counts per query row (0 when absent): K4 (K8) finds each
         row's table row on the device, the host gathers its count."""
         if self.counts_np is None:
             raise ValueError("index has no counts")
-        q = _key_tensor(query_keys_np, self.k, self.device)
+        q = steps.key_tensor(query_keys_np, self.k, self.device)
         if self.n == 0:
             return np.zeros(q.shape[0], dtype=np.int64)
-        rows = _rows(q, self).cpu().numpy()
+        rows = steps.rows(q, self).cpu().numpy()
         return np.where(rows >= 0, self.counts_np[np.maximum(rows, 0)], 0)
 
 
@@ -468,22 +361,16 @@ class StreamCounter:
         self._pending_rows = 0
 
     def feed(self, codes, lengths):
-        win = _window_keys(codes, lengths, self.k, self.device)
+        win = steps.window_keys(codes, lengths, self.k, self.device)
         if win is None:
             return
         with tracing.span("count.sort"):
-            if win.dim() == 3:
-                uk, counts = sort_count_wide(win.flatten(0, 1), self.k)
-            else:
-                uk, counts = sort_count(win.reshape(-1), self.k)
+            uk, counts = steps.sort_count(win.flatten(0, 1), self.k)
         with tracing.span("count.dtoh"):
-            uk = uk.cpu().numpy()
-            if win.dim() != 3:
-                uk = uk[:, None]
-            counts = counts.cpu().numpy()
-        self._add_chunk(uk, counts)
+            uk, counts = uk.cpu().numpy(), counts.cpu().numpy()
+        self.add_chunk(uk, counts)
 
-    def _add_chunk(self, uk, counts):
+    def add_chunk(self, uk, counts):
         """Queue one batch's sorted unique (N, Q) rows and counts, and
         consolidate when the pending rows call for it."""
         self._chunks.append((uk, counts))
@@ -519,9 +406,7 @@ class StreamCounter:
                     np.zeros(0, dtype=np.int64))
         keys, counts = self._merged
         with tracing.span("count.result.words"):
-            if self.k > keys64.NARROW_K:
-                return keys64.limbs_to_words(keys, self.k), counts
-            return keys64.keys64_to_words(keys[:, 0], self.k), counts
+            return steps.to_words(keys, self.k), counts
 
     def to_index(self):
         keys, counts = self.result()
@@ -529,34 +414,17 @@ class StreamCounter:
                                           device=self.device)
 
 
-class ShardedStreamCounter(StreamCounter):
-    """Mesh canonical counting (``jellyfish count -C`` over devices).
-
-    Each batch runs the sharded count (:func:`~.parallel.sharded.
-    sharded_count`: extraction data-parallel over the mesh, window keys
-    routed to their owner, an owner-side sort-count); the per-batch
-    (rows, counts) merge reuses :class:`StreamCounter`'s progressive
-    consolidation (reference engine.py:430–452).
-    """
-
-    def __init__(self, k, mesh):
-        super().__init__(k, device=mesh[0])
-        self.mesh = mesh
-
-    def feed(self, codes, lengths):
-        from kmer_denovo_filter_tpu_torch.parallel.sharded import _count_rows
-        self._add_chunk(*_count_rows(codes, lengths, self.k, self.mesh))
-
-
 def make_stream_counter(k, *, device):
-    """:class:`StreamCounter` on *device*, or :class:`ShardedStreamCounter`
-    over the local CUDA devices when ``KDF_SHARDED=1`` forces it and
-    there are 2 or more (:func:`_shard_dispatch`).  The reference shards
+    """:class:`StreamCounter` on *device*, or
+    :class:`~.parallel.sharded.ShardedStreamCounter` over the local CUDA
+    devices when ``KDF_SHARDED=1`` forces it and there are 2 or more
+    (:func:`_shard_dispatch`).  The reference shards
     automatically on a multi-chip mesh (engine.py:455–469); here the
     count's output is on the host, so no card limits it, and the
     sharded count sorts each batch's rows on the host."""
     device = resolve_device(device)
     if _shard_dispatch(device):
+        from kmer_denovo_filter_tpu_torch.parallel import ShardedStreamCounter
         mesh = _local_mesh(device)
         logger.info("  sharded stream counter: %d-device mesh", len(mesh))
         return ShardedStreamCounter(k, mesh)
@@ -614,7 +482,7 @@ class FilteredCounter:
         k = self.index.k
         with tracing.span("filter.feed"):
             batch = flags = None
-            if _has_windows(codes, k):
+            if steps.has_windows(codes, k):
                 batch, flags = self._step(codes, lengths, k)
             if tracing.enabled():
                 _count_batch(codes, lengths, k, batch, flags)
@@ -625,7 +493,7 @@ class FilteredCounter:
         device, the dedup's per-segment flags or None)."""
         with tracing.span("filter.feed.htod"):
             if self._stage is None:
-                batch = _to_device(codes, lengths, self.index.device)
+                batch = steps.to_device(codes, lengths, self.index.device)
             else:
                 batch = self._stage.put(codes, lengths)
         if self._stage is None:
@@ -642,16 +510,15 @@ class FilteredCounter:
         commute."""
         k = self.index.k
         with tracing.span("filter.feed.extract"):
-            flat = _extractor(k)(*batch, k).flatten(0, 1)
+            flat = steps.extract(*batch, k).flatten(0, 1)
         if not self.dedup:
             with tracing.span("filter.feed.tally"):
-                _tally(flat, self.index, self.acc)
+                steps.tally(flat, self.index, self.acc)
             return None
-        dedup = seg_dedup_wide if flat.dim() == 2 else seg_dedup
         with tracing.span("filter.feed.dedup"):
-            keys, weights, counts, passed = dedup(flat, ordered=False)
+            keys, weights, counts, passed = steps.dedup(flat)
         with tracing.span("filter.feed.tally"):
-            _tally(keys, self.index, self.acc, weights, counts)
+            steps.tally(keys, self.index, self.acc, weights, counts)
         return counts, passed
 
     def result(self):
@@ -778,7 +645,7 @@ class HostFilteredCounter:
         self._tally = np.zeros(self.n, dtype=np.int64)
 
     def feed(self, codes, lengths):
-        win = _window_keys(codes, lengths, self.k, torch.device("cpu"))
+        win = steps.window_keys(codes, lengths, self.k, steps.CPU)
         if win is None:
             return
         # sentinel (INT64_MAX) windows are no table key: they never match
@@ -874,12 +741,13 @@ def scan_reads_for_hits_many(index, batches):
         for c, _ in batches:
             codes[row:row + c.shape[0], :c.shape[1]] = c
             row += c.shape[0]
-        if _has_windows(codes, k):
-            batch = _to_device(codes, lengths, index.device)
+        if steps.has_windows(codes, k):
+            batch = steps.to_device(codes, lengths, index.device)
     if batch is not None:
         with tracing.span("scan.member"):
-            win = _extractor(k)(*batch, k)
-            hits = _member(win.flatten(0, 1), index).reshape(win.shape[:2])
+            win = steps.extract(*batch, k)
+            hits = steps.member(win.flatten(0, 1),
+                                index).reshape(win.shape[:2])
     with tracing.span("scan.mask_back"):
         found = (np.zeros((codes.shape[0], lmax - k + 1), dtype=bool)
                  if hits is None else hits.cpu().numpy())

@@ -8,9 +8,10 @@ against tables of 4,096 and 262,144 keys, half drawn from the batches'
 distinct keys and half random, with the counts checked against the
 plain path.  For each table: one warm-up feed, then REPS timed feeds
 (reads/s) with the host's milliseconds a batch in the engine's two
-steps (``upload``: the batch's way up, ``staging.Stage.put`` where the
-checkout has the pinned ring, else ``_to_device``'s pageable copies;
-``_tally``: the probe wrapper), then one feed under ``torch.profiler``:
+steps (``upload``: ``staging.Stage.put``, the copy into the pinned ring;
+``launch``: ``engine._StepGraphs.run``, the batch's kernels enqueued,
+eagerly or as one CUDA graph's replay), then one feed under
+``torch.profiler``:
 device milliseconds a batch of each op (the HtoD copies among them),
 device busy time, and the idle share of the profiled wall::
 
@@ -90,6 +91,7 @@ def main(argv=None):
         sys.exit("feed_ab: needs a CUDA GPU")
     sys.path.insert(0, os.path.abspath(args.root))
     from kmer_denovo_filter_tpu_torch import engine as eng
+    from kmer_denovo_filter_tpu_torch import staging
     from kmer_denovo_filter_tpu_torch.ops import device as dev
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
     print(f"feed_ab {args.tag}: package {os.path.dirname(eng.__file__)}, "
@@ -107,7 +109,7 @@ def main(argv=None):
         for c in batches]))
     seen = seen[seen != keys64.SENTINEL]
 
-    host_ms = {"upload": 0.0, "_tally": 0.0}
+    host_ms = {"upload": 0.0, "launch": 0.0}
 
     def timed(name, fn):
         def wrapper(*a, **kw):
@@ -117,15 +119,8 @@ def main(argv=None):
             return out
         return wrapper
 
-    # on a card FilteredCounter puts its batches through the pinned ring
-    # where the checkout has one, and no longer calls _to_device
-    try:
-        from kmer_denovo_filter_tpu_torch import staging
-    except ImportError:
-        eng._to_device = timed("upload", eng._to_device)
-    else:
-        staging.Stage.put = timed("upload", staging.Stage.put)
-    eng._tally = timed("_tally", eng._tally)
+    staging.Stage.put = timed("upload", staging.Stage.put)
+    eng._StepGraphs.run = timed("launch", eng._StepGraphs.run)
     gen = torch.Generator(device=cuda).manual_seed(1)
     rows = []
     for m in TABLE_MS:
@@ -162,8 +157,8 @@ def main(argv=None):
             host = {name: ms / BATCHES for name, ms in host_ms.items()}
             rows.append({"m": m, "reads_per_s": rate, "host_ms": host})
             print(f"{args.tag:8s} M={m:<7d} feed {rate:.1f} reads/s; host ms "
-                  f"a batch: upload {host['upload']:.4f}, _tally "
-                  f"{host['_tally']:.4f}", flush=True)
+                  f"a batch: upload {host['upload']:.4f}, launch "
+                  f"{host['launch']:.4f}", flush=True)
         ops, busy_ms, wall_ms = profile_feed(feed, BATCHES)
         rows.append({"m": m, "profile_ms_per_batch": ops,
                      "busy_ms": busy_ms, "wall_ms": wall_ms})

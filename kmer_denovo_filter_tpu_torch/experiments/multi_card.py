@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import steps
 from kmer_denovo_filter_tpu_torch.experiments._common import (
     BATCH_READS,
     GENOME_BASES,
@@ -98,7 +99,7 @@ def run_mesh(batches, cards):
         return fc
 
     for k in (31, 63):
-        flat = eng._window_keys(batches[0], lens, k, one).flatten(0, 1)
+        flat = steps.window_keys(batches[0], lens, k, one).flatten(0, 1)
         words = _table_words(flat, k, k)
         index = eng.KmerIndex(words, k, device=one)
         for dedup in (False, True):

@@ -1,5 +1,5 @@
-"""K1, K1w, K2, K3, K4, K7, K8, K9, K9d and K9dw of one checkout, each
-read three ways on the card:
+"""K1, K1w, K2, K3, K4, K7, K8, K9, K9d, K9dw, K10, K11 and K12 of one
+checkout, each read three ways on the card:
 
 * ``device``: ``ops.timing.timings``' first reading, the calls queued
   behind a spin, the timer of ``chip_smoke.py`` and the experiments;
@@ -15,34 +15,29 @@ lengths, tables of 4,096 keys half drawn from the batch, and one
 (1, 2**20) row; K2, K3 and K4 at k = 31 also at 262,144, 2**20 and
 2**24 keys, K4 also on a stacked group of 8 x 4,096 reads, K2, K3 and
 K4 also on one 40x-coverage batch (the 3s batch) with tables half drawn
-from its keys.  K3 is read on the batch's whole dedup (``flat``) and,
-where the checkout's K3 takes them, on K9d's slots (``slots``); K9d on
-both batches; and the step from K1's keys to the tally at
-2**24 keys in every form the checkout has: K1 -> K2, K1 -> whole-batch
-dedup -> K3, K1 -> K9d -> K3 on the slots, or the older K1 -> K9d ->
-compaction -> global sort -> K3 (``dedup_segments``).  Where the
-checkout's K9d and K9dw take ``ordered``, their unordered form too (``K9d
-unordered``, ``K9dw unordered``, the parent filter's, with K3 and K7 on
-its slots and in the step), checked by each segment's weight sums, with
-the number of segments passed through printed.  K7 (unweighted, and
-weighted on the batch dedup) and K8
-(found bytes, rows) at k = 63 on 2,048, 4,096, 262,144 and 2**24 rows
-and at k = 201 on 1,024, 4,096 and 2**22, half drawn from the batch
-(2,048 and 1,024 rows are tables that a form staging them in shared
-memory would hold).  K9 with and without its payload on the k = 31 keys
-of both batches; K9dw, where the checkout has it, beside the whole-batch
+from its keys.  Every probe goes through its table's prefix directory
+(``ops/directory.py``), built once per table as the engine does (the
+wide build timed as ``dir wide``).  K3 is read on the batch's whole
+dedup (``flat``) and on K9d's slots in both of K9d's forms (``slots``,
+``slots unordered``); K9d and K9dw in both forms, the unordered one
+(``K9d unordered``, ``K9dw unordered``: the parent filter's) checked by
+each segment's weight sums, with the number of segments passed through
+printed; and the step from K1's keys to the tally at 2**24 keys in each
+form: K1 -> K2, K1 -> whole-batch dedup -> K3, K1 -> K9d -> K3 on the
+slots, ordered and unordered.  K7 (unweighted, and weighted on the
+batch dedup) and K8 (found bytes, rows) at k = 63 on 2,048, 4,096,
+262,144 and 2**24 rows and at k = 201 on 1,024, 4,096 and 2**22, half
+drawn from the batch (2,048 and 1,024 rows are tables that a form
+staging them in shared memory would hold).  K9 with and without its
+payload on the k = 31 keys of both batches; K9dw beside the whole-batch
 dedup ``dedup_windows_wide`` and ``torch.unique(dim=0)``, and the wide
 step from the codes to the tally at k = 63, 2**24 rows and k = 201,
-2**22 rows, in every form the checkout has (K1w -> K7, K1w ->
-``dedup_windows_wide`` -> K7 weighted, K1w -> K9dw -> K7 on the slots,
-and K7 on the slots alone), on the random batch and a 40x batch of
-152 bp (256 bp at k = 201).  Where the checkout has the prefix directory
-(``ops/directory.py``), K2 and K4 get it built once per table, as the
-engine does, and so do K7 and K8 where its wide wrappers take a
-directory (its build timed as ``dir wide``).
-The timer is
-always the one beside this file, whatever checkout's kernels it times,
-so two checkouts compare under one timer::
+2**22 rows, in each form (K1w -> K7, K1w -> ``dedup_windows_wide`` ->
+K7 weighted, K1w -> K9dw -> K7 on the slots, ordered and unordered, and
+K7 on the slots alone), on the random batch and a 40x batch of 152 bp
+(256 bp at k = 201).  The timer is always the one beside this file,
+whatever checkout's kernels it times, so two checkouts compare under
+one timer::
 
     python kmer_denovo_filter_tpu_torch/experiments/timer_ab.py \\
         [--root CHECKOUT] [--tag NAME] [--kernels K1,K3,...]
@@ -50,29 +45,25 @@ so two checkouts compare under one timer::
 ``--kernels`` keeps only the named groups (K1, K1w, K2, K3, K4, K7, K8,
 K9, K9d, K9dw, step, wstep, dir, K10, K11, K12; default all).
 
-K10 (where the checkout has ``ops/route.py``) routes the k = 31 and
-k = 63 keys of the random batch to S = 1, 2 and 4 shards; ``K10 route``
-times the checkout's whole route of that one source,
-``parallel.sharded._gather_by_owner`` with its sizes' host sync (the
-parent's ``_dispatch``: hash, stable argsort, bincount).  K11 (where the
-checkout has ``ops/convert.py``) converts 2**20, 2**22 and 2**24 words on
-the card at k = 31 and 63; ``K11 keys`` times the checkout's
-``engine._key_tensor`` of the host words to keys on the card (the
-parent's: numpy on the host, then the copy up).  K12 (where the
-checkout has ``ops/sortcount.py``) sort-counts the window keys of the
-random and the 40x batch at k = 31, 63 and 201, the call with its host
-sync; ``K12 plain`` times the plain version on the same keys
-(``torch.unique``, or Q stable sorts for rows), the parent's device step
-of ``StreamCounter.feed``.
+K10 routes the k = 31 and k = 63 keys of the random batch to S = 1, 2
+and 4 shards; ``K10 route`` times the whole route of that one source,
+``parallel.sharded._gather_by_owner`` with its sizes' host sync.  K11
+converts 2**20, 2**22 and 2**24 words on the card at k = 31 and 63;
+``K11 keys`` times the host words to keys on the card as a table's
+build takes them, ``ops.convert.words_tensor`` copied up, then K11.
+K12 sort-counts the window keys of the random and the 40x batch at
+k = 31, 63 and 201, the call with its host sync; ``K12 plain`` times
+the plain version on the same keys (``torch.unique``, or Q stable sorts
+for rows).
 
 Run it as a file: *CHECKOUT* (default: the one that holds this file) goes
-first on ``sys.path`` and its package is imported.  Every output is
+first on ``sys.path`` and its package is imported; it needs every kernel
+above and the ops wrappers' signatures of this tree.  Every output is
 checked against its plain version.  Prints a line per kernel and shape,
 then one JSON line."""
 
 import argparse
 import importlib.util
-import inspect
 import json
 import os
 import sys
@@ -140,15 +131,6 @@ def random_batch(rng, length):
     return codes, lengths
 
 
-def compact(keys, weights, counts):
-    """The first counts[s] of each row of K9d's (S, 8192) slots, as one
-    stream of keys and one of weights (a checkout may predate
-    ``device.segment_compact``)."""
-    live = (torch.arange(keys.shape[1], device=keys.device)[None, :]
-            < counts[:, None])
-    return keys[live], weights[live]
-
-
 def segment_sums(keys, weights, counts):
     """Every segment's live slots merged: sorted (segment, key limbs)
     rows and each row's weight sum, the contract of K9d's and K9dw's
@@ -176,14 +158,12 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("timer_ab: needs a CUDA GPU")
     sys.path.insert(0, os.path.abspath(args.root))
+    from kmer_denovo_filter_tpu_torch.ops import convert, extract, member
     from kmer_denovo_filter_tpu_torch.ops import device as dev
-    from kmer_denovo_filter_tpu_torch.ops import extract, member, probe
+    from kmer_denovo_filter_tpu_torch.ops import directory as tdir
     from kmer_denovo_filter_tpu_torch.ops import keys as keys64
-    from kmer_denovo_filter_tpu_torch.ops import segsort
-    try:
-        from kmer_denovo_filter_tpu_torch.ops import directory as tdir
-    except ImportError:  # a checkout from before the prefix directory
-        tdir = None
+    from kmer_denovo_filter_tpu_torch.ops import probe, route, segsort
+    from kmer_denovo_filter_tpu_torch.ops import sortcount
     timing = load_timing()
     print(f"timer_ab {args.tag}: package {os.path.dirname(dev.__file__)}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -246,19 +226,10 @@ def main(argv=None):
                      f"wanted {m}")
         return table
 
-    # a checkout from before the wide directory: K7/K8 take none
-    wide_dir = "directory" in inspect.signature(
-        probe.probe_tally_wide).parameters
-
-    def wide_directory_args(table):
-        """(directory,) where the checkout's wide wrappers take one, else
-        ()."""
-        return (tdir.build_directory(table),) if wide_dir else ()
-
     def wide_probes(k, flat):
         """K7 (unweighted on *flat*, weighted on its dedup) and K8 (found
         bytes, rows) at each of WIDE_MS[k] table rows, through the
-        table's directory where the checkout has one."""
+        table's directory."""
         uniq, weights = dev.dedup_windows_wide(flat)
         for m in WIDE_MS[k]:
             table = wide_table(flat, k, m)
@@ -266,157 +237,116 @@ def main(argv=None):
             ref_found = dev.member_wide(table, flat)
             ref_rows = dev.find_rows_wide(table, flat)
             acc = torch.zeros(m, dtype=torch.int64, device=cuda)
-            dargs = wide_directory_args(table)
+            d = tdir.build_directory(table)
             shape = f"k={k} M={m}"
-            if dargs:
-                live, max_key = m, int(table[-1, 0])
-                time_it("dir wide", shape, lambda: tdir.build_directory(
-                    table, live, max_key))
+            live, max_key = m, int(table[-1, 0])
+            time_it("dir wide", shape, lambda: tdir.build_directory(
+                table, live, max_key))
             for form, keys, w in (("K7", flat, None),
                                   ("K7 weighted", uniq, weights)):
                 acc.zero_()
-                probe.probe_tally_wide(keys, table, acc, w, *dargs)
+                probe.probe_tally_wide(keys, table, acc, w, d)
                 check(f"{form} {shape}", acc, ref)
                 time_it(form, shape, lambda: probe.probe_tally_wide(
-                    keys, table, acc, w, *dargs))
-            check(f"K8 {shape}", member.probe_member_wide(flat, table, *dargs),
+                    keys, table, acc, w, d))
+            check(f"K8 {shape}", member.probe_member_wide(flat, table, d),
                   ref_found)
             check(f"K8 rows {shape}",
-                  member.probe_rows_wide(flat, table, *dargs), ref_rows)
+                  member.probe_rows_wide(flat, table, d), ref_rows)
             time_it("K8", shape, lambda: member.probe_member_wide(
-                flat, table, *dargs))
+                flat, table, d))
             time_it("K8 rows", shape, lambda: member.probe_rows_wide(
-                flat, table, *dargs))
-            del table, acc, ref, ref_found, ref_rows, dargs
-
-    def directory_args(table):
-        """(directory,) for K2/K4 where the checkout has one, else ()."""
-        return () if tdir is None else (tdir.build_directory(table),)
-
-    # what the checkout's K3 takes (older checkouts: K3 searches the
-    # whole table, flat keys only)
-    k3_params = inspect.signature(probe.probe_tally_weighted).parameters
-    k3_dir, k3_slots = "directory" in k3_params, "counts" in k3_params
-
-    def k3_args(d, counts=None):
-        """The trailing arguments of the checkout's K3."""
-        return ((d,) if k3_dir else ()) + (() if counts is None
-                                           else (counts,))
-
-    # the unordered form of K9d and K9dw, where the checkout has it
-    unordered = "ordered" in inspect.signature(segsort.seg_dedup).parameters
+                flat, table, d))
+            del table, acc, ref, ref_found, ref_rows, d
 
     def k9d(label, flat):
         """K9d on *flat*, checked against its plain version; its
-        unordered form, where the checkout has it, against the weight
-        sums of the plain version's."""
+        unordered form against the weight sums of the plain version's."""
         ref = dev.segment_runs(segsort.segments(flat, keys64.SENTINEL))
         got = segsort.seg_dedup(flat)
         check(f"K9d {label} counts", got[2], ref[2])
-        for g, w in zip(compact(*got), compact(*ref)):
+        for g, w in zip(dev.segment_compact(*got), dev.segment_compact(*ref)):
             check(f"K9d {label} rows", g, w)
         time_it("K9d", f"k=31 {label}", lambda: segsort.seg_dedup(flat))
-        if unordered:
-            got = segsort.seg_dedup(flat, ordered=False)
-            for g, w in zip(segment_sums(*got[:3]), segment_sums(*ref)):
-                check(f"K9d unordered {label}", g, w)
-            print(f"{args.tag:8s} K9d unordered k=31 {label}: "
-                  f"{int(got[3].sum())} of {got[3].numel()} segments "
-                  f"passed through", flush=True)
-            time_it("K9d unordered", f"k=31 {label}",
-                    lambda: segsort.seg_dedup(flat, ordered=False))
+        got = segsort.seg_dedup(flat, ordered=False)
+        for g, w in zip(segment_sums(*got[:3]), segment_sums(*ref)):
+            check(f"K9d unordered {label}", g, w)
+        print(f"{args.tag:8s} K9d unordered k=31 {label}: "
+              f"{int(got[3].sum())} of {got[3].numel()} segments "
+              f"passed through", flush=True)
+        time_it("K9d unordered", f"k=31 {label}",
+                lambda: segsort.seg_dedup(flat, ordered=False))
 
     def probes(label, codes, lengths, flat, group):
         """K2, K3 (flat and slots) and K4 at k = 31 on *flat* (and K4 on
         *group*) at each of PROBE_MS table keys; K9d on *flat*; the step
         from *codes* to the tally at STEP_M keys."""
         uniq, weights = dev.dedup_windows(flat)
-        slots = segsort.seg_dedup(flat) if k3_slots else None
-        slots_u = (segsort.seg_dedup(flat, ordered=False)[:3]
-                   if k3_slots and unordered else None)
+        slots = segsort.seg_dedup(flat)
+        slots_u = segsort.seg_dedup(flat, ordered=False)[:3]
         for m in PROBE_MS if wanted & {"K2", "K3", "K4", "step"} else ():
             if m != STEP_M and not wanted & {"K2", "K3", "K4"}:
                 continue
             table = table_of(flat, 31, m)
-            dargs = directory_args(table)
+            d = tdir.build_directory(table)
             acc = torch.zeros(table.shape[0], dtype=torch.int64, device=cuda)
             ref = dev.small_table_tally(table, flat)
-            probe.probe_tally(flat, table, acc, *dargs)
+            probe.probe_tally(flat, table, acc, d)
             check(f"K2 {label} M={m}", acc, ref)
             shape = f"k=31 M={m} {label}"
             time_it("K2", shape,
-                    lambda: probe.probe_tally(flat, table, acc, *dargs))
+                    lambda: probe.probe_tally(flat, table, acc, d))
             for form, keys in (("batch", flat), ("group", group)):
                 if keys is None or "K4" not in wanted:
                     continue
                 check(f"K4 {form} {label} M={m}",
-                      member.probe_member(keys, table, *dargs),
+                      member.probe_member(keys, table, d),
                       dev.member(table, keys))
                 time_it(f"K4 {form}", shape,
-                        lambda: member.probe_member(keys, table, *dargs))
-            d = dargs[0] if dargs else None
+                        lambda: member.probe_member(keys, table, d))
             acc = torch.zeros_like(acc)
-            probe.probe_tally_weighted(uniq, weights, table, acc,
-                                       *k3_args(d))
+            probe.probe_tally_weighted(uniq, weights, table, acc, d)
             check(f"K3 flat {label} M={m}", acc, ref)
             time_it("K3 flat", shape, lambda: probe.probe_tally_weighted(
-                uniq, weights, table, acc, *k3_args(d)))
-            if slots is not None:
+                uniq, weights, table, acc, d))
+            for form, (s_keys, s_weights, s_counts) in (
+                    ("K3 slots", slots), ("K3 slots unordered", slots_u)):
                 acc.zero_()
-                probe.probe_tally_weighted(slots[0], slots[1], table, acc,
-                                           *k3_args(d, slots[2]))
-                check(f"K3 slots {label} M={m}", acc, ref)
-                time_it("K3 slots", shape, lambda: probe.probe_tally_weighted(
-                    slots[0], slots[1], table, acc, *k3_args(d, slots[2])))
-            if slots_u is not None:
-                acc.zero_()
-                probe.probe_tally_weighted(slots_u[0], slots_u[1], table, acc,
-                                           *k3_args(d, slots_u[2]))
-                check(f"K3 slots unordered {label} M={m}", acc, ref)
-                time_it("K3 slots unordered", shape,
-                        lambda: probe.probe_tally_weighted(
-                            slots_u[0], slots_u[1], table, acc,
-                            *k3_args(d, slots_u[2])))
+                probe.probe_tally_weighted(s_keys, s_weights, table, acc, d,
+                                           s_counts)
+                check(f"{form} {label} M={m}", acc, ref)
+                time_it(form, shape, lambda: probe.probe_tally_weighted(
+                    s_keys, s_weights, table, acc, d, s_counts))
             if m == STEP_M and "step" in wanted:
-                steps(label, codes, lengths, table, dargs, ref)
-            del table, acc, dargs, ref, d
+                steps(label, codes, lengths, table, d, ref)
+            del table, acc, ref, d
         if "K9d" in wanted:
             k9d(label, flat)
 
-    def steps(label, codes, lengths, table, dargs, ref):
-        """K1's keys to the tally in each form the checkout has, checked
-        against *ref*."""
-        d = dargs[0] if dargs else None
+    def steps(label, codes, lengths, table, d, ref):
+        """K1's keys to the tally in each form, checked against *ref*."""
 
         def keys():
             return extract.extract_canonical(codes, lengths, 31).reshape(-1)
 
-        forms = {
-            "K1->K2": lambda acc: probe.probe_tally(keys(), table, acc,
-                                                    *dargs),
-            "K1->dedup->K3": lambda acc: probe.probe_tally_weighted(
-                *dev.dedup_windows(keys()), table, acc, *k3_args(d)),
-        }
-
         def slots_step(acc):
             s_keys, s_weights, s_counts = segsort.seg_dedup(keys())
             return probe.probe_tally_weighted(s_keys, s_weights, table, acc,
-                                              *k3_args(d, s_counts))
+                                              d, s_counts)
 
-        if k3_slots:
-            forms["K1->K9d->K3"] = slots_step
-        elif hasattr(segsort, "dedup_segments"):
-            forms["K1->K9d->sort->K3"] = lambda acc: (
-                probe.probe_tally_weighted(*segsort.dedup_segments(keys()),
-                                           table, acc, *k3_args(d)))
-        if unordered:
-            def unordered_step(acc):
-                s_keys, s_weights, s_counts, _ = segsort.seg_dedup(
-                    keys(), ordered=False)
-                return probe.probe_tally_weighted(
-                    s_keys, s_weights, table, acc, *k3_args(d, s_counts))
+        def unordered_step(acc):
+            s_keys, s_weights, s_counts, _ = segsort.seg_dedup(
+                keys(), ordered=False)
+            return probe.probe_tally_weighted(s_keys, s_weights, table, acc,
+                                              d, s_counts)
 
-            forms["K1->K9d unordered->K3"] = unordered_step
+        forms = {
+            "K1->K2": lambda acc: probe.probe_tally(keys(), table, acc, d),
+            "K1->dedup->K3": lambda acc: probe.probe_tally_weighted(
+                *dev.dedup_windows(keys()), table, acc, d),
+            "K1->K9d->K3": slots_step,
+            "K1->K9d unordered->K3": unordered_step,
+        }
         for name, step in forms.items():
             acc = torch.zeros_like(ref)
             step(acc)
@@ -442,160 +372,117 @@ def main(argv=None):
         time_it("K9", f"k=31 {label}", lambda: segsort.seg_sort(flat, payload))
         time_it("K9 keys", f"k=31 {label}", lambda: segsort.seg_sort(flat))
 
-    has_k9dw = hasattr(segsort, "seg_dedup_wide")
-
     def k10(k, flat):
         """K10 and the whole route of one source, as the module says."""
         from kmer_denovo_filter_tpu_torch.parallel import sharded
-        try:
-            from kmer_denovo_filter_tpu_torch.ops import route
-        except ImportError:  # a checkout from before K10
-            route = None
         for s in ROUTE_SHARDS:
             shape = f"k={k} S={s}"
-            if route is not None:
-                for part, g, r in zip(("order", "sizes", "rows"),
-                                      route.route(flat, s),
-                                      route.plain_route(flat, s)):
-                    check(f"K10 {shape} {part}", g, r)
-                time_it("K10", shape, lambda: route.route(flat, s))
+            for part, g, r in zip(("order", "sizes", "rows"),
+                                  route.route(flat, s),
+                                  route.plain_route(flat, s)):
+                check(f"K10 {shape} {part}", g, r)
+            time_it("K10", shape, lambda: route.route(flat, s))
             time_it("K10 route", shape, lambda: sharded._gather_by_owner(
                 [flat], [cuda] * s))
 
     def k11(k):
-        """K11 and the checkout's host words to keys on the card."""
-        from kmer_denovo_filter_tpu_torch import engine as eng
-        try:
-            from kmer_denovo_filter_tpu_torch.ops import convert
-        except ImportError:  # a checkout from before K11
-            convert = None
-        on_card = "device" in inspect.signature(eng._key_tensor).parameters
+        """K11, and the host words to keys on the card through it."""
         w = -(-k // 16)
         for m in K11_MS:
             words = rng.integers(0, 1 << 32, (m, w), dtype=np.uint64)
             words = words.astype(np.uint32)
             shape = f"k={k} M={m}"
-            if convert is not None:
-                dev_words = convert.words_tensor(words).to(cuda)
-                check(f"K11 {shape}", convert.words_to_keys(dev_words, k),
-                      convert.plain_words_to_keys(dev_words, k))
-                time_it("K11", shape,
-                        lambda: convert.words_to_keys(dev_words, k))
-                del dev_words
-            if on_card:
-                time_it("K11 keys", shape,
-                        lambda: eng._key_tensor(words, k, cuda))
-            else:
-                time_it("K11 keys", shape,
-                        lambda: eng._key_tensor(words, k).to(cuda))
+            dev_words = convert.words_tensor(words).to(cuda)
+            check(f"K11 {shape}", convert.words_to_keys(dev_words, k),
+                  convert.plain_words_to_keys(dev_words, k))
+            time_it("K11", shape, lambda: convert.words_to_keys(dev_words, k))
+            del dev_words
+            time_it("K11 keys", shape, lambda: convert.words_to_keys(
+                convert.words_tensor(words).to(cuda), k))
 
     def k12(label, k, flat):
-        """K12 on the keys (rows) *flat*, where the checkout has it,
-        checked against its plain version, and the plain version."""
-        try:
-            from kmer_denovo_filter_tpu_torch.ops import sortcount
-        except ImportError:  # a checkout from before K12
-            sortcount = None
+        """K12 on the keys (rows) *flat*, checked against its plain
+        version, and the plain version."""
         wide = flat.dim() == 2
         plain = dev.sort_count_wide if wide else dev.sort_count
+        fn = sortcount.sort_count_wide if wide else sortcount.sort_count
         shape = f"k={k} {label}"
-        if sortcount is not None:
-            fn = sortcount.sort_count_wide if wide else sortcount.sort_count
-            for part, g, r in zip(("keys", "counts"), fn(flat, k),
-                                  plain(flat)):
-                check(f"K12 {shape} {part}", g, r)
-            time_it("K12", shape, lambda: fn(flat, k))
+        for part, g, r in zip(("keys", "counts"), fn(flat, k), plain(flat)):
+            check(f"K12 {shape} {part}", g, r)
+        time_it("K12", shape, lambda: fn(flat, k))
         time_it("K12 plain", shape, lambda: plain(flat))
 
     def k9dw(label, k, flat):
-        """K9dw on the (N, Q) rows *flat*, where the checkout has it,
-        checked against its plain version; the whole-batch dedups."""
-        if has_k9dw:
-            got = segsort.seg_dedup_wide(flat)
-            ref = dev.segment_runs_wide(segsort.segments(flat,
-                                                         keys64.SENTINEL))
-            check(f"K9dw k={k} {label} counts", got[2], ref[2])
-            for g, w in zip(compact(*got), compact(*ref)):
-                check(f"K9dw k={k} {label} rows", g, w)
-            time_it("K9dw", f"k={k} {label}",
-                    lambda: segsort.seg_dedup_wide(flat))
-        if unordered:
-            got = segsort.seg_dedup_wide(flat, ordered=False)
-            for g, w in zip(segment_sums(*got[:3]), segment_sums(*ref)):
-                check(f"K9dw unordered k={k} {label}", g, w)
-            print(f"{args.tag:8s} K9dw unordered k={k} {label}: "
-                  f"{int(got[3].sum())} of {got[3].numel()} segments "
-                  f"passed through", flush=True)
-            time_it("K9dw unordered", f"k={k} {label}",
-                    lambda: segsort.seg_dedup_wide(flat, ordered=False))
+        """K9dw on the (N, Q) rows *flat* in both forms, checked against
+        its plain version; the whole-batch dedups."""
+        got = segsort.seg_dedup_wide(flat)
+        ref = dev.segment_runs_wide(segsort.segments(flat, keys64.SENTINEL))
+        check(f"K9dw k={k} {label} counts", got[2], ref[2])
+        for g, w in zip(dev.segment_compact(*got), dev.segment_compact(*ref)):
+            check(f"K9dw k={k} {label} rows", g, w)
+        time_it("K9dw", f"k={k} {label}",
+                lambda: segsort.seg_dedup_wide(flat))
+        got = segsort.seg_dedup_wide(flat, ordered=False)
+        for g, w in zip(segment_sums(*got[:3]), segment_sums(*ref)):
+            check(f"K9dw unordered k={k} {label}", g, w)
+        print(f"{args.tag:8s} K9dw unordered k={k} {label}: "
+              f"{int(got[3].sum())} of {got[3].numel()} segments "
+              f"passed through", flush=True)
+        time_it("K9dw unordered", f"k={k} {label}",
+                lambda: segsort.seg_dedup_wide(flat, ordered=False))
         time_it("K9dw batch", f"k={k} {label}",
                 lambda: dev.dedup_windows_wide(flat))
         time_it("K9dw unique", f"k={k} {label}", lambda: torch.unique(
             flat, dim=0, sorted=True, return_counts=True))
 
     def wide_step(label, k, codes, lengths):
-        """K1w's rows to the tally at WSTEP_M[k] table rows in each form
-        the checkout has, checked against the plain tally."""
+        """K1w's rows to the tally at WSTEP_M[k] table rows in each form,
+        checked against the plain tally."""
         flat = extract.extract_canonical_wide(codes, lengths, k).flatten(0, 1)
         m = WSTEP_M[k]
         table = wide_table(flat, k, m)
-        dargs = wide_directory_args(table)
-        d = dargs[0] if dargs else None
+        d = tdir.build_directory(table)
         ref = dev.small_table_tally_wide(table, flat)
 
         def keys():
             return extract.extract_canonical_wide(codes, lengths,
                                                   k).flatten(0, 1)
 
+        for form, ordered in (("K7 slots", True),
+                              ("K7 slots unordered", False)):
+            s_keys, s_weights, s_counts = segsort.seg_dedup_wide(
+                flat, ordered=ordered)[:3]
+            acc = torch.zeros_like(ref)
+            probe.probe_tally_wide(s_keys, table, acc, s_weights, d, s_counts)
+            check(f"{form} k={k} {label}", acc, ref)
+            time_it("wstep", f"{form} k={k} M={m} {label}",
+                    lambda: probe.probe_tally_wide(s_keys, table, acc,
+                                                   s_weights, d, s_counts))
+
         def dedup_step(acc):
             uniq, weights = dev.dedup_windows_wide(keys())
-            return probe.probe_tally_wide(uniq, table, acc, weights, *dargs)
+            return probe.probe_tally_wide(uniq, table, acc, weights, d)
+
+        def slots_step(acc, ordered=True):
+            s_keys, s_weights, s_counts = segsort.seg_dedup_wide(
+                keys(), ordered=ordered)[:3]
+            return probe.probe_tally_wide(s_keys, table, acc, s_weights, d,
+                                          s_counts)
 
         forms = {
             "K1w->K7": lambda acc: probe.probe_tally_wide(keys(), table, acc,
-                                                          None, *dargs),
+                                                          None, d),
             "K1w->dedup->K7w": dedup_step,
+            "K1w->K9dw->K7": slots_step,
+            "K1w->K9dw unordered->K7": lambda acc: slots_step(acc, False),
         }
-        if has_k9dw:
-            slots = segsort.seg_dedup_wide(flat)
-            acc = torch.zeros_like(ref)
-            probe.probe_tally_wide(slots[0], table, acc, slots[1], d,
-                                   slots[2])
-            check(f"K7 slots k={k} {label}", acc, ref)
-            time_it("wstep", f"K7 slots k={k} M={m} {label}",
-                    lambda: probe.probe_tally_wide(slots[0], table, acc,
-                                                   slots[1], d, slots[2]))
-
-            def slots_step(acc):
-                s_keys, s_weights, s_counts = segsort.seg_dedup_wide(keys())
-                return probe.probe_tally_wide(s_keys, table, acc, s_weights,
-                                              d, s_counts)
-
-            forms["K1w->K9dw->K7"] = slots_step
-        if unordered:
-            slots_u = segsort.seg_dedup_wide(flat, ordered=False)
-            acc = torch.zeros_like(ref)
-            probe.probe_tally_wide(slots_u[0], table, acc, slots_u[1], d,
-                                   slots_u[2])
-            check(f"K7 slots unordered k={k} {label}", acc, ref)
-            time_it("wstep", f"K7 slots unordered k={k} M={m} {label}",
-                    lambda: probe.probe_tally_wide(slots_u[0], table, acc,
-                                                   slots_u[1], d, slots_u[2]))
-
-            def unordered_step(acc):
-                s_keys, s_weights, s_counts, _ = segsort.seg_dedup_wide(
-                    keys(), ordered=False)
-                return probe.probe_tally_wide(s_keys, table, acc, s_weights,
-                                              d, s_counts)
-
-            forms["K1w->K9dw unordered->K7"] = unordered_step
         for name, step in forms.items():
             acc = torch.zeros_like(ref)
             step(acc)
             check(f"wstep {name} k={k} {label}", acc, ref)
             time_it("wstep", f"{name} k={k} M={m} {label}",
                     lambda: step(acc))
-        del table, dargs, d, ref
+        del table, d, ref
 
     rng = np.random.default_rng(0)
     batches = {}

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import steps
 from kmer_denovo_filter_tpu_torch.experiments._common import (
     K,
     READ_LEN,
@@ -127,8 +128,8 @@ class BatchDedupCounter(SegmentDedupCounter):
     host sync) -> K3 on the flat (key, weight) stream; k <= 31 only."""
 
     def feed(self, codes, lengths):
-        win = eng._window_keys(codes, lengths, self.index.k,
-                               self.index.device)
+        win = steps.window_keys(codes, lengths, self.index.k,
+                                self.index.device)
         if win is None:
             return
         keys, weights = dev.dedup_windows(win.reshape(-1))
@@ -150,8 +151,8 @@ class WideBatchDedupCounter(eng.FilteredCounter):
         super().__init__(index, dedup=True)
 
     def feed(self, codes, lengths):
-        win = eng._window_keys(codes, lengths, self.index.k,
-                               self.index.device)
+        win = steps.window_keys(codes, lengths, self.index.k,
+                                self.index.device)
         if win is None:
             return
         keys, weights = dev.dedup_windows_wide(win.flatten(0, 1))

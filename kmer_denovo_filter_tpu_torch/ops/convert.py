@@ -3,7 +3,7 @@ int64 keys, on the keys' device.
 
 The JAX package sends its tables to the device as uint32 words; the
 port carries a key as int64 limbs (:mod:`.keys`).  The engine's tables
-(``engine._key_tensor``) send the words up as they are and convert them
+(``steps.key_tensor``) send the words up as they are and convert them
 on the card: :func:`words_to_keys` launches K11
 (``csrc/words_to_keys.cu``) on a CUDA tensor and runs
 :func:`plain_words_to_keys` on a CPU one.  The plain version is the

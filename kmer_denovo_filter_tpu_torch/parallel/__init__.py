@@ -7,6 +7,7 @@ not ported."""
 from kmer_denovo_filter_tpu_torch.parallel.sharded import (  # noqa: F401
     ShardedFilteredCounter,
     ShardedKmerIndex,
+    ShardedStreamCounter,
     make_mesh,
     sharded_count,
     sharded_scan_reads_for_hits,

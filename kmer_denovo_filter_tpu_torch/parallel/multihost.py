@@ -35,13 +35,10 @@ import torch
 import torch.distributed as dist
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import steps
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.route import route
-from kmer_denovo_filter_tpu_torch.ops.sortcount import (
-    sort_count,
-    sort_count_wide,
-)
 
 logger = logging.getLogger(__name__)
 
@@ -350,7 +347,7 @@ def sharded_count_multihost(codes, lengths, k, per_process=False,
     every process.
     """
     device = eng.resolve_device(device or _RUNTIME.get("device", "cuda"))
-    win = eng._window_keys(codes, lengths, k, device)
+    win = steps.window_keys(codes, lengths, k, device)
     q = keys64.limbs_per_kmer(k)
     flat = (torch.empty((0, q) if q > 1 else (0,), dtype=torch.int64,
                         device=device)
@@ -359,11 +356,8 @@ def sharded_count_multihost(codes, lengths, k, per_process=False,
                 != keys64.SENTINEL]
     if joined():
         live = _exchange(live)
-    uk, counts = (sort_count_wide(live, k) if live.dim() == 2
-                  else sort_count(live, k))
-    counts = counts.cpu().numpy()
-    words = (keys64.limbs_to_words(uk, k) if k > keys64.NARROW_K
-             else keys64.keys64_to_words(uk, k))
+    uk, counts = steps.sort_count(live, k)
+    words, counts = steps.to_words(uk, k), counts.cpu().numpy()
     if per_process or not active():
         return words, counts
     parts = allgather_object((words, counts))

@@ -17,10 +17,11 @@ exactly one shard:
   there is no capacity, no overflow flag and no replay (the JAX
   ``_bucketize`` capacity and its slack retry bound XLA's static
   shapes, and have no counterpart);
-* on the keys it receives each shard runs the single-device kernels by
-  the single-device rule: tally K2, or K9d -> K3 with ``dedup=True``
-  (for k > 31 K7, or K9dw -> K7), membership K4 (K8), and the
-  ``StreamCounter`` sort-count K12 for :func:`sharded_count`;
+* on the keys it receives each shard runs the single-device steps
+  (:mod:`..steps`): tally K2, or K9d -> K3 with ``dedup=True`` (for
+  k > 31 K7, or K9dw -> K7), membership K4 (K8), and the
+  ``StreamCounter`` sort-count K12 for :func:`sharded_count` and
+  :class:`ShardedStreamCounter`;
 * a copy between two cards is a plain ``Tensor.to``: PyTorch runs a
   copy between CUDA devices after the work queued on both devices'
   current streams, and their later work after it (``copy_`` in
@@ -39,14 +40,10 @@ import numpy as np
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import steps
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.route import route
-from kmer_denovo_filter_tpu_torch.ops.segsort import seg_dedup, seg_dedup_wide
-from kmer_denovo_filter_tpu_torch.ops.sortcount import (
-    sort_count,
-    sort_count_wide,
-)
 
 
 def make_mesh(n_devices=None):
@@ -122,7 +119,7 @@ def _route_table(keys_np, k, mesh):
     for i, device in enumerate(mesh):
         lo, hi = min(i * per, m), min((i + 1) * per, m)
         start = max(lo - 1, 0)
-        keys = eng._key_tensor(keys_np[start:hi], k, device)
+        keys = steps.key_tensor(keys_np[start:hi], k, device)
         order, sizes, routed = route(keys[lo - start:], n, sentinel=False)
         routes.append(routed)
         packets.append(torch.cat([sizes, _in_order(keys).view(1).long(),
@@ -154,7 +151,7 @@ def _window_keys_by_source(codes, lengths, k, mesh):
     keys on the device or None, (rows, windows) of the chunk)."""
     out = []
     for device, (c, l) in zip(mesh, _split_reads(codes, lengths, len(mesh))):
-        win = eng._window_keys(c, l, k, device)
+        win = steps.window_keys(c, l, k, device)
         out.append((None, None) if win is None
                    else (win.flatten(0, 1), win.shape[:2]))
     return out
@@ -216,11 +213,10 @@ class ShardedKmerIndex:
                 continue
             keys = torch.cat(parts)
             if not dedup:
-                eng._tally(keys, shard, acc)
+                steps.tally(keys, shard, acc)
                 continue
-            slots = (seg_dedup_wide if keys.dim() == 2 else seg_dedup)(
-                keys, ordered=False)
-            eng._tally(slots[0], shard, acc, slots[1], slots[2])
+            keys, weights, counts, _passed = steps.dedup(keys)
+            steps.tally(keys, shard, acc, weights, counts)
 
     def _member_many(self, key_batches):
         """Found bools for each flat key tensor of *key_batches*, on its
@@ -231,7 +227,7 @@ class ShardedKmerIndex:
         for shard, parts in zip(self.shards, received):
             sizes = [p.shape[0] for p in parts]
             if shard.n and sum(sizes):
-                found = eng._member(torch.cat(parts), shard)
+                found = steps.member(torch.cat(parts), shard)
             else:
                 found = torch.zeros(sum(sizes), dtype=torch.bool,
                                     device=shard.device)
@@ -253,14 +249,14 @@ class ShardedKmerIndex:
         there, routed back; sentinel rows are never found."""
         if query_keys_np.shape[0] == 0:
             return np.zeros(0, dtype=bool)
-        q = eng._key_tensor(query_keys_np, self.k, self.mesh[0])
+        q = steps.key_tensor(query_keys_np, self.k, self.mesh[0])
         return self._member_many([q])[0].cpu().numpy()
 
     def tally_batch(self, flat_keys_np):
         """Accumulate filtered counts for a batch of (N, W) window keys."""
         if flat_keys_np.shape[0] == 0:
             return
-        q = eng._key_tensor(flat_keys_np, self.k, self.mesh[0])
+        q = steps.key_tensor(flat_keys_np, self.k, self.mesh[0])
         self._tally_received(_gather_by_owner([q], self.mesh)[1])
 
     def tally_result(self):
@@ -334,9 +330,8 @@ def _count_rows(codes, lengths, k, mesh):
             keys = torch.cat(parts)
             if keys.shape[0] == 0:
                 continue
-            uk, counts = (sort_count_wide(keys, k) if keys.dim() == 2
-                          else sort_count(keys, k))
-            keys_out.append(uk.cpu().numpy().reshape(-1, q))
+            uk, counts = steps.sort_count(keys, k)
+            keys_out.append(uk.cpu().numpy())
             counts_out.append(counts.cpu().numpy())
     keys = np.concatenate(keys_out)
     counts = np.concatenate(counts_out)
@@ -350,6 +345,22 @@ def sharded_count(codes, lengths, k, mesh):
     sort-count.  Returns host ``(keys, counts)``: sorted (N, W) uint32
     words and int64 counts, as the single-device count gives them."""
     rows, counts = _count_rows(codes, lengths, k, mesh)
-    if k > keys64.NARROW_K:
-        return keys64.limbs_to_words(rows, k), counts
-    return keys64.keys64_to_words(rows[:, 0], k), counts
+    return steps.to_words(rows, k), counts
+
+
+class ShardedStreamCounter(eng.StreamCounter):
+    """Mesh canonical counting (``jellyfish count -C`` over devices).
+
+    Each batch runs the sharded count (:func:`_count_rows`: extraction
+    data-parallel over the mesh, window keys routed to their owner, an
+    owner-side sort-count); the per-batch (rows, counts) merge reuses
+    :class:`~kmer_denovo_filter_tpu_torch.engine.StreamCounter`'s
+    progressive consolidation (reference engine.py:430–452).
+    """
+
+    def __init__(self, k, mesh):
+        super().__init__(k, device=mesh[0])
+        self.mesh = mesh
+
+    def feed(self, codes, lengths):
+        self.add_chunk(*_count_rows(codes, lengths, self.k, self.mesh))

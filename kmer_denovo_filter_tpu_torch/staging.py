@@ -12,7 +12,7 @@ largest batch the slot has taken, and grows when a larger one comes.
    waits for it on the host: the only back-pressure, so the host runs at
    most :data:`SLOTS` copies ahead of the copy engine;
 2. copies the caller's arrays into the slot's pinned buffers, converted as
-   :func:`.engine._to_device` converts them (uint8 codes, int32 lengths,
+   :func:`.steps.to_device` converts them (uint8 codes, int32 lengths,
    contiguous), on torch's intra-op threads: the caller's count, raised
    for the copy alone to :data:`COPY_THREADS` (or the cores this process
    may run on, if fewer) where the caller has set it lower.

@@ -4,7 +4,7 @@ uint32 key words to the port's int64 keys, on the CPU.
 K11's plain version (torch int64 arithmetic, each limb gathered field
 by field) equals the numpy conversion of ``ops/keys.py``
 (``words_to_keys64``, ``words_to_limbs``) for every odd k 3..207, with
-sentinel rows and with no row; the engine's ``_key_tensor`` keeps the
+sentinel rows and with no row; ``steps.key_tensor`` keeps the
 numpy conversion on the CPU, and a table's live rows and last live key
 come from its host words.  Every comparison is exact.
 """
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import steps
 from kmer_denovo_filter_tpu_torch import tracing
 from kmer_denovo_filter_tpu_torch.ops import convert
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
@@ -98,8 +98,8 @@ def test_k11_windows_stay_in_the_row(k):
 @pytest.mark.parametrize("k", [21, 63])
 def test_key_tensor_on_the_cpu_is_the_numpy_conversion(k):
     words = random_words(100, k, seed=3)
-    for got in (eng._key_tensor(words, k),
-                eng._key_tensor(words, k, torch.device("cpu"))):
+    for got in (steps.key_tensor(words, k),
+                steps.key_tensor(words, k, torch.device("cpu"))):
         assert torch.equal(got, numpy_keys(words, k))
 
 
@@ -113,7 +113,7 @@ def test_live_rows_come_from_the_host_words(k):
     padded = np.concatenate(
         [words, np.full((3, words.shape[1]), keys64.SENTINEL32)])
     first = numpy_keys(words, k).reshape(words.shape[0], -1)[:, 0]
-    assert eng._live_rows(padded, k) == (words.shape[0], int(first[-1]))
-    assert eng._live_rows(words, k) == (words.shape[0], int(first[-1]))
-    assert eng._live_rows(padded[-3:], k) == (0, 0)
-    assert eng._live_rows(words[:0], k) == (0, 0)
+    assert steps.live_rows(padded, k) == (words.shape[0], int(first[-1]))
+    assert steps.live_rows(words, k) == (words.shape[0], int(first[-1]))
+    assert steps.live_rows(padded[-3:], k) == (0, 0)
+    assert steps.live_rows(words[:0], k) == (0, 0)

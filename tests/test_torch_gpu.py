@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
-from kmer_denovo_filter_tpu_torch import staging, tracing
+from kmer_denovo_filter_tpu_torch import staging, steps, tracing
 from kmer_denovo_filter_tpu_torch.experiments.x_fused import pair_order
 from kmer_denovo_filter_tpu_torch.ops import device as dev
 from kmer_denovo_filter_tpu_torch.ops import directory as tdir
@@ -297,7 +297,7 @@ def _genome_batches(k, shapes, seed=0, genome=20_000):
         batches.append((codes, lengths))
     keys = []
     for codes, lengths in batches:
-        win = eng._window_keys(codes, lengths, k, torch.device("cpu"))
+        win = steps.window_keys(codes, lengths, k, torch.device("cpu"))
         if win is not None:
             keys.append(win.flatten(0, 1))
     flat = torch.cat(keys)
@@ -888,9 +888,9 @@ def test_wide_index_builds_its_directory_once(cuda):
     assert torch.equal(d.offsets.cpu(), ref.offsets)
     q = torch.from_numpy(queries_wide(table_np, k)).to(cuda)
     before = _launches("build_directory")
-    found = eng._member(q, index)
+    found = steps.member(q, index)
     acc = torch.zeros(index.n, dtype=torch.int64, device=cuda)
-    eng._tally(q, index, acc)
+    steps.tally(q, index, acc)
     torch.cuda.synchronize()
     assert _launches("build_directory") == before
     assert torch.equal(found, dev.member_wide(index.table, q))
@@ -1236,7 +1236,7 @@ def test_unordered_filter_matches_the_plain_form_and_the_oracle(
     feeds = batches * staging.SLOTS  # eager, captured, replayed
     keys = []
     for codes, lengths in batches:
-        win = eng._window_keys(codes, lengths, k, torch.device("cpu"))
+        win = steps.window_keys(codes, lengths, k, torch.device("cpu"))
         keys.append(win.flatten(0, 1) if win.dim() == 3 else win.reshape(-1))
     flat = torch.cat(keys)
     narrow = flat.dim() == 1
@@ -1521,7 +1521,7 @@ def _sharded_case(k, seed, n_reads=512, length=152):
     """(table words, host codes, host lengths): the distinct keys of the
     first 64 reads plus random keys, and *n_reads* reads with N bases."""
     codes, lengths = (t.numpy() for t in _batch(seed, n_reads, length))
-    win = eng._window_keys(codes[:64], lengths[:64], k, torch.device("cpu"))
+    win = steps.window_keys(codes[:64], lengths[:64], k, torch.device("cpu"))
     flat = win.flatten(0, 1)
     if flat.dim() == 1:
         keys = torch.unique(flat[flat != keys64.SENTINEL])
@@ -1561,7 +1561,7 @@ def test_table_owners_on_the_card_equal_the_cpu_hash(cuda, s):
         words = words.astype(np.uint32)
         words[:, -1] &= np.uint32((0xFFFFFFFF << (32 * w - 2 * k))
                                   & 0xFFFFFFFF)
-        host = eng._key_tensor(words, k)
+        host = steps.key_tensor(words, k)
         owner = hash_owner(host, s).numpy()
         tables, rows, ordered = _route_table(words, k, mesh)
         assert not ordered
@@ -1697,7 +1697,7 @@ def test_words_to_keys_kernel_matches_plain(cuda, k):
     got = convert.words_to_keys(on_card, k)
     torch.cuda.synchronize()
     assert _launches("words_to_keys") == before + 1
-    assert torch.equal(got.cpu(), eng._key_tensor(words, k))
+    assert torch.equal(got.cpu(), steps.key_tensor(words, k))
     assert torch.equal(got, convert.plain_words_to_keys(on_card, k))
     store = torch.empty(on_card.numel() + 1, dtype=torch.int32, device=cuda)
     view = store[1:].view(on_card.shape)

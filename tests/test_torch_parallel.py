@@ -16,11 +16,13 @@ from kmer_denovo_filter_tpu import kmer as jkmer
 from kmer_denovo_filter_tpu import parallel as jpar
 from kmer_denovo_filter_tpu.ops import encode as jenc
 from kmer_denovo_filter_tpu_torch import engine as eng
+from kmer_denovo_filter_tpu_torch import steps
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops.route import hash_owner
 from kmer_denovo_filter_tpu_torch.parallel import (
     ShardedFilteredCounter,
     ShardedKmerIndex,
+    ShardedStreamCounter,
     sharded_count,
     sharded_scan_reads_for_hits,
 )
@@ -82,7 +84,7 @@ def test_tally_batch_and_result_match_jax(s):
     idx = ShardedKmerIndex(keys, k, [CPU] * s)
     ref = jpar.ShardedKmerIndex(keys, k, jpar.make_mesh(s))
     for rows in (slice(0, 20), slice(20, 40)):
-        flat = eng._window_keys(codes[rows], lengths[rows], k, CPU)
+        flat = steps.window_keys(codes[rows], lengths[rows], k, CPU)
         words = keys64.keys64_to_words(flat.reshape(-1), k)
         idx.tally_batch(words)
         ref.tally_batch(words)
@@ -156,7 +158,7 @@ def test_homopolymer_batch_goes_to_one_owner(s):
     k = 31
     codes, lengths = pack_reads(["A" * 64] * 64)
     keys = jenc.kmers_to_keys(["A" * k, "C" * k], k)
-    owners = hash_owner(eng._key_tensor(keys[:1], k), s)
+    owners = hash_owner(steps.key_tensor(keys[:1], k), s)
     assert owners.numel() == 1
     fc = ShardedFilteredCounter(keys, k, [CPU] * s)
     fc.feed(codes, lengths)
@@ -243,7 +245,7 @@ def test_table_owners_in_slices(k, s):
     keys, _ = _case(k, 110 + k)
     tables, rows, ordered = _route_table(keys, k, [CPU] * s)
     assert ordered
-    host = eng._key_tensor(keys, k)
+    host = steps.key_tensor(keys, k)
     owner = hash_owner(host, s).numpy()
     for d in range(s):
         assert np.array_equal(rows[d], np.flatnonzero(owner == d))
@@ -261,7 +263,7 @@ def test_owners_roughly_uniform(k):
     distinct k-mers of 200 random reads."""
     keys = jenc.kmers_to_keys(
         _kmers(random_reads(200, k, with_n=False, seed=6), k), k)
-    owners = hash_owner(eng._key_tensor(keys, k), 8).numpy()
+    owners = hash_owner(steps.key_tensor(keys, k), 8).numpy()
     counts = np.bincount(owners, minlength=8)
     assert counts.min() > 0.5 * counts.mean()
     assert counts.max() < 1.5 * counts.mean()
@@ -324,7 +326,7 @@ def test_stream_counter_shards_only_when_forced(monkeypatch, mode, sharded):
         monkeypatch.setenv("KDF_SHARDED", mode)
     monkeypatch.setattr(eng, "_local_mesh", lambda device: [CPU, CPU])
     sc = eng.make_stream_counter(31, device=CPU)
-    assert isinstance(sc, eng.ShardedStreamCounter) is sharded
+    assert isinstance(sc, ShardedStreamCounter) is sharded
 
 
 @pytest.fixture
@@ -348,7 +350,7 @@ def test_engine_factories_take_the_sharded_engine(two_cpu_shards, k):
     assert np.array_equal(plain.result(), ref.result())
     assert np.array_equal(parent.result(), ref.result())
     sc = eng.make_stream_counter(k, device=CPU)
-    assert isinstance(sc, eng.ShardedStreamCounter)
+    assert isinstance(sc, ShardedStreamCounter)
     one = eng.StreamCounter(k, device=CPU)
     for rows in (slice(0, 15), slice(15, 40)):
         sc.feed(codes[rows], lengths[rows])

@@ -23,6 +23,7 @@ import torch
 from kmer_denovo_filter_tpu import engine as jeng
 from kmer_denovo_filter_tpu.ops import pallas_join as pj
 from kmer_denovo_filter_tpu_torch import engine as teng
+from kmer_denovo_filter_tpu_torch import steps
 from kmer_denovo_filter_tpu_torch.ops import device as tdev
 from kmer_denovo_filter_tpu_torch.ops import keys as keys64
 from kmer_denovo_filter_tpu_torch.ops import segsort
@@ -249,7 +250,7 @@ def test_engine_dedup_form_runs_k9d_then_k3_on_the_slots(monkeypatch):
     stand: no compaction, no whole-batch dedup in between; K9d in its
     unordered form, since K3 reads no order."""
     calls = []
-    real_dedup, real_tally = teng.seg_dedup, teng.probe_tally_weighted
+    real_dedup, real_tally = steps.seg_dedup, steps.probe_tally_weighted
 
     def dedup(flat, ordered=True):
         assert not ordered
@@ -261,8 +262,8 @@ def test_engine_dedup_form_runs_k9d_then_k3_on_the_slots(monkeypatch):
         calls.append(("K3", (keys, weights, counts)))
         return real_tally(keys, weights, table, acc, directory, counts)
 
-    monkeypatch.setattr(teng, "seg_dedup", dedup)
-    monkeypatch.setattr(teng, "probe_tally_weighted", tally)
+    monkeypatch.setattr(steps, "seg_dedup", dedup)
+    monkeypatch.setattr(steps, "probe_tally_weighted", tally)
     monkeypatch.setattr(tdev, "dedup_windows", None)
     k = 31
     (codes, lengths), = _batches(2, k, 300, n_batches=1)

@@ -1,7 +1,7 @@
 """The host half of the port's pinned staging ring (``staging.Stage``)
 on the CPU, where nothing is pinned: slots taken in turn and grown to the
 largest batch they take, smaller batches handed views of a slot, the
-caller's arrays converted as ``engine._to_device`` converts them and free
+caller's arrays converted as ``steps.to_device`` converts them and free
 once ``put`` returns, the growth counter, torch's thread count restored.
 The card's half (copy stream, events, the staged ``FilteredCounter``) is
 held by the ``gpu`` tests of ``tests/test_torch_gpu.py``."""
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
-from kmer_denovo_filter_tpu_torch import staging, tracing
+from kmer_denovo_filter_tpu_torch import staging, steps, tracing
 
 CPU = torch.device("cpu")
 
@@ -126,7 +126,7 @@ def _inputs():
 @pytest.mark.parametrize("name,codes,lengths", _inputs(),
                          ids=[name for name, _, _ in _inputs()])
 def test_the_copy_converts_as_to_device_does(name, codes, lengths):
-    want_codes, want_lengths = eng._to_device(codes, lengths, CPU)
+    want_codes, want_lengths = steps.to_device(codes, lengths, CPU)
     stage = staging.Stage(CPU)
     for _ in range(staging.SLOTS + 1):
         got_codes, got_lengths = stage.put(codes, lengths)
@@ -198,7 +198,7 @@ def test_the_stage_counters_are_the_engines_and_count_only_when_on():
 
 def test_a_cpu_filtered_counter_keeps_the_callers_arrays(monkeypatch):
     """On the CPU, K1 reads the caller's arrays in place: the counter
-    makes no stage, and ``_to_device`` hands K1 the caller's memory."""
+    makes no stage, and ``steps.to_device`` hands K1 the caller's memory."""
     def refuse(device):
         raise AssertionError("a CPU counter made a staging ring")
 
@@ -209,6 +209,6 @@ def test_a_cpu_filtered_counter_keeps_the_callers_arrays(monkeypatch):
                              dedup=True)
     fc.feed(codes, lengths)
     assert fc._stage is None
-    up_codes, up_lengths = eng._to_device(codes, lengths, CPU)
+    up_codes, up_lengths = steps.to_device(codes, lengths, CPU)
     assert up_codes.data_ptr() == codes.ctypes.data
     assert up_lengths.data_ptr() == lengths.ctypes.data

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from kmer_denovo_filter_tpu_torch import engine as eng
-from kmer_denovo_filter_tpu_torch import tracing
+from kmer_denovo_filter_tpu_torch import steps, tracing
 from kmer_denovo_filter_tpu_torch.kmer import canonicalize
 from kmer_denovo_filter_tpu_torch.ops import encode as enc
 from kmer_denovo_filter_tpu_torch.ops.segsort import SEGMENT
@@ -199,14 +199,14 @@ def test_the_passed_segments_counter_sums_the_dedups_flags(monkeypatch):
     """``filter.passed_segments`` adds up the dedup's per-segment flags
     (a kernel's; the CPU's plain dedup passes none through, so a stand-in
     flags every other segment) and ``filter.segments`` counts them all."""
-    real = eng.seg_dedup
+    real = steps.seg_dedup
 
     def dedup(flat, ordered=True):
         keys, weights, counts, passed = real(flat, ordered)
         passed[::2] = 1
         return keys, weights, counts, passed
 
-    monkeypatch.setattr(eng, "seg_dedup", dedup)
+    monkeypatch.setattr(steps, "seg_dedup", dedup)
     batches = _batches(6, [140, 30, 70])  # 3, 1 and 2 segments
     tracing.enable()
     fc = eng.make_parent_filter_counter(_table(batches), K, device=CPU)
